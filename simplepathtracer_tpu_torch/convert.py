@@ -4,7 +4,9 @@ The sphere tables are this system's weights.  ``convert_scene`` and
 ``convert_camera`` take any object (or mapping) holding the JAX package's
 leaf names, as numpy arrays or anything ``np.asarray`` accepts, and build
 the port's ``Scene`` / ``Camera`` in float32 / int32 on a device.  So both
-packages can render identical tables.  Nothing here imports JAX.
+packages can render identical tables.  ``convert_params`` and
+``params_to_numpy`` carry a fit's params (or gradients) dict across and
+back.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -47,3 +49,22 @@ def convert_camera(src, device=None) -> Camera:
         name: torch.as_tensor(np.array(_leaf(src, name), dtype=np.float32), device=device)
         for name in CAMERA_LEAVES
     })
+
+
+def convert_params(params, device=None) -> dict:
+    """A params dict of the JAX package's ``inverse.split_params`` (leaf
+    name -> array) as the port's: float32 tensors on ``device``."""
+    device = resolve_device(device)
+    return {
+        k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
+        for k, v in params.items() if v is not None
+    }
+
+
+def params_to_numpy(params) -> dict:
+    """A port params (or gradients) dict as numpy float32 arrays, for
+    comparing with the JAX package's."""
+    return {
+        k: np.asarray(v.detach().cpu().numpy(), dtype=np.float32)
+        for k, v in params.items() if v is not None
+    }

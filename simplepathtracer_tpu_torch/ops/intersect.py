@@ -25,7 +25,9 @@ class Hit(NamedTuple):
     normal: torch.Tensor  # [N, 3] f32 — outward (flipped for radius < 0)
 
 
-# Floor for sqrt(disc): keeps d sqrt / d theta finite at grazing hits.
+# Floor for sqrt(disc): keeps d sqrt / d theta finite at grazing hits.  It
+# is applied with torch.maximum against a tensor, which splits the gradient
+# 0.5/0.5 at a tie as jnp.maximum does (torch.clamp would pass it whole).
 _DISC_EPS = 1e-12
 
 
@@ -42,7 +44,7 @@ def ray_sphere_ts(origins, dirs, centers, radii, t_min):
     )
     disc = radii[None, :] ** 2 - (oc2 - tc * tc)
     valid = disc > 0.0
-    sq = torch.sqrt(torch.clamp(disc, min=_DISC_EPS))
+    sq = torch.sqrt(torch.maximum(disc, disc.new_tensor(_DISC_EPS)))
     t_near = tc - sq
     t = torch.where(t_near > t_min, t_near, tc + sq)
     return t, valid
@@ -62,7 +64,7 @@ def hit_from_gathered(origins, dirs, i, hit, c, r, t_min, t_max) -> Hit:
     oc = c - origins
     tc = torch.sum(oc * dirs, -1)
     disc = r * r - (torch.sum(oc * oc, -1) - tc * tc)
-    sq = torch.sqrt(torch.clamp(disc, min=_DISC_EPS))
+    sq = torch.sqrt(torch.maximum(disc, disc.new_tensor(_DISC_EPS)))
     t_near = tc - sq
     t = torch.where(t_near > t_min, t_near, tc + sq)
     t = torch.where(hit, t, torch.full_like(t, t_max))

@@ -22,7 +22,7 @@ def _reflect(d, n):
 
 def _safe_normalize(v, fallback):
     n2 = torch.sum(v * v, -1, keepdim=True)
-    unit = v / torch.sqrt(torch.clamp(n2, min=1e-20))
+    unit = v / torch.sqrt(torch.maximum(n2, n2.new_tensor(1e-20)))
     return torch.where(n2 > 1e-12, unit, fallback)
 
 
@@ -53,16 +53,19 @@ def scatter_attrs(dirs, n, mat, albedo, fuzz, ior, unif):
     )
     metal_ok = torch.sum(metal_dir * n_face, -1) > 0.0
 
-    # Schlick + total internal reflection tested without a sqrt.
+    # Schlick + total internal reflection tested without a sqrt.  The
+    # clamps are jnp.minimum / jnp.maximum against tensors, which split the
+    # gradient 0.5/0.5 at a tie (a head-on hit has cos_t == 1 exactly), as
+    # JAX does; torch.clamp would pass it whole.
     eta = torch.where(front, 1.0 / ior, ior)
-    cos_t = torch.clamp(-torch.sum(dirs * n_face, -1), max=1.0)
-    sin2 = torch.clamp(1.0 - cos_t * cos_t, min=0.0)
+    cos_t = torch.minimum(-torch.sum(dirs * n_face, -1), dirs.new_tensor(1.0))
+    sin2 = torch.maximum(1.0 - cos_t * cos_t, dirs.new_tensor(0.0))
     cannot_refract = eta * eta * sin2 > 1.0
     r0 = ((1.0 - eta) / (1.0 + eta)) ** 2
     reflect_prob = r0 + (1.0 - r0) * (1.0 - cos_t) ** 5
     do_reflect = cannot_refract | (unif[:, 5] < reflect_prob)
     perp = eta[:, None] * (dirs + cos_t[:, None] * n_face)
-    par_len = torch.sqrt(torch.clamp(1.0 - torch.sum(perp * perp, -1), min=1e-12))
+    par_len = torch.sqrt(torch.maximum(1.0 - torch.sum(perp * perp, -1), dirs.new_tensor(1e-12)))
     refr = perp - par_len[:, None] * n_face
     diel_dir = torch.where(do_reflect[:, None], refl, refr)
     diel_dir = _safe_normalize(diel_dir, n_face)

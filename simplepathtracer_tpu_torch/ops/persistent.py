@@ -12,29 +12,17 @@ On a CUDA tensor it launches the hand-written kernel in
 the kernel's formulation (direct |oc|^2, camera rays from the f32[19]
 block, exp(log(u)/3) cube root), so that the two differ by rounding only.
 
-The kernel is built from the sources in ``csrc/`` at first use, with nvcc
-for sm_90a into a shared library with a plain C interface, loaded with
-ctypes.  The build goes to the package's ``build/`` directory (ignored by
-git), under a name keyed on a hash of the sources and flags.
+The kernel is built from the sources in ``csrc/`` at first use
+(``ops/cuda_build.py``: nvcc for sm_90a, a plain C interface, ctypes).
 """
 
 from __future__ import annotations
-
-import ctypes
-import dataclasses
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..types import Material
+from .cuda_build import load_library
 from .sampling import key_words, threefry2x32, _to_unit_float
 
 # Lanes are laid out in blocks of this many positions: fewer pixels than one
@@ -47,12 +35,6 @@ BLOCK = 1024
 # blocks, and the card's block scheduler evens out their work (PERF.md).
 GPU_BANKS = 1
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parent.parent / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 # Shared memory one block may use on an H100 (227 KB).
 _MAX_SMEM = 232448
 _SMEM_PER_SPHERE = 40   # float4 + float4 + float2
@@ -94,59 +76,6 @@ def camera_constants(cam, width, height) -> torch.Tensor:
     return torch.cat(
         [cam.origin, lower_left, horizontal, vertical, u, v, lens]
     ).to(torch.float32)
-
-
-# --------------------------------------------------------------------------
-# Build and load
-
-
-@functools.lru_cache(maxsize=None)
-def load_library():
-    """Build (once per source hash) and load the kernel library.
-
-    Returns a ``KernelLibrary`` with the ctypes handle, the .so path, the
-    build seconds (0 when it was already built) and nvcc's output.
-    """
-    sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    so_path = _BUILD / f"spt_kernels_{h.hexdigest()[:16]}.so"
-    log, seconds = "", 0.0
-    if not so_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        cu = [str(s) for s in sources if s.suffix == ".cu"]
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *_NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(str(so_path))
-    fn = lib.spt_persistent_render
-    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-    fn.argtypes = [P, I, I, I, P, I, P, I, U, U, U, I, I, I, F, F, F, F, I, P, P, P]
-    fn.restype = ctypes.c_int
-    return KernelLibrary(lib=lib, path=so_path, build_seconds=seconds, log=log)
-
-
-@dataclasses.dataclass(frozen=True)
-class KernelLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float
-    log: str
 
 
 # --------------------------------------------------------------------------
@@ -315,19 +244,17 @@ def _scatter_plain(dx, dy, dz, nx, ny, nz, mat, fz, io, u):
     return sd, is_diel, scattered
 
 
-def _trace_plain(pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
-                 width, height, t_min, t_max, rr_start_depth):
-    """Trace one (pixel, sample) path per entry: ([N, 3] radiance, [N]
-    bounce iterations)."""
+def camera_ray_plain(cam19, k0, k1, pix, sid, width, height):
+    """Thin-lens camera rays (ox, oy, oz, dx, dy, dz) for int64 pixel and
+    sample ids: the kernels' camera_ray (slots 124/125) in the same ops."""
     f32 = torch.float32
-    cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = tables
     c1b = (sid << 8) & 0xFFFFFFFF
+    c = cam19.tolist()
 
     def uniforms(slot):
         w0, w1 = threefry2x32(k0, k1, pix, c1b | slot)
         return _to_unit_float(w0), _to_unit_float(w1)
 
-    c = cam19.tolist()
     xf = (pix % width).to(f32)
     yf = torch.div(pix, width, rounding_mode="floor").to(f32)
     jx, jy = uniforms(124)
@@ -344,7 +271,42 @@ def _trace_plain(pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
     dy = c[4] + s01 * c[7] + t01 * c[10] - oy
     dz = c[5] + s01 * c[8] + t01 * c[11] - oz
     ninv = torch.rsqrt(_dot(dx, dy, dz, dx, dy, dz) + 1e-20)
-    dx, dy, dz = dx * ninv, dy * ninv, dz * ninv
+    return ox, oy, oz, dx * ninv, dy * ninv, dz * ninv
+
+
+def closest_hit_plain(ox, oy, oz, dx, dy, dz, cx, cy, cz, rad, t_min, t_max):
+    """The kernels' closest_hit over [N] rays and [S] spheres: (t [N],
+    index [N] int64, hit [N] bool) -- nearest valid root, first index on
+    ties, t_max and index 0 on a miss."""
+    ocx = cx[None, :] - ox[:, None]
+    ocy = cy[None, :] - oy[:, None]
+    ocz = cz[None, :] - oz[:, None]
+    tc = ocx * dx[:, None] + ocy * dy[:, None] + ocz * dz[:, None]
+    oc2 = ocx * ocx + ocy * ocy + ocz * ocz
+    disc = (rad * rad)[None, :] - (oc2 - tc * tc)
+    sq = torch.sqrt(disc)
+    t_near = tc - sq
+    t = torch.where(t_near > t_min, t_near, tc + sq)
+    ok = (t > t_min) & (t < t_max)
+    t_sel = torch.where(ok, t, torch.full_like(t, t_max))
+    bi = torch.argmin(t_sel, dim=1)
+    bt = torch.gather(t_sel, 1, bi[:, None])[:, 0]
+    return bt, bi, bt < t_max
+
+
+def _trace_plain(pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
+                 width, height, t_min, t_max, rr_start_depth):
+    """Trace one (pixel, sample) path per entry: ([N, 3] radiance, [N]
+    bounce iterations)."""
+    f32 = torch.float32
+    cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = tables
+    c1b = (sid << 8) & 0xFFFFFFFF
+
+    def uniforms(slot):
+        w0, w1 = threefry2x32(k0, k1, pix, c1b | slot)
+        return _to_unit_float(w0), _to_unit_float(w1)
+
+    ox, oy, oz, dx, dy, dz = camera_ray_plain(cam19, k0, k1, pix, sid, width, height)
 
     n = pix.shape[0]
     tp = [torch.ones(n, dtype=f32, device=pix.device) for _ in range(3)]
@@ -354,21 +316,7 @@ def _trace_plain(pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
     sky = sky6.tolist()
     for b in range(max_depth):
         iters = iters + alive.to(f32)
-        # Closest sphere: nearest valid root, first index on ties.
-        ocx = cx[None, :] - ox[:, None]
-        ocy = cy[None, :] - oy[:, None]
-        ocz = cz[None, :] - oz[:, None]
-        tc = ocx * dx[:, None] + ocy * dy[:, None] + ocz * dz[:, None]
-        oc2 = ocx * ocx + ocy * ocy + ocz * ocz
-        disc = (rad * rad)[None, :] - (oc2 - tc * tc)
-        sq = torch.sqrt(disc)
-        t_near = tc - sq
-        t = torch.where(t_near > t_min, t_near, tc + sq)
-        ok = (t > t_min) & (t < t_max)
-        t_sel = torch.where(ok, t, torch.full_like(t, t_max))
-        bi = torch.argmin(t_sel, dim=1)
-        bt = torch.gather(t_sel, 1, bi[:, None])[:, 0]
-        hit = bt < t_max
+        bt, bi, hit = closest_hit_plain(ox, oy, oz, dx, dy, dz, cx, cy, cz, rad, t_min, t_max)
         w = (cx[bi], cy[bi], cz[bi], rad[bi], ar[bi], ag[bi], ab[bi],
              mat[bi].to(torch.int64), fz[bi], io[bi])
         wcx, wcy, wcz, wr, war, wag, wab, wmat, wfz, wio = w

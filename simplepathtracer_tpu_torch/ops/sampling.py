@@ -38,6 +38,16 @@ def make_key(seed: int) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64)
 
 
+def fold_in(key, data: int) -> torch.Tensor:
+    """A new key from ``key`` and the integer ``data``: the words
+    ``jax.random.fold_in`` gives for a raw threefry key (the cipher applied
+    to the counter (0, data mod 2^32)).  Returned as an int64 [2] tensor on
+    the CPU, like ``make_key``."""
+    k0, k1 = key_words(key)
+    w0, w1 = threefry2x32(k0, k1, 0, int(data) & _M32)
+    return torch.tensor([int(w0), int(w1)], dtype=torch.int64)
+
+
 def key_words(key) -> tuple[int, int]:
     """(k0, k1) as Python ints from a key tensor or array of two words."""
     kd = key.tolist() if isinstance(key, torch.Tensor) else np.asarray(key).tolist()

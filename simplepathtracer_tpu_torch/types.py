@@ -107,10 +107,6 @@ def make_camera(
 # one away from its default raises instead of being ignored.
 _NOT_PORTED = {
     "use_pallas_hits": False,
-    "use_pallas_grad": False,
-    "grad_regen": False,
-    "grad_regen_banks": 0,
-    "grad_regen_stream": True,
     "camera_grad": False,
     "silhouette_softness": 0.0,
     "rng_impl": "threefry2x32",
@@ -123,8 +119,11 @@ class RenderConfig:
 
     ``use_pallas`` keeps its meaning: the forward render goes through the
     persistent kernel (on a CUDA tensor the CUDA kernel, on a CPU tensor its
-    plain PyTorch version).  The JAX package's ``pallas_interpret`` has no
-    counterpart: the tensors' device picks the kernel or its plain version.
+    plain PyTorch version).  So do ``use_pallas_grad`` with ``grad_regen``
+    (the regeneration gradient kernels, ``ops/grad_regen.py``) and
+    ``grad_regen_banks`` (pixel banks per lane; 0 = ``GPU_BANKS``).  The JAX
+    package's ``pallas_interpret`` has no counterpart: the tensors' device
+    picks the kernel or its plain version.
     """
 
     width: int = 1440
@@ -155,6 +154,12 @@ class RenderConfig:
                 f"max_depth={self.max_depth} exceeds 30, the RNG slot-map "
                 "limit (bounce b uses slots 4b..4b+3; camera uses 124/125 — "
                 "see ops/sampling.py)"
+            )
+        if self.use_pallas_grad and not self.grad_regen:
+            raise NotImplementedError(
+                "RenderConfig.use_pallas_grad=True with grad_regen=False: the "
+                "per-bounce fused gradient kernels are not ported to PyTorch "
+                "yet; set grad_regen=True for the regeneration kernels"
             )
         for name, default in _NOT_PORTED.items():
             if getattr(self, name) != default:
