@@ -17,7 +17,15 @@ lanes against the plain versions, the bucket against ``index_add_``); the
 regen forward against the persistent kernel over the full frame, with
 every sample also run alone to find the paths that differ; and ``fit`` on
 the full frame (albedo and sky fitted, centers and radii frozen), whose
-loss must fall and which must run through the kernels only.
+loss must fall and which must run through the kernels only.  Phase 5
+also holds the soft-silhouette instantiations against their plain versions
+(sphere-only, and plane + Russian roulette + spp chunks), and phase 7
+drives soft silhouettes on the main path: ``fit`` with its own defaults
+(softness 0.02, every leaf, the decoupled loss) on the full cover frame
+through the soft kernels only, each soft kernel at that fit's chunk on
+2,048 random lanes against its plain version, the plane leaf of
+``three_sphere_plane`` at its full size (the crossing coin live), and the
+half-buried radius AD/FD of tests/test_crossing.py through the kernels.
 Every phase raises on failure.  The last lines are one JSON object with the
 kernels' numbers and one with the device; without CUDA the script exits
 non-zero and prints neither.  Imports nothing of JAX.
@@ -33,6 +41,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # One sphere test is 20 FP32 operations (csrc/persistent.cu, closest_hit).
@@ -47,13 +56,15 @@ N_CHECK_PIXELS = 2048
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-6
 # Backward kernel against its plain version: expected bit-exact.
 BWD_RTOL = 1e-5
-# Bucket against index_add_: atomics add in a changing order.  At full
-# width an entry sums up to ~2e7 rows.  A float32 sum of n rows in any
-# order errs by at most (n - 1) roundings of the sum of their magnitudes;
-# against a float64 index_add_ the kernel may be off by BUCKET_SUM_ROUNDINGS
-# of them (the kernel's blocked sums err by about 1; a float32 index_add_,
-# one long chain of atomics per entry, by 5 to 30 on the cover chunk's rows;
-# a missing block or row still shows).
+# Bucket against index_add_: atomics add in a changing order.  At full width
+# an entry sums up to ~2e7 rows, at the small shapes of phase 5 a few
+# thousand, whose signs may cancel (the blocker's columns), so neither
+# float32 sum is held to the other relative to the sum alone.  A float32 sum
+# of n rows in any order errs by at most (n - 1) roundings of the sum of
+# their magnitudes; against a float64 index_add_ the kernel may be off by
+# BUCKET_SUM_ROUNDINGS of them (the kernel's blocked sums err by about 1; a
+# float32 index_add_, one long chain of atomics per entry, by 5 to 30 on the
+# cover chunk's rows; a missing block or row still shows).
 BUCKET_RTOL, BUCKET_ATOL_REL = 1e-5, 1e-7
 F32_EPS = 2.0 ** -23
 BUCKET_SUM_ROUNDINGS = 8
@@ -73,6 +84,22 @@ FLIP_TOL = 1e-4
 # The fit of phase 6: Adam steps timed, learning rate, start point.
 FIT_STEPS, FIT_LR = 3, 2e-2
 ALBEDO_START, SKY_START = 0.6, 0.8
+# Phase 7, soft silhouettes: fit()'s default softness; the start's offset
+# of three object centers (cover spheres 1-3, along x); the half-buried
+# radius AD/FD check of tests/test_crossing.py:132-169 and its bound.
+DEFAULT_SOFTNESS = 0.02
+CENTER_START = 0.05
+ADFD_SOFTNESS, ADFD_EPS, ADFD_BOUNDS = 0.05, 4e-3, (0.3, 1.8)
+# One soft sphere test is ~32 FP32 operations (csrc/common.cuh,
+# closest_hit_soft: the hard test's 20 plus the clamp, two thresholds, the
+# blocker's score and five compares).
+FLOPS_PER_SOFT_SPHERE_TEST = 32
+# Backward, soft: the hard 400 plus the ratio's forward (~130: six exp,
+# the blocker's root, the crossing factor) and adjoint (~220).
+BWD_OPS_PER_ITER_SOFT = 750
+N_RES_PLANES_SOFT = 30
+N_CT_PLANES_SOFT = 13
+N_BLK_PLANES = 4
 
 _SRC = "simplepathtracer_tpu_torch/csrc/"
 _JAX = "simplepathtracer_tpu/ops/"
@@ -83,6 +110,31 @@ GRAD_KERNELS = (
     ("regen_bwd", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:462"),
     ("bucket", _SRC + "bucket.cu", _JAX + "pallas_bucket.py:50"),
 )
+# The soft-silhouette instantiations (the same TPU kernels' soft branches;
+# the blocker bucket is bucket.cu with 4 columns).
+SOFT_KERNELS = (
+    ("regen_fwd_soft", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:133"),
+    ("regen_refwd_soft", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:1095"),
+    ("regen_bwd_soft", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:462"),
+    ("bucket_blocker", _SRC + "bucket.cu", _JAX + "pallas_bucket.py:50"),
+)
+# Soft silhouettes with a ground plane (the crossing coin).
+SOFT_PLANE_KERNELS = (
+    ("regen_fwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:133"),
+    ("regen_refwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:1095"),
+    ("regen_bwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:462"),
+)
+# Report-name suffix of each regen kernel variant (ops/grad_regen.variant)
+# and report name of each bucket column count.
+VARIANT_SUFFIX = {"hard": "", "soft": "_soft", "soft_plane": "_soft_plane"}
+BUCKET_NAMES = {9: "bucket", N_BLK_PLANES: "bucket_blocker"}
+
+
+def kernel_names(variant):
+    """Report names of the gradient kernels of one regen variant."""
+    sfx = VARIANT_SUFFIX[variant]
+    return {"regen_fwd": "regen_fwd" + sfx, "regen_refwd": "regen_refwd" + sfx,
+            "regen_bwd": "regen_bwd" + sfx, "bucket": "bucket"}
 
 
 def gamma_image(sums, spp):
@@ -140,8 +192,24 @@ def grad_wrappers():
 
 def reset_counts(wrappers):
     for kernel, plain in wrappers.values():
-        kernel.launches = 0
+        kernel.launches.clear()
         plain.calls = 0
+
+
+def launch_counts(wrappers):
+    """Launches since the counts were reset, by report name: each regen
+    kernel by variant, the bucket by column count."""
+    out = {}
+    for k in ("regen_fwd", "regen_refwd", "regen_bwd"):
+        for v, n in wrappers[k][0].launches.items():
+            out[kernel_names(v)[k]] = n
+    for cols, n in wrappers["bucket"][0].launches.items():
+        out[BUCKET_NAMES[cols]] = n
+    return {k: n for k, n in out.items() if n}
+
+
+def plain_calls(wrappers):
+    return {k: plain.calls for k, (_, plain) in wrappers.items()}
 
 
 @contextlib.contextmanager
@@ -163,19 +231,23 @@ def plain_route():
         yield
     finally:
         gr.regen_forward, gr.regen_refwd, gr.regen_backward, bucket.bucket_cols = saved
-    launches = {k: kern.launches for k, (kern, _) in wrappers.items()}
-    calls = {k: plain.calls for k, (_, plain) in wrappers.items()}
-    if any(launches.values()) or not all(calls.values()):
+    launches = launch_counts(wrappers)
+    calls = plain_calls(wrappers)
+    if launches or not all(calls.values()):
         raise RuntimeError(f"plain route did not take the plain versions only: kernel "
                            f"launches {launches}, plain calls {calls}")
 
 
 def equal_on_alive(a, b, alive):
     """Residual planes a, b ([k, n_iter, n_lanes]) bit-identical where
-    ``alive``; alive and idx (float plane 9, int plane 3) everywhere."""
+    ``alive``; alive and idx (float plane 9, int plane 3) everywhere, and
+    under soft silhouettes the blocker index (int plane 5) too."""
     (af, ai), (bf, bi) = a, b
-    return (torch.equal(af[:, alive], bf[:, alive]) and torch.equal(ai[:, alive], bi[:, alive])
-            and torch.equal(af[9], bf[9]) and torch.equal(ai[3], bi[3]))
+    ok = (torch.equal(af[:, alive], bf[:, alive]) and torch.equal(ai[:, alive], bi[:, alive])
+          and torch.equal(af[9], bf[9]) and torch.equal(ai[3], bi[3]))
+    if ai.shape[0] > 5:
+        ok = ok and torch.equal(ai[5], bi[5])
+    return ok
 
 
 def normwise_err(got, want):
@@ -195,6 +267,26 @@ def grads_close(got, want, rtol=GRAD_RTOL, atol=GRAD_ATOL):
     return ok, worst
 
 
+def bucket_rows(c, idx, s):
+    """The rows of a bucket call whose index names a sphere: (index [n]
+    int64, cotangents [n, K] f32)."""
+    flat = idx.reshape(-1)
+    keep = (flat >= 0) & (flat < s)
+    return flat[keep].to(torch.int64), c.reshape(c.shape[0], -1)[:, keep].T.contiguous()
+
+
+def bucket_errors(d_k, d_p, idx_keep, src, s):
+    """|d| of the kernel's table ``d_k`` and of the float32 index_add_
+    ``d_p`` against a float64 index_add_ of the same rows, the bound each
+    entry of the kernel's keeps (BUCKET_* above), and the table's max."""
+    ref = torch.zeros((s, src.shape[1]), dtype=torch.float64, device=src.device)
+    ref.index_add_(0, idx_keep, src.double())
+    mag = torch.zeros_like(ref).index_add_(0, idx_keep, src.abs().double())
+    tol = (BUCKET_RTOL * ref.abs() + BUCKET_ATOL_REL * src.abs().max().double()
+           + BUCKET_SUM_ROUNDINGS * F32_EPS * mag)
+    return (d_k.double() - ref).abs(), (d_p.double() - ref).abs(), tol, ref.abs().max().item()
+
+
 def loss_and_grads(tpt, scene, target, cam, cfg, key, dev, pixel_perm=None):
     params, _ = tpt.split_params(scene)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
@@ -204,33 +296,52 @@ def loss_and_grads(tpt, scene, target, cam, cfg, key, dev, pixel_perm=None):
 
 
 def phase5_kernels(tpt, dev):
-    """The gradient kernels against their plain versions at small shapes.
-    Returns ({kernel: max |d| seen}, {kernel: plain ms at the cover shape},
-    {kernel: kernel ms at the cover shape}, the cover shape)."""
+    """The gradient kernels against their plain versions at small shapes,
+    hard and with soft silhouettes.  Returns ({kernel: max |d| seen},
+    {kernel: plain ms}, {kernel: kernel ms}, {kernel: the shape of those
+    two times}: the cover cases, and the soft plane case for the soft plane
+    instantiations)."""
     from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
 
     trio_cam = dict(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=90)
+
+    def cover():
+        return tpt.compact_scene(tpt.cover_scene(0, device=dev)), tpt.PRESETS["cover"].camera_fn(dev)
+
+    def trio_plane():
+        return (tpt.with_ground_plane(tpt.three_sphere_scene(device=dev)),
+                tpt.make_camera(**trio_cam, device=dev))
+
+    def reference():
+        return (tpt.reference_scene(device=dev),
+                tpt.make_camera(origin=(0, 1, -3), lookat=(0, 1, 0), vfov_deg=90, device=dev))
+
     cases = [
-        ("cover", tpt.compact_scene(tpt.cover_scene(0, device=dev)),
-         tpt.PRESETS["cover"].camera_fn(dev), 64, 32, 4, 10, 0),
-        ("three_sphere_plane", tpt.with_ground_plane(tpt.three_sphere_scene(device=dev)),
-         tpt.make_camera(**trio_cam, device=dev), 48, 24, 8, 10, 2),
-        ("reference_37x13", tpt.reference_scene(device=dev),
-         tpt.make_camera(origin=(0, 1, -3), lookat=(0, 1, 0), vfov_deg=90, device=dev),
-         37, 13, 4, 10, 0),
+        # name, scene and camera, w, h, spp, depth, rr, softness, spp_chunk
+        # of the pixel_loss check (the soft plane case is the combined case
+        # of tests/test_pallas_grad_regen.py:590: plane, soft, RR, stream)
+        ("cover", cover, 64, 32, 4, 10, 0, 0.0, 2),
+        ("three_sphere_plane", trio_plane, 48, 24, 8, 10, 2, 0.0, 4),
+        ("reference_37x13", reference, 37, 13, 4, 10, 0, 0.0, 2),
+        ("cover_soft", cover, 64, 32, 4, 10, 0, 0.05, 2),
+        ("three_sphere_plane_soft", trio_plane, 48, 24, 8, 10, 2, 0.05, 2),
     ]
-    errs = {name: 0.0 for name, _, _ in GRAD_KERNELS}
-    plain_ms, kernel_ms, shape = {}, {}, None
+    errs = {name: 0.0 for name, _, _ in GRAD_KERNELS + SOFT_KERNELS + SOFT_PLANE_KERNELS}
+    plain_ms, kernel_ms, shapes = {}, {}, {}
     gen = torch.Generator().manual_seed(1)
     key = tpt.make_key(3)
-    for name, scene, cam, w, h, spp, depth, rr in cases:
-        cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr)
+    for name, build, w, h, spp, depth, rr, softness, chunk in cases:
+        scene, cam = build()
+        soft = softness > 0.0
+        cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
+                               silhouette_softness=softness)
         inputs, cam19 = gr._trace_inputs(scene, cam, cfg)
         pix = torch.arange(w * h, device=dev)
         call = gr.regen_call(inputs[:11], inputs[11], inputs[12], cam19, key, pix,
                              n_samples=spp, max_depth=depth, width=w, height=h,
-                             rr_start_depth=rr)
-        tag = f"phase5 {name} {w}x{h} spp={spp} depth={depth} rr={rr}"
+                             rr_start_depth=rr, softness=softness)
+        kn = kernel_names(gr.variant(call))
+        tag = f"phase5 {name} {w}x{h} spp={spp} depth={depth} rr={rr} soft={softness}"
 
         # Recording forward, both modes: bit-exact.
         rad_k, cnt_k, res_k = gr.regen_forward(call, 0, True)
@@ -244,11 +355,16 @@ def phase5_kernels(tpt, dev):
         radi_p, cnti_p, pk_p = gr.regen_fwd_reference(call, 0, False)
         idx_ok = (torch.equal(radi_k, radi_p) and torch.equal(cnti_k, cnti_p)
                   and torch.equal(pk_k, pk_p) and torch.equal(radi_k, rad_k))
-        errs["regen_fwd"] = max(errs["regen_fwd"], (rad_k - rad_p).abs().max().item(),
-                                (radi_k - radi_p).abs().max().item())
+        errs[kn["regen_fwd"]] = max(errs[kn["regen_fwd"]], (rad_k - rad_p).abs().max().item(),
+                                    (radi_k - radi_p).abs().max().item())
+        extra = ""
+        if soft:
+            idx = res_p[1][3]
+            extra = (f", blockers {(res_p[1][5][alive] >= 0).sum().item()}, crossing-loser "
+                     f"plane wins {(idx[alive] == gr.PLANE_CROSS_IDX).sum().item()}")
         print(f"{tag}: regen fwd full {'bit-exact' if full_ok else 'DIFFERS'}, idx-only "
               f"{'bit-exact' if idx_ok else 'DIFFERS'} (n_iter={call.n_iter}, "
-              f"iterations={cnt_k.sum().item():.0f}, alive entries={alive.sum().item()})")
+              f"iterations={cnt_k.sum().item():.0f}, alive entries={alive.sum().item()}{extra})")
         if not (full_ok and idx_ok):
             raise RuntimeError(f"{tag}: regen forward kernel disagrees with its plain version")
 
@@ -259,8 +375,8 @@ def phase5_kernels(tpt, dev):
         refwd_ok = equal_on_alive(res_r, res_k, alive)
         res_rp = gr.regen_refwd_reference(call, 0, pk_k)
         refwd_ok = refwd_ok and equal_on_alive(res_rp, res_k, alive)
-        errs["regen_refwd"] = max(errs["regen_refwd"],
-                                  (res_r[0][:, alive] - res_k[0][:, alive]).abs().max().item())
+        errs[kn["regen_refwd"]] = max(errs[kn["regen_refwd"]],
+                                      (res_r[0][:, alive] - res_k[0][:, alive]).abs().max().item())
         print(f"{tag}: re-forward planes {'bit-exact' if refwd_ok else 'DIFFER'} on alive entries")
         if not refwd_ok:
             raise RuntimeError(f"{tag}: re-forward kernel disagrees with the recording forward")
@@ -271,27 +387,34 @@ def phase5_kernels(tpt, dev):
         sync(dev)
         ctp_p, part_p = gr.regen_bwd_reference(call, 0, res_k[0], res_k[1], ct)
         (e1, d1), (e2, d2) = normwise_err(ctp_k, ctp_p), normwise_err(part_k, part_p)
-        errs["regen_bwd"] = max(errs["regen_bwd"], d1, d2)
+        errs[kn["regen_bwd"]] = max(errs[kn["regen_bwd"]], d1, d2)
         print(f"{tag}: backward cotangent planes rel {e1:.3e} (max|d| {d1:.3e}), "
               f"partials rel {e2:.3e} (max|d| {d2:.3e})")
         if not (e1 <= BWD_RTOL and e2 <= BWD_RTOL and torch.isfinite(ctp_k).all()):
             raise RuntimeError(f"{tag}: backward kernel disagrees with its plain version")
 
-        # Bucket against index_add_.
+        # Buckets against index_add_: the winners' 9 columns; soft, the
+        # blockers' 4 by blocker index.
         s = call.n_spheres
-        d_k = bucket.bucket_cols(ctp_k, res_k[1][3], s)
-        sync(dev)
-        d_p = bucket.bucket_cols_reference(ctp_k, res_k[1][3], s)
-        tol = BUCKET_RTOL * d_p.abs() + BUCKET_ATOL_REL * ctp_k.abs().max()
-        diff = (d_k - d_p).abs()
-        errs["bucket"] = max(errs["bucket"], diff.max().item())
-        print(f"{tag}: bucket max|d| {diff.max().item():.3e} (table max {d_p.abs().max().item():.3e})")
-        if not bool((diff <= tol).all()):
-            raise RuntimeError(f"{tag}: bucket kernel disagrees with index_add_")
+        cols = [("bucket", ctp_k[:9], res_k[1][3])]
+        if soft:
+            cols.append(("bucket_blocker", ctp_k[9:], res_k[1][5]))
+        for bname, c, idx in cols:
+            d_k = bucket.bucket_cols(c, idx, s)
+            sync(dev)
+            d_p = bucket.bucket_cols_reference(c, idx, s)
+            err_k, err_p, tol, top = bucket_errors(d_k, d_p, *bucket_rows(c, idx, s), s)
+            errs[bname] = max(errs[bname], err_k.max().item())
+            print(f"{tag}: {bname} ({c.shape[0]} columns) against float64 index_add_: max|d| "
+                  f"{err_k.max().item():.3e}, max |d| / tol {(err_k / tol).max().item():.3f} "
+                  f"(float32 index_add_ {err_p.max().item():.3e}, "
+                  f"{(err_p / tol).max().item():.3f}); table max {top:.3e}")
+            if not bool((err_k <= tol).all()):
+                raise RuntimeError(f"{tag}: {bname} kernel disagrees with index_add_")
 
         # pixel_loss through the kernels against the plain route, streamed
-        # over 2 chunks where spp allows.
-        gcfg = cfg.replace(use_pallas_grad=True, grad_regen=True, spp_chunk=spp // 2)
+        # over several chunks.
+        gcfg = cfg.replace(use_pallas_grad=True, grad_regen=True, spp_chunk=chunk)
         target = torch.full((h, w, 3), 0.25, device=dev)
         l_k, g_k = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
         with plain_route():
@@ -299,24 +422,29 @@ def phase5_kernels(tpt, dev):
         ok, worst = grads_close(list(g_k.values()), list(g_p.values()))
         rel = abs(l_k.item() - l_p.item()) / abs(l_p.item())
         print(f"{tag}: pixel_loss kernels {l_k.item():.9g} plain {l_p.item():.9g} (rel {rel:.2e}), "
-              f"gradients max|d| {worst:.3e} over {len(g_k)} leaves")
+              f"gradients max|d| {worst:.3e} over {len(g_k)} leaves, {spp // chunk} chunks")
         if not (ok and rel <= 1e-6):
             raise RuntimeError(f"{tag}: pixel_loss through the kernels disagrees with the plain route")
 
-        if name == "cover" and dev.type == "cuda":
-            shape = f"{w}x{h}x{spp}spp depth {depth}"
+        if name in ("cover", "cover_soft", "three_sphere_plane_soft") and dev.type == "cuda":
+            shape = f"{name} {w}x{h}x{spp}spp depth {depth} rr {rr} soft {softness}"
             bwd_args = (call, 0, res_k[0], res_k[1], ct)
-            for kname, kern, plain, args in (
-                ("regen_fwd", gr.regen_forward, gr.regen_fwd_reference, (call, 0, False)),
-                ("regen_refwd", gr.regen_refwd, gr.regen_refwd_reference, (call, 0, pk_k)),
-                ("regen_bwd", gr.regen_backward, gr.regen_bwd_reference, bwd_args),
-                ("bucket", bucket.bucket_cols, bucket.bucket_cols_reference,
-                 (ctp_k, res_k[1][3], s)),
-            ):
+            timed = [
+                (kn["regen_fwd"], gr.regen_forward, gr.regen_fwd_reference, (call, 0, False)),
+                (kn["regen_refwd"], gr.regen_refwd, gr.regen_refwd_reference, (call, 0, pk_k)),
+                (kn["regen_bwd"], gr.regen_backward, gr.regen_bwd_reference, bwd_args),
+            ]
+            if name != "three_sphere_plane_soft":
+                for bname, c, idx in cols[-1:]:
+                    timed.append((bname, bucket.bucket_cols, bucket.bucket_cols_reference,
+                                  (c, idx, s)))
+            for kname, kern, plain, args in timed:
                 plain_ms[kname] = cuda_ms(lambda: plain(*args), reps=2)
                 kernel_ms[kname] = cuda_ms(lambda: kern(*args), reps=10)
-            print(f"phase5 cover {shape}: plain ms {plain_ms}, kernel ms {kernel_ms}")
-    return errs, plain_ms, kernel_ms, shape
+                shapes[kname] = shape
+                print(f"phase5 {shape}: {kname} plain {plain_ms[kname]:.3f} ms, kernel "
+                      f"{kernel_ms[kname]:.3f} ms")
+    return errs, plain_ms, kernel_ms, shapes
 
 
 def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_counts, wrappers):
@@ -412,8 +540,8 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
     sync(dev)
     out["step_s"] = (time.perf_counter() - t0) / FIT_STEPS
     out["fit_peak_gb"] = peak_gb(dev)
-    out["launches"] = {k: kern.launches for k, (kern, _) in wrappers.items()}
-    out["plain_calls"] = {k: plain.calls for k, (_, plain) in wrappers.items()}
+    out["launches"] = launch_counts(wrappers)
+    out["plain_calls"] = plain_calls(wrappers)
     out["losses"] = losses
     err_alb = (fitted.albedo - scene.albedo).abs().mean().item()
     err_alb0 = (start.albedo - scene.albedo).abs().mean().item()
@@ -527,106 +655,138 @@ def knife_edge(gr, regen_call, persistent, cfg, chunk, persistent_sums, persiste
 
 
 def full_width_kernels(gr, bucket, call, scene, cfg, rows):
-    """Each gradient kernel at the main path's chunk shape (the true scene's
-    tables, the chunk at sample offset 0).  With one bank, lane = pixel and
-    a lane's outputs depend on its pixel alone, so the kernels' outputs on
-    the lanes ``rows`` must equal the plain versions run on those pixels
-    (same key and sample offset); the bucket's table over all the chunk's
-    rows is held against a float64 index_add_.  Also the CUDA-event ms of
-    each kernel, its bound from this run's data, and index_add_'s time on
-    the bucket's rows.  Raises on a mismatch."""
+    """Each gradient kernel at a main path's chunk shape (the scene's tables,
+    the chunk at sample offset 0; the instantiation ``call`` selects: hard,
+    soft, or soft with a plane).  With one bank, lane = pixel and a lane's
+    outputs depend on its pixel alone, so the kernels' outputs on the lanes
+    ``rows`` must equal the plain versions run on those pixels (same key and
+    sample offset): the forward in both modes, the re-forward and the
+    backward.  The buckets' tables over all the chunk's rows are held
+    against a float64 index_add_.  Also the CUDA-event ms of each kernel,
+    its bound from this run's data, index_add_'s time on each bucket's rows,
+    and the chunk's winner codes from the full-residual forward (plane hits,
+    crossing-loser plane wins, blockers).  Raises on a mismatch."""
     if call.n_banks != 1:
         raise RuntimeError("full_width_kernels needs one bank (lane = pixel)")
+    soft = call.softness > 0.0
+    kn = kernel_names(gr.variant(call))
+    n_res = N_RES_PLANES_SOFT if soft else N_RES_PLANES
+    n_ct = N_CT_PLANES_SOFT if soft else N_CT_PLANES
     b, n, p = call.n_iter, call.n_lanes, cfg.num_pixels
     sub = call._replace(pixel_ids=rows.to(torch.int32), n_lanes=rows.numel())
     cols = rows.to(torch.int64)
     errs = {}
-    tag = f"kernel at {cfg.width}x{cfg.height}x{call.n_samples}spp, {rows.numel()} random lanes:"
+    tag = (f"kernel at {cfg.width}x{cfg.height}x{call.n_samples}spp{' soft' if soft else ''}, "
+           f"{rows.numel()} random lanes:")
     live = ((scene.radii.abs() > 1e-3) & (scene.centers[:, 1] > -1e6)).sum().item()
-    ms, bound = {}, {}
+    ms, bound, res = {}, {}, {}
 
-    ms["regen_fwd"] = cuda_ms(lambda: gr.regen_forward(call, 0, False), reps=2)
+    # Full-residual mode: the planes on the random lanes, and the winner
+    # codes of the whole chunk.
+    rad_f, cnt_f, (resf_f, resi_f) = gr.regen_forward(call, 0, True)
+    rad_fp, cnt_fp, res_fp = gr.regen_fwd_reference(sub, 0, True)
+    ok = (torch.equal(rad_f[cols], rad_fp) and torch.equal(cnt_f[cols], cnt_fp)
+          and equal_on_alive((resf_f[:, :, cols], resi_f[:, :, cols]), res_fp, res_fp[0][9] > 0))
+    errs[kn["regen_fwd"]] = (rad_f[cols] - rad_fp).abs().max().item()
+    idx_f = resi_f[3]
+    res["codes"] = dict(plane=gr.is_plane(idx_f).sum().item(),
+                        crossing_loser=(idx_f == gr.PLANE_CROSS_IDX).sum().item(),
+                        blockers=(resi_f[gr._I_BLK] >= 0).sum().item() if soft else 0)
+    print(f"{tag} regen fwd (full residuals) radiance, counts and planes "
+          f"{'bit-exact' if ok else 'DIFFER'}; chunk winner codes {res['codes']}")
+    if not ok:
+        raise RuntimeError("full width: regen forward kernel (full residuals) disagrees "
+                           "with its plain version")
+    del resf_f, resi_f, idx_f, res_fp
+
+    ms[kn["regen_fwd"]] = cuda_ms(lambda: gr.regen_forward(call, 0, False), reps=2)
     rad, cnt, packed = gr.regen_forward(call, 0, False)
     rad_p, cnt_p, packed_p = gr.regen_fwd_reference(sub, 0, False)
     ok = (torch.equal(rad[cols], rad_p) and torch.equal(cnt[cols], cnt_p)
-          and torch.equal(packed[:, cols], packed_p))
-    errs["regen_fwd"] = (rad[cols] - rad_p).abs().max().item()
+          and torch.equal(packed[..., cols], packed_p)
+          and torch.equal(rad, rad_f) and torch.equal(cnt, cnt_f))
+    errs[kn["regen_fwd"]] = max(errs[kn["regen_fwd"]], (rad[cols] - rad_p).abs().max().item())
     print(f"{tag} regen fwd (idx-only) radiance, counts and packed words "
-          f"{'bit-exact' if ok else 'DIFFER'}")
+          f"{'bit-exact' if ok else 'DIFFER'} (and equal to the full-residual mode's)")
     if not ok:
         raise RuntimeError("full width: regen forward kernel disagrees with its plain version")
+    del rad_f, cnt_f
     iters = cnt.double().sum().item()
-    res = {"iters_chunk": iters, "n_iter": b, "n_lanes": n}
+    res.update(iters_chunk=iters, n_iter=b, n_lanes=n)
     # Sphere tests; the packed words and sums are a few hundred MB.
-    ops = iters * live * FLOPS_PER_SPHERE_TEST
+    flops = FLOPS_PER_SOFT_SPHERE_TEST if soft else FLOPS_PER_SPHERE_TEST
+    ops = iters * live * flops
     nbytes = packed.numel() * 4 + p * (4 + 12)
-    bound["regen_fwd"] = (ops / PEAK_FP32, nbytes / PEAK_BYTES)
+    bound[kn["regen_fwd"]] = (ops / PEAK_FP32, nbytes / PEAK_BYTES)
     del rad, cnt
 
-    ms["regen_refwd"] = cuda_ms(lambda: gr.regen_refwd(call, 0, packed), reps=2)
+    ms[kn["regen_refwd"]] = cuda_ms(lambda: gr.regen_refwd(call, 0, packed), reps=2)
     resf, resi = gr.regen_refwd(call, 0, packed)
     resf_p, resi_p = gr.regen_refwd_reference(sub, 0, packed_p)
     alive = resf_p[9] > 0
     ok = equal_on_alive((resf[:, :, cols], resi[:, :, cols]), (resf_p, resi_p), alive)
-    errs["regen_refwd"] = (resf[:, :, cols][:, alive] - resf_p[:, alive]).abs().max().item()
+    errs[kn["regen_refwd"]] = (resf[:, :, cols][:, alive] - resf_p[:, alive]).abs().max().item()
+    extra = ""
+    if soft:
+        idx_a = resi_p[3][alive]
+        extra = (f"; blockers {(resi_p[5][alive] >= 0).sum().item()}, crossing-loser plane "
+                 f"wins {(idx_a == gr.PLANE_CROSS_IDX).sum().item()}")
     print(f"{tag} re-forward planes {'bit-exact' if ok else 'DIFFER'} on "
-          f"{alive.sum().item()} alive entries")
+          f"{alive.sum().item()} alive entries{extra}")
     if not ok:
         raise RuntimeError("full width: re-forward kernel disagrees with its plain version")
-    # Reads the packed words; writes 25 planes on live entries, alive and
-    # idx on the rest.
-    nbytes = packed.numel() * 4 + iters * N_RES_PLANES * 4 + (b * n - iters) * 8
-    bound["regen_refwd"] = (0.0, nbytes / PEAK_BYTES)
+    # Reads the packed words; writes the planes on live entries, alive and
+    # idx (soft: and bidx) on the rest.
+    dead = 12 if soft else 8
+    nbytes = packed.numel() * 4 + iters * n_res * 4 + (b * n - iters) * dead
+    bound[kn["regen_refwd"]] = (0.0, nbytes / PEAK_BYTES)
     del packed
 
     gen = torch.Generator().manual_seed(3)
     ct = (torch.randn((p, 3), generator=gen) * 1e-6).to(call.pixel_ids.device)
-    ms["regen_bwd"] = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2)
+    ms[kn["regen_bwd"]] = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2)
     ct_planes, part = gr.regen_backward(call, 0, resf, resi, ct)
     ct_p, part_p = gr.regen_bwd_reference(sub, 0, resf_p, resi_p, ct[cols])
     (e1, d1), (e2, d2) = normwise_err(ct_planes[:, :, cols], ct_p), normwise_err(part[:, cols], part_p)
-    errs["regen_bwd"] = max(d1, d2)
+    errs[kn["regen_bwd"]] = max(d1, d2)
     print(f"{tag} backward cotangent planes rel {e1:.3e} (max|d| {d1:.3e}), partials rel "
           f"{e2:.3e} (max|d| {d2:.3e})")
     if not (e1 <= BWD_RTOL and e2 <= BWD_RTOL and torch.isfinite(ct_planes).all()):
         raise RuntimeError("full width: backward kernel disagrees with its plain version")
-    # Reads 25 planes on live entries and alive on the rest; writes the 9
+    # Reads the planes on live entries and alive on the rest; writes the
     # cotangent planes whole.
-    nbytes = iters * N_RES_PLANES * 4 + (b * n - iters) * 4 + b * n * N_CT_PLANES * 4
-    bound["regen_bwd"] = (iters * BWD_OPS_PER_ITER / PEAK_FP32, nbytes / PEAK_BYTES)
+    nbytes = iters * n_res * 4 + (b * n - iters) * 4 + b * n * n_ct * 4
+    bwd_ops = BWD_OPS_PER_ITER_SOFT if soft else BWD_OPS_PER_ITER
+    bound[kn["regen_bwd"]] = (iters * bwd_ops / PEAK_FP32, nbytes / PEAK_BYTES)
     del resf, part, resf_p, resi_p
 
-    idx = resi[3]
     s = call.n_spheres
-    ms["bucket"] = cuda_ms(lambda: bucket.bucket_cols(ct_planes, idx, s), reps=3)
-    d_k = bucket.bucket_cols(ct_planes, idx, s)
-    flat = idx.reshape(-1)
-    keep = (flat >= 0) & (flat < s)
-    n_rows = keep.sum().item()
-    # Reads every index and the 9 cotangents of the rows that name a sphere.
-    bound["bucket"] = (n_rows * N_CT_PLANES / PEAK_FP32,
-                       (flat.numel() * 4 + n_rows * N_CT_PLANES * 4) / PEAK_BYTES)
-    idx_keep = flat[keep].to(torch.int64)
-    src = ct_planes.reshape(N_CT_PLANES, -1)[:, keep].T.contiguous()
-    del resi, ct_planes, idx, flat, keep
-    table = torch.zeros((s, N_CT_PLANES), dtype=torch.float32, device=src.device)
-    res["library_ms_bucket"] = cuda_ms(lambda: table.index_add_(0, idx_keep, src), reps=3)
-    lib = torch.zeros_like(table).index_add_(0, idx_keep, src)
-    ref = torch.zeros((s, N_CT_PLANES), dtype=torch.float64, device=src.device)
-    ref.index_add_(0, idx_keep, src.double())
-    mag = torch.zeros_like(ref).index_add_(0, idx_keep, src.abs().double())
-    tol = (BUCKET_RTOL * ref.abs() + BUCKET_ATOL_REL * src.abs().max().double()
-           + BUCKET_SUM_ROUNDINGS * F32_EPS * mag)
-    err_k = (d_k.double() - ref).abs()
-    err_l = (lib.double() - ref).abs()
-    errs["bucket"] = err_k.max().item()
-    print(f"{tag} bucket over all {n_rows} sphere rows against float64 index_add_: max|d| "
-          f"{err_k.max().item():.3e}, max |d| / tol {(err_k / tol).max().item():.3f} (float32 "
-          f"index_add_ {err_l.max().item():.3e}, {(err_l / tol).max().item():.3f}); table max "
-          f"{ref.abs().max().item():.3e}")
-    if not bool((err_k <= tol).all()):
-        raise RuntimeError("full width: bucket kernel disagrees with index_add_")
-    res["bucket_rows"] = n_rows
+    buckets = [("bucket", ct_planes[:9], resi[3])]
+    if soft:
+        buckets.append(("bucket_blocker", ct_planes[9:], resi[5]))
+    res["library_ms"], res["bucket_rows"] = {}, {}
+    for bname, c, idx in buckets:
+        k = c.shape[0]
+        ms[bname] = cuda_ms(lambda: bucket.bucket_cols(c, idx, s), reps=3)
+        d_k = bucket.bucket_cols(c, idx, s)
+        idx_keep, src = bucket_rows(c, idx, s)
+        n_rows = idx_keep.numel()
+        # Reads every index and the k cotangents of the rows that name a sphere.
+        bound[bname] = (n_rows * k / PEAK_FP32, (idx.numel() * 4 + n_rows * k * 4) / PEAK_BYTES)
+        table = torch.zeros((s, k), dtype=torch.float32, device=src.device)
+        res["library_ms"][bname] = cuda_ms(lambda: table.index_add_(0, idx_keep, src), reps=3)
+        lib = torch.zeros_like(table).index_add_(0, idx_keep, src)
+        err_k, err_l, tol, top = bucket_errors(d_k, lib, idx_keep, src, s)
+        errs[bname] = err_k.max().item()
+        print(f"{tag} {bname} over all {n_rows} rows ({k} columns) against float64 index_add_: "
+              f"max|d| {err_k.max().item():.3e}, max |d| / tol {(err_k / tol).max().item():.3f} "
+              f"(float32 index_add_ {err_l.max().item():.3e}, {(err_l / tol).max().item():.3f}); "
+              f"table max {top:.3e}")
+        if not bool((err_k <= tol).all()):
+            raise RuntimeError(f"full width: {bname} kernel disagrees with index_add_")
+        res["bucket_rows"][bname] = n_rows
+        del idx_keep, src, table, lib, err_k, err_l, tol
+    del resi, ct_planes
     res["full_width_errs"] = errs
     res["ms"] = ms
     res["bound_ms"] = {k: max(v) * 1e3 for k, v in bound.items()}
@@ -635,9 +795,227 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
         print(f"kernel {k} at {cfg.width}x{cfg.height}x{call.n_samples}spp (n_iter {b}): "
               f"{ms[k]:.3f} ms, bound {res['bound_ms'][k]:.3f} ms ({res['bound_by'][k]}), "
               f"{res['bound_ms'][k] / ms[k]:.3f} of bound")
-    print(f"index_add_ on the bucket's {n_rows} rows: {res['library_ms_bucket']:.3f} ms; "
-          f"chunk iterations {iters:.0f}")
+    for k, t in res["library_ms"].items():
+        print(f"index_add_ on the {k} rows ({res['bucket_rows'][k]}): {t:.3f} ms")
+    print(f"chunk iterations {iters:.0f}")
     return res
+
+
+def poke_scene(tpt, dev):
+    """Three Lambertian spheres poking through the ground plane
+    (tests/test_crossing.py:_poke_scene): the first one half buried."""
+    from simplepathtracer_tpu_torch import scenes
+
+    sc = scenes._scene_from_arrays(
+        [[0.0, -0.5, 1.0], [0.9, -0.35, 1.3], [-0.85, -0.62, 0.9]], [0.4, 0.3, 0.35],
+        [[0.1, 0.2, 0.5], [0.8, 0.6, 0.2], [0.7, 0.15, 0.15]], [0, 0, 0], [0.0, 0.0, 0.0],
+        [1.5, 1.5, 1.5], scenes.SHIRLEY_SKY_LO, scenes.SHIRLEY_SKY_HI, dev,
+    )
+    return tpt.with_ground_plane(sc)
+
+
+def decoupled_chunks(cfg, gcfg):
+    """(chunk, chunks) of the samples the decoupled loss differentiates:
+    the second half, in the largest chunk that divides it and fits
+    ``gcfg.spp_chunk`` (render_pixel_block)."""
+    half = cfg.spp // 2
+    chunk = min(gcfg.spp_chunk or half, half)
+    chunk = next(c for c in range(chunk, 0, -1) if half % c == 0)
+    return chunk, half // chunk
+
+
+def phase7_soft(tpt, dev, wrappers):
+    """Soft silhouettes on the main path: ``fit`` with its own defaults
+    (softness 0.02, every leaf) at full width, through the soft kernels
+    only; each soft kernel at that fit's chunk against its plain version on
+    random lanes; the plane leaf of ``three_sphere_plane`` at full size
+    (the crossing coin live), with the soft plane instantiations held
+    against their plain versions at that fit's chunk; and an AD/FD check
+    through the kernels.  Returns what the report needs."""
+    from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
+
+    out = {}
+    scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    key = tpt.make_key(0)
+    # (a) The default fit.  The target is rendered soft-to-soft through the
+    # gradient route (the persistent kernel ignores softness); the start
+    # dims albedo and sky and moves three object centers along x.  The
+    # param_mask lets those three centers move along x only (so their error
+    # is the offset's), and every radius but the r=1000 ground sphere's.
+    soft_cfg = tpt.grad_safe_config(cfg.replace(silhouette_softness=DEFAULT_SOFTNESS), dev)
+    with torch.no_grad():
+        target = tpt.render_linear(scene, cam, soft_cfg, tpt.fold_in(key, 1000))
+    centers = scene.centers.clone()
+    centers[1:4, 0] += CENTER_START
+    start = scene.replace(albedo=scene.albedo * ALBEDO_START, sky_lo=scene.sky_lo * SKY_START,
+                          sky_hi=scene.sky_hi * SKY_START, centers=centers)
+    mask = {"centers": torch.zeros_like(scene.centers), "radii": torch.ones_like(scene.radii)}
+    mask["centers"][1:4, 0] = 1.0
+    mask["radii"][0] = 0.0
+    fit_kw = dict(lr=FIT_LR, param_mask=mask, device=dev)
+    tpt.fit(start, target, cam, cfg, key, steps=1, **fit_kw)
+    sync(dev)
+    reset_counts(wrappers)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    fitted, losses = tpt.fit(start, target, cam, cfg, key, steps=FIT_STEPS, **fit_kw)
+    sync(dev)
+    out["step_s"] = (time.perf_counter() - t0) / FIT_STEPS
+    out["fit_peak_gb"] = peak_gb(dev)
+    out["launches"] = launch_counts(wrappers)
+    out["plain_calls"] = plain_calls(wrappers)
+    out["losses"] = losses
+    err_x = (fitted.centers[1:4, 0] - scene.centers[1:4, 0]).abs().mean().item()
+    err_x0 = (start.centers[1:4, 0] - scene.centers[1:4, 0]).abs().mean().item()
+    err_r = (fitted.radii[1:] - scene.radii[1:]).abs().mean().item()
+    err_alb = (fitted.albedo - scene.albedo).abs().mean().item()
+    err_alb0 = (start.albedo - scene.albedo).abs().mean().item()
+    g_chunk, n = decoupled_chunks(cfg, soft_cfg)
+    out.update(chunk=g_chunk, n_chunks=n, center_x_err=(err_x0, err_x), radius_err=err_r)
+    print(f"phase7 fit, default arguments (softness {DEFAULT_SOFTNESS}, every leaf, decoupled "
+          f"loss: {cfg.spp // 2} spp differentiated in {n} chunks of {g_chunk}), {FIT_STEPS} "
+          f"steps: losses {losses}, {out['step_s']:.3f} s/step, peak {out['fit_peak_gb']:.2f} GB, "
+          f"mean|x of centers 1-3 - truth| {err_x0:.4f} -> {err_x:.4f}, mean|radius - truth| "
+          f"(started at truth) {err_r:.4f}, mean|albedo - truth| {err_alb0:.4f} -> "
+          f"{err_alb:.4f}, launches {out['launches']}, plain calls {out['plain_calls']}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0] and err_x < err_x0):
+        raise RuntimeError("phase7: the default fit's loss or centre error did not fall")
+    # Per step: a forward of each half's chunks; per differentiated chunk a
+    # backward and both buckets, and on the streamed route (several chunks)
+    # a re-forward.
+    want = {"regen_fwd_soft": 2 * n, "regen_bwd_soft": n, "bucket": n, "bucket_blocker": n}
+    if n > 1:
+        want["regen_refwd_soft"] = n
+    if out["launches"] != {k: v * FIT_STEPS for k, v in want.items()} or any(
+            out["plain_calls"].values()):
+        raise RuntimeError(f"phase7: the default fit did not run through the soft kernels only "
+                           f"(launches {out['launches']}, per step wanted {want}, plain calls "
+                           f"{out['plain_calls']})")
+    out["per_step"] = want
+
+    # (b) Each soft kernel at that fit's chunk shape.
+    gen = torch.Generator().manual_seed(4)
+    rows = torch.randperm(cfg.num_pixels, generator=gen)[:N_CHECK_PIXELS].to(dev)
+    inputs, cam19 = gr._trace_inputs(scene, cam, cfg)
+    pix = torch.arange(cfg.num_pixels, device=dev)
+    call = gr.regen_call(inputs[:11], inputs[11], inputs[12], cam19, key, pix,
+                         n_samples=g_chunk, max_depth=cfg.max_depth, width=cfg.width,
+                         height=cfg.height, t_min=cfg.t_min, t_max=cfg.t_max,
+                         rr_start_depth=cfg.rr_start_depth, softness=DEFAULT_SOFTNESS)
+    out.update(full_width_kernels(gr, bucket, call, scene, cfg, rows))
+
+    # (c) three_sphere_plane at its full size: the plane leaf alone, default
+    # softness (soft-to-soft target, offset and albedo moved).  The fit runs
+    # twice: with the preset's chunking (one chunk: the full-residual
+    # forward) and in 4 chunks (the streamed route: idx-only forward and
+    # re-forward), so every soft plane instantiation runs at full size.
+    scene_p, cam_p, cfg_p = tpt.PRESETS["three_sphere_plane"].build(0, device=dev)
+    gcfg_p = tpt.grad_safe_config(cfg_p.replace(silhouette_softness=DEFAULT_SOFTNESS), dev)
+    with torch.no_grad():
+        target_p = tpt.render_linear(scene_p, cam_p, gcfg_p, tpt.fold_in(key, 1000))
+    plane = scene_p.plane.clone()
+    plane[3] += 0.05
+    plane[4:7] *= 0.8
+    start_p = scene_p.replace(plane=plane)
+    chunk_p, n_p = decoupled_chunks(cfg_p, gcfg_p)
+    stream_chunk = chunk_p // 4
+    reset_counts(wrappers)
+    fits = []
+    for spp_chunk in (cfg_p.spp_chunk, stream_chunk):
+        t0 = time.perf_counter()
+        fitted_p, losses_p = tpt.fit(start_p, target_p, cam_p, cfg_p.replace(spp_chunk=spp_chunk),
+                                     key, steps=FIT_STEPS, lr=FIT_LR, leaves=("plane",),
+                                     device=dev)
+        sync(dev)
+        fits.append(dict(spp_chunk=spp_chunk, losses=losses_p,
+                         s_per_step=(time.perf_counter() - t0) / FIT_STEPS,
+                         offset=fitted_p.plane[3].item()))
+    launches_p = launch_counts(wrappers)
+    plain_p = plain_calls(wrappers)
+    for f in fits:
+        print(f"phase7 three_sphere_plane {cfg_p.width}x{cfg_p.height}x{cfg_p.spp}spp depth "
+              f"{cfg_p.max_depth}, plane leaf, default softness, spp_chunk {f['spp_chunk']}: "
+              f"losses {f['losses']}, {f['s_per_step']:.3f} s/step, offset "
+              f"{start_p.plane[3].item():.4f} -> {f['offset']:.4f} (truth "
+              f"{scene_p.plane[3].item():.4f})")
+    print(f"phase7 three_sphere_plane fits ({n_p} + 4 chunks per step): launches {launches_p}, "
+          f"plain calls {plain_p}")
+    steps_chunks = FIT_STEPS * (n_p + 4)
+    if not (all(all(map(math.isfinite, f["losses"])) and f["losses"][-1] < f["losses"][0]
+                for f in fits)
+            and set(launches_p) == {"regen_fwd_soft_plane", "regen_refwd_soft_plane",
+                                    "regen_bwd_soft_plane", "bucket", "bucket_blocker"}
+            and launches_p["regen_refwd_soft_plane"] == FIT_STEPS * 4
+            and launches_p["regen_bwd_soft_plane"] == steps_chunks
+            and launches_p["bucket"] == launches_p["bucket_blocker"] == steps_chunks
+            and not any(plain_p.values())):
+        raise RuntimeError("phase7: the three_sphere_plane plane fit failed")
+
+    # The soft plane instantiations at the preset fit's chunk, and the
+    # crossing coin's share of that chunk's plane hits.
+    inputs_p, cam19_p = gr._trace_inputs(start_p, cam_p, cfg_p)
+    call_p = gr.regen_call(inputs_p[:11], inputs_p[11], inputs_p[12], cam19_p, key,
+                           torch.arange(cfg_p.num_pixels, device=dev), n_samples=chunk_p,
+                           max_depth=cfg_p.max_depth, width=cfg_p.width, height=cfg_p.height,
+                           t_min=cfg_p.t_min, t_max=cfg_p.t_max,
+                           rr_start_depth=cfg_p.rr_start_depth, softness=DEFAULT_SOFTNESS)
+    rows_p = torch.randperm(cfg_p.num_pixels, generator=gen)[:N_CHECK_PIXELS].to(dev)
+    plane_k = full_width_kernels(gr, bucket, call_p, start_p, cfg_p, rows_p)
+    codes = plane_k["codes"]
+    print(f"phase7 three_sphere_plane chunk of {chunk_p} spp: plane hits decided by the crossing "
+          f"coin against an in-band sphere {codes['crossing_loser']} of {codes['plane']}")
+    if codes["crossing_loser"] == 0:
+        raise RuntimeError("phase7: no crossing-loser plane win at full size")
+    out["plane_fit"] = dict(fits=fits, chunk=chunk_p, codes=codes,
+                            shape=f"{cfg_p.width}x{cfg_p.height}x{chunk_p}spp")
+    out["plane_launches"] = launches_p
+    out["plane_kernels"] = plane_k
+
+    # (d) AD/FD of the half-buried sphere's radius through the kernels
+    # (tests/test_crossing.py:132-169: 48x24, 512 spp, depth 3).
+    scene_b = poke_scene(tpt, dev)
+    cam_b = tpt.make_camera(origin=(0.0, 0.5, -1.2), lookat=(0.0, -0.35, 1.0), vfov_deg=55,
+                            device=dev)
+    cfg_b = tpt.RenderConfig(width=48, height=24, spp=512, max_depth=3, use_pallas=True,
+                             silhouette_softness=ADFD_SOFTNESS)
+    prng = np.random.default_rng(11)
+    pert = scene_b.replace(
+        centers=scene_b.centers + torch.tensor(0.04 * prng.standard_normal((3, 3)),
+                                               dtype=torch.float32, device=dev),
+        radii=scene_b.radii * torch.tensor(1.0 + 0.05 * prng.standard_normal(3),
+                                           dtype=torch.float32, device=dev),
+    )
+    g_cfg = tpt.grad_safe_config(cfg_b, dev)
+    with torch.no_grad():
+        target_b = tpt.render_linear(pert, cam_b, g_cfg, tpt.make_key(99))
+    params, _ = tpt.split_params(scene_b)
+    reset_counts(wrappers)
+
+    def loss_b(radii):
+        p = dict(params, radii=radii)
+        return tpt.pixel_loss(p, scene_b, target_b, cam_b, cfg_b, tpt.make_key(7), device=dev)
+
+    r = params["radii"].detach().clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss_b(r), [r])
+    ad = g[0].item()
+    v = torch.zeros_like(r)
+    v[0] = 1.0
+    with torch.no_grad():
+        fd = (loss_b(r + ADFD_EPS * v).item() - loss_b(r - ADFD_EPS * v).item()) / (2 * ADFD_EPS)
+    ratio = ad / fd if fd else float("nan")
+    launches_b = launch_counts(wrappers)
+    plain_b = plain_calls(wrappers)
+    print(f"phase7 AD/FD, half-buried sphere's radius (48x24, 512 spp, depth 3, soft "
+          f"{ADFD_SOFTNESS}, eps {ADFD_EPS}): AD {ad:.6e}, FD {fd:.6e}, AD/FD {ratio:.4f} "
+          f"(bound {ADFD_BOUNDS}); launches {launches_b}, plain calls {plain_b}")
+    if not (ADFD_BOUNDS[0] < ratio < ADFD_BOUNDS[1]
+            and launches_b.get("regen_bwd_soft_plane", 0) > 0
+            and set(launches_b) <= {"regen_fwd_soft_plane", "regen_refwd_soft_plane",
+                                    "regen_bwd_soft_plane", "bucket", "bucket_blocker"}
+            and not any(plain_b.values())):
+        raise RuntimeError("phase7: AD/FD through the kernels out of its bound")
+    out["adfd"] = dict(ad=ad, fd=fd, ratio=ratio)
+    return out
 
 
 def main(argv=None):
@@ -807,7 +1185,7 @@ def main(argv=None):
             print(f"sweep: render() {name} {t:.3f} ms")
 
     # ---- phase 5: gradient kernels vs plain versions, small shapes --------
-    grad_errs, grad_plain_ms, grad_kernel_small_ms, grad_shape = phase5_kernels(tpt, dev)
+    grad_errs, grad_plain_ms, grad_kernel_small_ms, grad_shapes = phase5_kernels(tpt, dev)
 
     # ---- phase 6: the gradient path at full width -------------------------
     wrappers = grad_wrappers()
@@ -816,8 +1194,9 @@ def main(argv=None):
         grad_errs[name] = max(grad_errs[name], err)
     n_chunks = main6["n_chunks"]
     per_step = {k: v / FIT_STEPS for k, v in main6["launches"].items()}
-    if not (per_step["regen_fwd"] >= n_chunks and per_step["regen_refwd"] == n_chunks
-            and per_step["regen_bwd"] == n_chunks and per_step["bucket"] >= n_chunks
+    if not (set(per_step) == {"regen_fwd", "regen_refwd", "regen_bwd", "bucket"}
+            and per_step["regen_fwd"] >= n_chunks and per_step["regen_refwd"] == n_chunks
+            and per_step["regen_bwd"] == n_chunks and per_step["bucket"] == n_chunks
             and not any(main6["plain_calls"].values())):
         raise RuntimeError(f"phase6: the fit did not run through the kernels only "
                            f"(launches per step {per_step}, plain calls {main6['plain_calls']})")
@@ -828,6 +1207,22 @@ def main(argv=None):
         "mpaths_per_s": cfg.num_pixels * cfg.spp / main6["step_s"] / 1e6,
         "peak_gb": main6["fit_peak_gb"], "grad_s": main6["grad_s"],
         "losses": main6["losses"], "launches_per_step": per_step,
+    }))
+
+    # ---- phase 7: soft silhouettes on the main path ----------------------
+    main7 = phase7_soft(tpt, dev, wrappers)
+    for res in (main7, main7["plane_kernels"]):
+        for name, err in res["full_width_errs"].items():
+            grad_errs[name] = max(grad_errs[name], err)
+    print("phase7 fit: " + json.dumps({
+        "shape": f"{cfg.width}x{cfg.height}x{cfg.spp}spp depth {cfg.max_depth}",
+        "softness": DEFAULT_SOFTNESS, "spp_chunk": main7["chunk"], "chunks": main7["n_chunks"],
+        "steps": FIT_STEPS, "s_per_step": main7["step_s"],
+        "mpaths_per_s": cfg.num_pixels * cfg.spp / main7["step_s"] / 1e6,
+        "peak_gb": main7["fit_peak_gb"], "losses": main7["losses"],
+        "center_x_err": main7["center_x_err"], "radius_err": main7["radius_err"],
+        "launches_per_step": main7["per_step"], "plane_fit": main7["plane_fit"],
+        "plane_launches": main7["plane_launches"], "adfd": main7["adfd"],
     }))
 
     report = {"kernels": [{
@@ -860,11 +1255,49 @@ def main(argv=None):
             "plain_ms": grad_plain_ms[name],
             "bound_ms": main6["bound_ms"][name],
             "bound_by": main6["bound_by"][name],
-            "library_ms": main6["library_ms_bucket"] if name == "bucket" else None,
+            "library_ms": main6["library_ms"].get(name),
             "ms_shape": f"{cfg.width}x{cfg.height}x{main6['chunk']}spp",
-            "plain_ms_shape": grad_shape,
+            "plain_ms_shape": grad_shapes[name],
             "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
             "launches_over_fit_steps": FIT_STEPS,
+        })
+    for name, source, replaces in SOFT_KERNELS:
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": main7["launches"][name],
+            "max_abs_err": grad_errs[name],
+            "ms": main7["ms"][name],
+            "plain_ms": grad_plain_ms[name],
+            "bound_ms": main7["bound_ms"][name],
+            "bound_by": main7["bound_by"][name],
+            "library_ms": main7["library_ms"].get(name),
+            "ms_shape": f"{cfg.width}x{cfg.height}x{main7['chunk']}spp soft {DEFAULT_SOFTNESS}",
+            "plain_ms_shape": grad_shapes[name],
+            "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
+            "launches_over_fit_steps": FIT_STEPS,
+        })
+    plane_k, plane_fit = main7["plane_kernels"], main7["plane_fit"]
+    for name, source, replaces in SOFT_PLANE_KERNELS:
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": main7["plane_launches"][name],
+            "max_abs_err": grad_errs[name],
+            "ms": plane_k["ms"][name],
+            "plain_ms": grad_plain_ms[name],
+            "bound_ms": plane_k["bound_ms"][name],
+            "bound_by": plane_k["bound_by"][name],
+            "library_ms": None,
+            "ms_shape": f"three_sphere_plane {plane_fit['shape']} soft {DEFAULT_SOFTNESS}",
+            "plain_ms_shape": grad_shapes[name],
+            "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
+            "launches_over_fit_steps": FIT_STEPS,
+            "launches_over_fits": [f["spp_chunk"] for f in plane_fit["fits"]],
         })
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

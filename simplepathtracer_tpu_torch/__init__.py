@@ -2,8 +2,8 @@
 
 The forward render of every preset runs on an NVIDIA Hopper card through a
 hand-written CUDA kernel (``csrc/persistent.cu``), and inverse rendering
-(``fit``, ``pixel_loss``) through the hand-written regeneration gradient
-kernels (``csrc/grad_regen.cu``, ``csrc/bucket.cu``), all built with nvcc
+(``fit``, ``pixel_loss``; soft silhouettes included) through the
+hand-written regeneration gradient kernels (``csrc/grad_regen.cu``, ``csrc/bucket.cu``), all built with nvcc
 at first use; on CPU tensors the same functions run as plain PyTorch.  Entry points
 that create tensors run on ``cuda`` unless the caller passes ``device``.
 """
@@ -28,7 +28,14 @@ from .render import (
     render_pixels,
     trace_rays,
 )
-from .inverse import fit, merge_params, pixel_loss, render_linear, split_params
+from .inverse import (
+    fit,
+    merge_params,
+    pixel_loss,
+    pixel_loss_decoupled,
+    render_linear,
+    split_params,
+)
 from .presets import PRESETS, Preset
 from .convert import convert_camera, convert_params, convert_scene, params_to_numpy
 
@@ -59,6 +66,7 @@ __all__ = [
     "grad_safe_config",
     "fit",
     "pixel_loss",
+    "pixel_loss_decoupled",
     "render_linear",
     "split_params",
     "merge_params",

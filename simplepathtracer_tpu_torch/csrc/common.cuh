@@ -3,7 +3,8 @@
 // package's ops/pallas_common.py that the forward and gradient kernels run
 // (threefry2x32, to_unit_float, the bounce uniforms of
 // pallas_grad_regen._uniforms7_tile, camera_ray_tiles, closest_hit_scan and
-// its shared-memory sphere tables, plane_override, scatter_tiles).
+// its shared-memory sphere tables, plane_override, scatter_tiles, and the
+// soft scan closest_hit_scan_soft with silhouette_logit_tile).
 //
 // Numerics: the library is built without --use_fast_math and with
 // --fmad=false, so every add, multiply, divide and sqrt rounds as the
@@ -69,8 +70,9 @@ __device__ __forceinline__ void uniforms(uint32_t k0, uint32_t k1,
 }
 
 // The 8 bounce uniforms of bounce b (slots 4b .. 4b+3): 0-1 Lambertian,
-// 2-4 metal fuzz ball, 5 dielectric coin, 6 Russian roulette, 7 unused
-// (the soft-silhouette coin of the JAX package).
+// 2-4 metal fuzz ball, 5 dielectric coin, 6 Russian roulette, 7 the
+// soft-silhouette acceptance coin.  (The crossing and validity coins of
+// soft silhouettes are slot 128 + b.)
 __device__ __forceinline__ void bounce_uniforms(uint32_t k0, uint32_t k1,
                                                 uint32_t pix, uint32_t c1b,
                                                 uint32_t b, float (&u)[8]) {
@@ -159,6 +161,75 @@ __device__ __forceinline__ int closest_hit(const float4* __restrict__ geo,
     }
   }
   return bi;
+}
+
+// Acceptance-coin logit of the soft scan: clamp(log(max(u, 1e-30)) -
+// log(max(1 - u, 1e-30)), -30, 30), as ops/intersect.py:silhouette_logit
+// (logf rounds as PyTorch's log on the card).
+__device__ __forceinline__ float silhouette_logit(float u) {
+  const float lg = logf(fmaxf(u, 1e-30f)) - logf(fmaxf(1.0f - u, 1e-30f));
+  return fminf(fmaxf(lg, -30.0f), 30.0f);
+}
+
+// Load the soft scan's [n_spheres, 4] table (silhouette scale, 1 / r^2,
+// validity scale, -30 x validity scale; ops/grad_regen.py:regen_call)
+// into shared memory at ``dst``.
+__device__ __forceinline__ float4* load_soft_table(float4* dst,
+                                                   const float* __restrict__ st,
+                                                   int n_spheres) {
+  for (int i = threadIdx.x; i < n_spheres; i += blockDim.x) {
+    const float* row = st + static_cast<size_t>(i) * 4;
+    dst[i] = make_float4(row[0], row[1], row[2], row[3]);
+  }
+  return dst;
+}
+
+// The soft (stochastic-transparency) scan: ops/grad_regen.py:_scan_soft's
+// spheres, one pass.  Sphere i is accepted iff disc > lgt * scale_i and its
+// raw root t_raw beats t_min + lgtv * sigma_v,i (hard t_min for the chain's
+// previous winner ``prev``); the winner is the nearest accepted sphere at t
+// = max(t_raw, t_min), first on ties (bt, bi; -1 on a miss).  The blocker
+// qi is the rejected sphere of largest disc / r^2, first on ties, whose t
+// beats the best accepted t before it and whose raw root lies above t_min
+// - 30 sigma_v,i (-1 if none).  Padding slots (NaN radius) fail every
+// test: disc and the score are NaN.
+__device__ __forceinline__ void closest_hit_soft(
+    const float4* __restrict__ geo, const float4* __restrict__ soft,
+    int n_spheres, float ox, float oy, float oz, float dx, float dy, float dz,
+    float t_min, float t_max, float lgt, float lgtv, int prev, float& bt,
+    int& bi, int& qi) {
+  bt = t_max;
+  bi = -1;
+  qi = -1;
+  float qs = -INFINITY;
+#pragma unroll 2
+  for (int i = 0; i < n_spheres; ++i) {
+    const float4 g = geo[i];
+    const float4 st = soft[i];
+    const float ocx = g.x - ox, ocy = g.y - oy, ocz = g.z - oz;
+    const float tc = ocx * dx + ocy * dy + ocz * dz;
+    const float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
+    const float disc = g.w * g.w - (oc2 - tc * tc);
+    const float sq = sqrtf(fmaxf(disc, 1e-12f));
+    const float t_near = tc - sq;
+    const float t_raw = t_near > t_min ? t_near : tc + sq;
+    const float t = fmaxf(t_raw, t_min);
+    const bool is_prev = prev == i;
+    const float thr_v = is_prev ? 0.0f : lgtv * st.z;
+    const float gate = is_prev ? 0.0f : st.w;
+    const bool accept =
+        disc > lgt * st.x && t_raw > t_min + thr_v && t_raw < t_max;
+    const bool in_front = t < bt;
+    const float score = disc * st.y;
+    if (!accept && t_raw > t_min + gate && in_front && score > qs) {
+      qi = i;
+      qs = score;
+    }
+    if (accept && in_front) {
+      bt = t;
+      bi = i;
+    }
+  }
 }
 
 // Ground-plane test of plane_override: the plane {p : n.p + k = 0} (pl =

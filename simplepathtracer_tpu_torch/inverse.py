@@ -1,19 +1,19 @@
 """Inverse rendering: recover scene leaves from a target image by pixel-loss
-gradients (counterpart of the JAX package's ``inverse.py``, hard leaves).
+gradients (counterpart of the JAX package's ``inverse.py``).
 
 ``fit`` runs Adam (``torch.optim.Adam`` with optax.adam's defaults) on the
 differentiable leaves of a scene.  ``pixel_loss`` renders through
 ``grad_safe_config``'s route for the device: the regeneration gradient
 kernels on CUDA, plain autograd on the CPU.  Discrete structure (the hit
 selection, the material switch, Schlick coins) is locally constant, as in
-the JAX package.
+the JAX package.  With ``softness`` > 0 and a geometry leaf fitted (the
+default), ``fit`` turns on two-sided soft silhouettes and differentiates
+``pixel_loss_decoupled``.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
-ignored: soft silhouettes (``softness > 0`` with geometry leaves,
-``pixel_loss_decoupled``; ROADMAP A.11), cost-balanced pixel order
-(``balance``), the gradient-accumulated estimator (``grad_accum``,
-``make_accum_grad_step``), fit snapshots (``snapshot_path``; A.14) and
-camera fits (``fit_camera``; A.12).
+ignored: cost-balanced pixel order (``balance``), the gradient-accumulated
+estimator (``grad_accum``, ``make_accum_grad_step``), fit snapshots
+(``snapshot_path``; A.14) and camera fits (``fit_camera``; A.12).
 """
 
 from __future__ import annotations
@@ -79,12 +79,38 @@ def pixel_loss(params, static_scene, target, camera, config, key,
     return torch.mean((img - target) ** 2)
 
 
-def pixel_loss_decoupled(*args, **kwargs):
-    """The independent-pair estimator of soft-silhouette fits: not ported
-    (ROADMAP A.11)."""
-    raise NotImplementedError(
-        "pixel_loss_decoupled (soft silhouettes) is not ported yet: ROADMAP A.11"
-    )
+def pixel_loss_decoupled(params, static_scene, target, camera, config, key,
+                         leaves=DIFF_LEAVES, pixel_perm=None, device=None):
+    """MSE whose value is the full-spp render's and whose gradient is the
+    independent-pair estimator: the residual of the first half of the
+    sample range (detached, rendered forward only) times the pullback of
+    the second half.
+
+    The soft-silhouette score terms share their coins with the image the
+    residual is built from, so the gradient of ``pixel_loss`` would also
+    differentiate the sample variance; splitting the sample range
+    decorrelates the two.  ``fit`` uses it whenever softness > 0.
+    Arguments as in ``pixel_loss``."""
+    dev = resolve_device(device)
+    config = grad_safe_config(config, dev)
+    scene = merge_params(params, static_scene)
+    _check_device(dev, scene.centers, target)
+    spp = int(config.spp)
+    h = max(spp // 2, 1)
+    kwargs = {} if pixel_perm is None else {"pixel_ids": pixel_perm}
+    fixed = scene.replace(**{
+        k: getattr(scene, k).detach() for k in DIFF_LEAVES if getattr(scene, k) is not None
+    })
+    acc_a = render_sample_batch(fixed, camera, config, key, 0, h, **kwargs)
+    acc_b = render_sample_batch(scene, camera, config, key, h, spp - h, **kwargs)
+    t = target.reshape(-1, 3)
+    if pixel_perm is not None:
+        t = t[pixel_perm]
+    value = torch.mean(((acc_a + acc_b) / spp - t) ** 2)
+    resid = (2.0 * (acc_a / h - t) / t.numel()).detach()
+    gterm = torch.sum(resid * acc_b) / (spp - h)
+    # The value is the full-spp MSE; the gradient is gterm's alone.
+    return (value - gterm).detach() + gterm
 
 
 def make_accum_grad_step(*args, **kwargs):
@@ -134,6 +160,10 @@ def fit(
 
     Step i renders with the key ``fold_in(key, i)``, so gradient noise is
     fresh every step and a step's key does not depend on history.
+    ``softness`` > 0 with a geometry leaf (centers, radii, plane) among
+    ``leaves`` sets ``silhouette_softness`` and differentiates
+    ``pixel_loss_decoupled``; render the target soft-to-soft for geometry
+    fits.
     ``param_mask``: optional {leaf: 0/1 tensor} freezing entries -- their
     gradients are zeroed before the update and their values held at
     ``scene_init``'s.  Returns (scene, losses).  ``device`` as in
@@ -141,11 +171,6 @@ def fit(
     raise ``NotImplementedError``.
     """
     del rebalance_every, snapshot_every
-    if softness and any(k in leaves for k in _GEOMETRY_LEAVES):
-        raise NotImplementedError(
-            f"fit(softness={softness}) with geometry leaves: soft silhouettes "
-            "are not ported yet (ROADMAP A.11); pass softness=0.0"
-        )
     if balance:
         raise NotImplementedError(
             "fit(balance=True): balanced_pixel_perm is not ported yet (ROADMAP A.8)"
@@ -159,14 +184,17 @@ def fit(
             "fit(snapshot_path=...): fit snapshots are not ported yet (ROADMAP A.14)"
         )
     dev = resolve_device(device)
+    if softness and any(k in leaves for k in _GEOMETRY_LEAVES):
+        config = config.replace(silhouette_softness=float(softness))
     config = grad_safe_config(config, dev)
+    loss_fn = pixel_loss_decoupled if config.silhouette_softness > 0.0 else pixel_loss
     params, opt = init(scene_init, lr, leaves)
     static_scene = scene_init
     losses = []
     for i in range(steps):
         opt.zero_grad(set_to_none=True)
-        loss = pixel_loss(params, static_scene, target, camera, config,
-                          fold_in(key, i), leaves, device=dev)
+        loss = loss_fn(params, static_scene, target, camera, config,
+                       fold_in(key, i), leaves, device=dev)
         loss.backward()
         with torch.no_grad():
             if param_mask is not None:

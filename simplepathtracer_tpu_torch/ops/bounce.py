@@ -32,11 +32,21 @@ the masks (bool) and ``mat`` (int).  ``sky6`` entries may be 0-d tensors.
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..types import Material
+from .sampling import _f32
+from .intersect import (
+    _SIL_R0,
+    _XS_CLAMP,
+    SIL_P_FLOOR,
+    crossing_scale,
+    silhouette_scale,
+    validity_scale,
+)
 
 _TWO_PI = float(np.float32(2.0 * np.pi))
 _THIRD = float(np.float32(1.0 / 3.0))
@@ -54,22 +64,36 @@ def _dot(a, b):
 
 
 def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
-             rr_on, plane_mask):
+             rr_on, plane_mask, softness=0.0, blocker=None, plane4=None,
+             cross_loser=None):
     """The forward with every intermediate the adjoint reads."""
     f = SimpleNamespace()
     ox, oy, oz = o3
     dx, dy, dz = d3
     cx, cy, cz, r, ar, ag, ab, fz, io = a9
     f.o, f.d, f.tp, f.c, f.r = o3, d3, tp3, (cx, cy, cz), r
+    f.soft = softness
     # Hit reconstruction from the winner's attributes.
     f.oc = (cx - ox, cy - oy, cz - oz)
     f.tc = _dot(f.oc, d3)
     f.oc2 = _dot(f.oc, f.oc)
     f.disc = r * r - (f.oc2 - f.tc * f.tc)
-    f.sq = torch.sqrt(torch.maximum(f.disc, _c(r, _DISC_EPS)))
+    dmax = torch.maximum(f.disc, _c(r, _DISC_EPS))
+    if softness:
+        # Grazing and phantom winners are common under the soft scheme: the
+        # derivative of the sqrt is capped at the band scale (value-exact).
+        f.sw = silhouette_scale(softness, r)
+        f.capped = torch.sqrt(dmax + f.sw)
+        f.sq = (torch.sqrt(dmax) - f.capped).detach() + f.capped
+    else:
+        f.sq = torch.sqrt(dmax)
     t_near = f.tc - f.sq
     f.use_near = t_near > t_min
     t = torch.where(f.use_near, t_near, f.tc + f.sq)
+    f.t_raw = t
+    if softness:
+        # A coin-validated marginal candidate hits at t_min, never behind.
+        t = torch.maximum(t, _c(t, t_min))
     t = torch.where(hit, t, _c(t, t_max))
     f.pm = plane_mask
     if plane_mask is not None:
@@ -91,6 +115,12 @@ def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
         f.psgn = psgn
         n = tuple(torch.where(plane_mask, psgn * ci, ni) for ci, ni in zip(f.c, n))
     f.n = n
+    if softness:
+        # Two-sided silhouettes: the entry throughput times the detached
+        # ratio den / stop_grad(den) == 1 (values untouched).
+        f.s = _soft_forward(f, hit, alive, softness, blocker, plane4,
+                            cross_loser, t_min, t_max)
+        tp3 = tuple(x * (f.s.den / f.s.den.detach()) for x in tp3)
 
     # scatter_tiles: all three materials, selected by mat.
     front = _dot(d3, n) < 0.0
@@ -186,13 +216,141 @@ def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
     return f, (no3, nd3, nt, rad, torch.where(surv, 1.0, 0.0))
 
 
+def _clip30(x):
+    """jnp.clip(x, -30, 30) = minimum(maximum(x, -30), 30): (the maximum,
+    the clipped value)."""
+    m = torch.maximum(x, _c(x, -_XS_CLAMP))
+    return m, torch.minimum(m, _c(x, _XS_CLAMP))
+
+
+def _sigmoid(x):
+    """1 / (1 + exp(-x)), written as the JAX package's bounce_tile writes
+    it: (exp(-x), the sigmoid)."""
+    e = torch.exp(-x)
+    return e, 1.0 / (1.0 + e)
+
+
+def _soft_forward(f, hit, alive, softness, blocker, plane4, cross_loser,
+                  t_min, t_max):
+    """The realized scan outcome's probability ``den`` and every
+    intermediate of it (the JAX package's bounce_tile, silhouette branch):
+
+      den = max(We Ve - [fb] min(We, Wb) min(Ve, Vb), SIL_P_FLOOR) * qf
+
+    We, Ve: the winner's opacity and validity sigmoids (1 off sphere-win
+    lanes); Wb, Vb: the blocker's, where it is a front blocker whose
+    clamped t lies before the winner's (fb); qf (plane scenes): the
+    crossing coin's probability, P(sphere beats plane) on sphere-win lanes
+    with a plane hit, P(plane beats the loser) on plane lanes whose blocker
+    slot holds the crossing loser (``cross_loser``, recorded by the
+    forward)."""
+    s = SimpleNamespace()
+    ox, oy, oz = f.o
+    dx, dy, dz = f.d
+    r = f.r
+    pm = f.pm
+    eps = _c(r, _DISC_EPS)
+    # Winner: opacity and validity.
+    s.sw1 = f.sw + 1e-12
+    s.xr = f.disc / s.sw1
+    s.xm, xc = _clip30(s.xr)
+    s.ew, s.w = _sigmoid(xc)
+    s.wm = alive & hit if pm is None else alive & hit & ~pm
+    s.we = torch.where(s.wm, s.w, _c(r, 1.0))
+    s.v1 = validity_scale(softness, r) + 1e-12
+    s.vr = (f.t_raw - t_min) / s.v1
+    s.vm, vc = _clip30(s.vr)
+    s.ev, s.v = _sigmoid(vc)
+    s.ve = torch.where(s.wm, s.v, _c(r, 1.0))
+    # Blocker: opacity, validity and clamped t.
+    bval, bcx, bcy, bcz, br = blocker
+    s.br = br
+    s.ocb = (bcx - ox, bcy - oy, bcz - oz)
+    s.tcb = _dot(s.ocb, f.d)
+    ocb2 = _dot(s.ocb, s.ocb)
+    s.discb = br * br - (ocb2 - s.tcb * s.tcb)
+    s.sb = silhouette_scale(softness, br)
+    s.sb1 = s.sb + 1e-12
+    s.xbr = s.discb / s.sb1
+    s.xbm, xbc = _clip30(s.xbr)
+    s.eb, s.mb = _sigmoid(xbc)
+    s.dmaxb = torch.maximum(s.discb, eps)
+    s.sqb = torch.sqrt(s.dmaxb)
+    tnb = s.tcb - s.sqb
+    s.use_nb = tnb > t_min
+    t_raw_b = torch.where(s.use_nb, tnb, s.tcb + s.sqb)
+    t_b = torch.maximum(t_raw_b, _c(r, t_min))
+    s.vb1 = validity_scale(softness, br) + 1e-12
+    s.vbr = (t_raw_b - t_min) / s.vb1
+    s.vbm, vbc = _clip30(s.vbr)
+    s.evb, s.vbv = _sigmoid(vbc)
+    s.bon = bval & alive
+    front = s.bon & ~cross_loser if plane4 is not None else s.bon
+    s.fb = front & (t_b < f.t)
+    s.wb = torch.where(s.fb, s.mb, _c(r, 0.0))
+    s.vb = torch.where(s.fb, s.vbv, _c(r, 1.0))
+    s.mw = torch.minimum(s.we, s.wb)
+    s.mv = torch.minimum(s.ve, s.vb)
+    blk = torch.where(s.fb, s.mw * s.mv, _c(r, 0.0))
+    s.pout = s.we * s.ve - blk
+    s.den1 = torch.maximum(s.pout, _c(r, SIL_P_FLOOR))
+    s.den = s.den1
+    s.plane = plane4 is not None
+    if s.plane:
+        pnx, pny, pnz, pk = plane4
+        s.pn = (pnx, pny, pnz)
+        den4 = dx * pnx + dy * pny + dz * pnz
+        s.live4 = torch.abs(den4) > 1e-8
+        s.den4s = torch.where(s.live4, den4, _c(r, 1.0))
+        s.num4 = -(ox * pnx + oy * pny + oz * pnz) - pk
+        tpl4 = s.num4 / s.den4s
+        pl_ok = s.live4 & (tpl4 > t_min) & (tpl4 < t_max)
+        # Sphere-win lanes: P(sphere beats plane) from the winner's t.
+        s.sxw1 = crossing_scale(softness, r) + 1e-12
+        s.qsn = tpl4 - f.t
+        s.qsr = s.qsn / s.sxw1
+        s.qsm, qsc = _clip30(s.qsr)
+        s.eqs, s.qs = _sigmoid(qsc)
+        s.qsel = alive & hit & ~pm & pl_ok
+        qf = torch.where(s.qsel, s.qs, _c(r, 1.0))
+        # Plane lanes with a crossing loser: P(plane beats it), from the
+        # loser's capped-sqrt clamped t.
+        s.cappedb = torch.sqrt(s.dmaxb + s.sb)
+        sqbx = (s.sqb - s.cappedb).detach() + s.cappedb
+        tnbx = s.tcb - sqbx
+        s.use_nbx = tnbx > t_min
+        s.t_raw_bx = torch.where(s.use_nbx, tnbx, s.tcb + sqbx)
+        tbx = torch.maximum(s.t_raw_bx, _c(r, t_min))
+        s.sxb1 = crossing_scale(softness, br) + 1e-12
+        s.qpn = tbx - f.t
+        s.qpr = s.qpn / s.sxb1
+        s.qpm, qpc = _clip30(s.qpr)
+        s.eqp, s.qp = _sigmoid(qpc)
+        s.cl = s.bon & cross_loser & pm
+        s.qf = torch.where(s.cl, s.qp, qf)
+        s.den = s.den1 * s.qf
+    return s
+
+
 def bounce_tile(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, *,
-                t_min: float, t_max: float, rr_on: bool, plane_mask=None):
+                t_min: float, t_max: float, rr_on: bool, plane_mask=None,
+                softness: float = 0.0, blocker=None, plane4=None,
+                cross_loser=None):
     """One differentiable bounce.  Returns (o'3, d'3, tp'3, rad3, surv_f):
     next origin, direction and throughput, this bounce's radiance (sky on a
-    live miss) and 1.0 where the path goes on."""
+    live miss) and 1.0 where the path goes on.
+
+    ``softness`` > 0: two-sided soft silhouettes.  The winner's hit t takes
+    the capped-sqrt root clamped to t_min, and the entry throughput is
+    scaled by den / stop_grad(den) (``_soft_forward``).  Then ``blocker`` =
+    (valid mask, cx, cy, cz, r) of the lane's blocker; on plane scenes
+    ``plane4`` = (unit normal x, y, z, offset k; the offset differentiable)
+    and ``cross_loser`` = the lanes whose blocker is the sphere that lost
+    the plane crossing coin (the others' blockers are rejected front
+    spheres)."""
     return _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
-                    t_min, t_max, rr_on, plane_mask)[1]
+                    t_min, t_max, rr_on, plane_mask, softness, blocker,
+                    plane4, cross_loser)[1]
 
 
 def _wmax(a, b):
@@ -216,15 +374,141 @@ def _rsqrt_adj(g_inv, inv, m, x, floor):
     return g_inv * (-0.5 * (inv / m)) * _wmax(x, x.new_tensor(floor))
 
 
+def _sig_adj(g, sig, e):
+    """Cotangent of x through sig = 1 / (1 + e), e = exp(-x)."""
+    return (g * (sig * sig)) * e
+
+
+def _clip_adj(g, m, x):
+    """Cotangent of x through minimum(m, 30), m = maximum(x, -30)."""
+    return (g * _wmin(m, m.new_tensor(_XS_CLAMP))) * _wmax(x, x.new_tensor(-_XS_CLAMP))
+
+
+def _scale_adj(g, r, softness):
+    """Cotangent of r through silhouette_scale = ((r r) c) / (R0 + |r|)."""
+    c = _f32(softness * _SIL_R0)
+    num = (r * r) * c
+    den = _f32(_SIL_R0) + torch.abs(r)
+    g_num = g / den
+    g_den = ((-g) * num) * (1.0 / (den * den))
+    return 2.0 * ((g_num * c) * r) + g_den * torch.sign(r)
+
+
+def _xscale_adj(g, r, softness):
+    """Cotangent of r through crossing_scale = ((soft |r|) R0) / (R0 + |r|)."""
+    a = torch.abs(r)
+    num = (_f32(softness) * a) * _f32(_SIL_R0)
+    den = _f32(_SIL_R0) + a
+    g_num = g / den
+    g_den = ((-g) * num) * (1.0 / (den * den))
+    return ((g_num * _f32(_SIL_R0)) * _f32(softness) + g_den) * torch.sign(r)
+
+
+def _soft_adjoint(f, g_srat, t_min):
+    """Reverse of ``_soft_forward`` from the cotangent of the ratio
+    den / stop_grad(den).  Returns the cotangents of the winner's disc, raw
+    root t_raw, final t, silhouette scale and crossing scale, of (o, d),
+    of the blocker's (cx, cy, cz, r) and of the plane offset."""
+    s = f.s
+    zero = torch.zeros_like(f.r)
+    g_den = g_srat / s.den
+    if s.plane:
+        g_den1 = g_den * s.qf
+        g_qf = g_den * s.den1
+        g_qp = _sel(s.cl, g_qf)
+        g_qs = _sel(s.qsel & ~s.cl, g_qf)
+    else:
+        g_den1 = g_den
+    g_pout = g_den1 * _wmax(s.pout, s.pout.new_tensor(SIL_P_FLOOR))
+    g_we = g_pout * s.ve
+    g_ve = g_pout * s.we
+    g_blk = -g_pout
+    g_mw = _sel(s.fb, g_blk * s.mv)
+    g_mv = _sel(s.fb, g_blk * s.mw)
+    g_we = g_we + g_mw * _wmin(s.we, s.wb)
+    g_wb = g_mw * _wmin(s.wb, s.we)
+    g_ve = g_ve + g_mv * _wmin(s.ve, s.vb)
+    g_vb = g_mv * _wmin(s.vb, s.ve)
+    # Winner opacity and validity.
+    g_xr = _clip_adj(_sig_adj(_sel(s.wm, g_we), s.w, s.ew), s.xm, s.xr)
+    g_disc = g_xr / s.sw1
+    g_sw = ((-g_xr) * f.disc) * (1.0 / (s.sw1 * s.sw1))
+    g_vr = _clip_adj(_sig_adj(_sel(s.wm, g_ve), s.v, s.ev), s.vm, s.vr)
+    g_traw = g_vr / s.v1
+    # Blocker opacity and validity.
+    g_xbr = _clip_adj(_sig_adj(_sel(s.fb, g_wb), s.mb, s.eb), s.xbm, s.xbr)
+    g_discb = g_xbr / s.sb1
+    g_sb = ((-g_xbr) * s.discb) * (1.0 / (s.sb1 * s.sb1))
+    g_vbr = _clip_adj(_sig_adj(_sel(s.fb, g_vb), s.vbv, s.evb), s.vbm, s.vbr)
+    g_trb = g_vbr / s.vb1
+    g_tcb = g_trb
+    g_sqb = torch.where(s.use_nb, -g_trb, g_trb)
+    g_dmaxb = g_sqb * (0.5 / s.sqb)
+    g_t, g_sxw, g_sxb, g_pk = zero, zero, zero, zero
+    g_o, g_d = [zero, zero, zero], [zero, zero, zero]
+    if s.plane:
+        # Crossing loser: q_p = sigmoid(clip((t_bx - t) / sigma_x(r_b))).
+        g_qpr = _clip_adj(_sig_adj(g_qp, s.qp, s.eqp), s.qpm, s.qpr)
+        g_qpn = g_qpr / s.sxb1
+        g_sxb = ((-g_qpr) * s.qpn) * (1.0 / (s.sxb1 * s.sxb1))
+        g_t = g_t - g_qpn
+        g_trbx = g_qpn * _wmax(s.t_raw_bx, s.t_raw_bx.new_tensor(t_min))
+        g_tcb = g_tcb + g_trbx
+        g_inb = torch.where(s.use_nbx, -g_trbx, g_trbx) * (0.5 / s.cappedb)
+        g_sb = g_sb + g_inb
+        g_dmaxb = g_dmaxb + g_inb
+        # Sphere winner: q_s = sigmoid(clip((t_pl - t) / sigma_x(r))).
+        g_qsr = _clip_adj(_sig_adj(g_qs, s.qs, s.eqs), s.qsm, s.qsr)
+        g_qsn = g_qsr / s.sxw1
+        g_sxw = ((-g_qsr) * s.qsn) * (1.0 / (s.sxw1 * s.sxw1))
+        g_t = g_t - g_qsn
+        # t_pl = (-(o . n) - k) / (d . n); n is not a parameter.
+        g_num4 = g_qsn / s.den4s
+        g_den4 = _sel(s.live4, ((-g_qsn) * s.num4) * (1.0 / (s.den4s * s.den4s)))
+        g_pk = -g_num4
+        g_o = [(-g_num4) * s.pn[c] for c in range(3)]
+        g_d = [g_den4 * s.pn[c] for c in range(3)]
+    g_discb = g_discb + g_dmaxb * _wmax(s.discb, s.discb.new_tensor(_DISC_EPS))
+    g_br = (2.0 * (g_discb * s.br) + _scale_adj(g_sb, s.br, f.soft)
+            + _xscale_adj(g_sxb, s.br, f.soft))
+    g_tcb = g_tcb + 2.0 * (g_discb * s.tcb)
+    g_bc = []
+    for c in range(3):
+        g_ocb = 2.0 * ((-g_discb) * s.ocb[c]) + g_tcb * f.d[c]
+        g_d[c] = g_d[c] + g_tcb * s.ocb[c]
+        g_o[c] = g_o[c] - g_ocb
+        g_bc.append(g_ocb)
+    return SimpleNamespace(disc=g_disc, traw=g_traw, t=g_t, sw=g_sw, sxw=g_sxw,
+                           o=g_o, d=g_d, blk4=(*g_bc, g_br), pk=g_pk)
+
+
+class BounceCotangents(NamedTuple):
+    """Cotangents of one bounce's inputs (tuples of [N] tensors; the sky's
+    per lane).  ``blk4`` (the blocker's cx, cy, cz, r) and ``pk`` (the
+    plane offset, per lane) are zero without soft silhouettes."""
+
+    o: tuple
+    d: tuple
+    tp: tuple
+    a9: tuple
+    sky: tuple
+    blk4: tuple
+    pk: torch.Tensor
+
+
 def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
                         ct_o3, ct_d3, ct_tp3, ct_rad3, *, t_min: float,
-                        t_max: float, rr_on: bool, plane_mask=None):
+                        t_max: float, rr_on: bool, plane_mask=None,
+                        softness: float = 0.0, blocker=None, plane4=None,
+                        cross_loser=None) -> BounceCotangents:
     """Hand-written reverse pass of ``bounce_tile``: the cotangents of
-    (o3, d3, tp3, a9, sky6) from those of (o'3, d'3, tp'3, rad3).  Sky
-    cotangents come back per lane ([N] each; the caller sums them).  Dead
-    lanes (``alive`` False) pass the carried cotangents through."""
+    (o3, d3, tp3, a9, sky6) and, under soft silhouettes, of the blocker's
+    attributes and the plane offset, from those of (o'3, d'3, tp'3, rad3).
+    Sky cotangents come back per lane ([N] each; the caller sums them).
+    Dead lanes (``alive`` False) pass the carried cotangents through."""
     f, _ = _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
-                    t_min, t_max, rr_on, plane_mask)
+                    t_min, t_max, rr_on, plane_mask, softness, blocker,
+                    plane4, cross_loser)
     zero = torch.zeros_like(f.r)
 
     # Russian roulette: nt2 = boost ? nt / q : nt, q = clip(max3(nt)).
@@ -254,6 +538,13 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
         g_sky[c + 3] = g_w
         g_sky[c] = g_sk[c] - g_w
     g_s01 = g_sk[0] * f.skw[0] + g_sk[1] * f.skw[1] + g_sk[2] * f.skw[2]
+
+    sa = None
+    if softness:
+        # tp enters scaled by den / stop_grad(den) == 1: g_tp above is the
+        # scaled throughput's cotangent, and the ratio's is g_tp . tp.
+        g_srat = g_tp[0] * f.tp[0] + g_tp[1] * f.tp[1] + g_tp[2] * f.tp[2]
+        sa = _soft_adjoint(f, g_srat, t_min)
 
     g_o = [torch.where(f.live, zero, ct_o3[c]) for c in range(3)]
     g_d = [torch.where(f.surv0, zero, ct_d3[c]) for c in range(3)]
@@ -345,6 +636,8 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
 
     # Hit point p = o + t d.
     g_t = _dot(g_p, d)
+    if sa is not None:
+        g_t = g_t + sa.t
     for c in range(3):
         g_o[c] = g_o[c] + g_p[c]
         g_d[c] = g_d[c] + g_p[c] * f.t
@@ -360,17 +653,34 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
             g_c[c] = g_c[c] + _sel(f.pm, (-g_num) * f.o[c])
         g_r = g_r + _sel(f.pm, -g_num)
 
-    # Sphere t from the winner: t = near ? tc - sq : tc + sq.
+    # Sphere t from the winner: t = near ? tc - sq : tc + sq (soft: clamped
+    # to t_min, and the sqrt's derivative capped).
     sh = sph & hit
-    g_sq = torch.where(f.use_near, -g_t, g_t)
-    g_disc = g_sq * (0.5 / f.sq) * _wmax(f.disc, f.disc.new_tensor(_DISC_EPS))
-    g_tc = g_t + 2.0 * (g_disc * f.tc)
+    g_traw = g_t
+    if sa is not None:
+        g_traw = g_t * _wmax(f.t_raw, f.t_raw.new_tensor(t_min)) + sa.traw
+    g_sq = torch.where(f.use_near, -g_traw, g_traw)
+    if sa is not None:
+        g_in = g_sq * (0.5 / f.capped)
+        g_disc = g_in * _wmax(f.disc, f.disc.new_tensor(_DISC_EPS)) + sa.disc
+        g_r = g_r + _sel(sh, _scale_adj(g_in + sa.sw, f.r, softness)
+                         + _xscale_adj(sa.sxw, f.r, softness))
+    else:
+        g_disc = g_sq * (0.5 / f.sq) * _wmax(f.disc, f.disc.new_tensor(_DISC_EPS))
+    g_tc = g_traw + 2.0 * (g_disc * f.tc)
     g_r = g_r + _sel(sh, 2.0 * (g_disc * f.r))
     for c in range(3):
         g_oc = 2.0 * ((-g_disc) * f.oc[c]) + g_tc * d[c]
         g_d[c] = g_d[c] + _sel(sh, g_tc * f.oc[c])
         g_c[c] = g_c[c] + _sel(sh, g_oc)
         g_o[c] = g_o[c] - _sel(sh, g_oc)
+
+    g_blk4, g_pk = (zero,) * 4, zero
+    if sa is not None:
+        for c in range(3):
+            g_o[c] = g_o[c] + sa.o[c]
+            g_d[c] = g_d[c] + sa.d[c]
+        g_blk4, g_pk = sa.blk4, sa.pk
 
     # Dead lanes: identity on the carried cotangents.
     al = alive
@@ -379,4 +689,7 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
     g_tp = [torch.where(al, g_tp[c], ct_tp3[c]) for c in range(3)]
     g_a9 = [_sel(al, x) for x in (*g_c, g_r, *g_alb, g_fz, g_io)]
     g_sky = [_sel(al, x) for x in g_sky]
-    return tuple(g_o), tuple(g_d), tuple(g_tp), tuple(g_a9), tuple(g_sky)
+    return BounceCotangents(
+        tuple(g_o), tuple(g_d), tuple(g_tp), tuple(g_a9), tuple(g_sky),
+        tuple(_sel(al, x) for x in g_blk4), _sel(al, g_pk),
+    )

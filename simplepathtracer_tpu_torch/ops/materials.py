@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..types import Material
+from .intersect import SIL_P_FLOOR
 from .sampling import in_unit_ball, unit_sphere_surface
 
 
@@ -26,19 +27,25 @@ def _safe_normalize(v, fallback):
     return torch.where(n2 > 1e-12, unit, fallback)
 
 
-def scatter(dirs, hit, scene, unif):
+def scatter(dirs, hit, scene, unif, fresnel_score=False):
     """One surface interaction per ray: (new_dirs [N, 3], attenuation
     [N, 3], scattered [N] bool); ``scattered`` is False for metal rays
     absorbed into the surface."""
     i = hit.index
     return scatter_attrs(
         dirs, hit.normal, scene.material[i], scene.albedo[i],
-        scene.fuzz[i], scene.ior[i], unif,
+        scene.fuzz[i], scene.ior[i], unif, fresnel_score=fresnel_score,
     )
 
 
-def scatter_attrs(dirs, n, mat, albedo, fuzz, ior, unif):
-    """scatter() on pre-gathered per-ray attributes; unif [N, 8]."""
+def scatter_attrs(dirs, n, mat, albedo, fuzz, ior, unif, fresnel_score=False):
+    """scatter() on pre-gathered per-ray attributes; unif [N, 8].
+
+    ``fresnel_score`` (soft configs with ``intersect.SIL_FRESNEL`` on):
+    glass attenuation times the detached ratio p / stop_grad(p) of the
+    realized Schlick outcome's probability (1 under total internal
+    reflection), floored at ``SIL_P_FLOOR``: 1 in value, dP * L in the
+    gradient."""
     front = torch.sum(dirs * n, -1) < 0.0
     n_face = torch.where(front[:, None], n, -n)
 
@@ -74,6 +81,15 @@ def scatter_attrs(dirs, n, mat, albedo, fuzz, ior, unif):
     is_diel = mat == int(Material.DIELECTRIC)
     new_dirs = torch.where(is_metal[:, None], metal_dir, lam_dir)
     new_dirs = torch.where(is_diel[:, None], diel_dir, new_dirs)
-    attenuation = torch.where(is_diel[:, None], torch.ones_like(albedo), albedo)
+    diel_att = torch.ones_like(albedo)
+    if fresnel_score:
+        p_evt = torch.where(
+            do_reflect,
+            torch.where(cannot_refract, torch.ones_like(reflect_prob), reflect_prob),
+            1.0 - reflect_prob,
+        )
+        p_evt = torch.maximum(p_evt, p_evt.new_tensor(SIL_P_FLOOR))
+        diel_att = (p_evt / p_evt.detach())[:, None] * diel_att
+    attenuation = torch.where(is_diel[:, None], diel_att, albedo)
     scattered = torch.where(is_metal, metal_ok, torch.ones_like(metal_ok))
     return new_dirs, attenuation, scattered

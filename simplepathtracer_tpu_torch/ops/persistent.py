@@ -23,7 +23,7 @@ import torch
 
 from ..types import Material
 from .cuda_build import load_library
-from .sampling import key_words, threefry2x32, _to_unit_float
+from .sampling import _f32, key_words, threefry2x32, _to_unit_float
 
 # Lanes are laid out in blocks of this many positions: fewer pixels than one
 # block give a single bank (the JAX package's (8, 128) tile, kept so that the
@@ -175,11 +175,6 @@ render_block_persistent.launches = 0
 
 # --------------------------------------------------------------------------
 # Plain version
-
-
-def _f32(x: float) -> float:
-    """x rounded to float32, as a Python float (exact in the f32 ops)."""
-    return float(np.float32(x))
 
 
 _TWO_PI = _f32(2.0 * np.pi)

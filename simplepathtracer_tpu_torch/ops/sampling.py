@@ -11,6 +11,7 @@ threads, blocks or devices, and the two packages draw the same words.
 Slot map (each slot = one threefry eval = 2 words):
     bounce b, eval e in 0..3  ->  slot b*4 + e   (depth <= 30)
     camera jitter             ->  slots 124, 125
+    crossing + validity coins ->  slot 128 + b   (soft silhouettes only)
 
 PyTorch on the CPU has no uint32 add or shift, and ``int32 >>`` is an
 arithmetic shift, so the words are computed in int64 and masked to 32 bits
@@ -29,6 +30,11 @@ _M32 = 0xFFFFFFFF
 # threefry2x32 rotation schedule (Salmon et al., SC'11; same as jax's PRNG).
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
+
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as a Python float (exact in the f32 ops)."""
+    return float(np.float32(x))
 
 
 def make_key(seed: int) -> torch.Tensor:
@@ -135,10 +141,23 @@ def bounce_noise(ctx: RayCtx, bounce: int) -> torch.Tensor:
     """All randomness one bounce needs, per ray: uniforms [N, 8].
 
     Columns: 0-1 Lambertian (z, phi); 2-4 metal fuzz ball (z, phi, r);
-    5 dielectric reflect coin; 6 Russian roulette; 7 unused here (the soft
-    silhouette coin of the JAX package).
+    5 dielectric reflect coin; 6 Russian roulette; 7 soft-silhouette
+    acceptance coin (read only when softness > 0).
     """
     return torch.stack(_uniform_words(ctx, int(bounce) * 4, 4), dim=-1)
+
+
+def crossing_noise(ctx: RayCtx, bounce: int):
+    """The two t-threshold coins of bounce ``bounce``: (ux, uv), each [N].
+
+    ``ux`` is the plane-vs-sphere crossing coin (the sphere beats the plane
+    iff t_s < t_p + logit(ux) * sigma_x), ``uv`` the candidate-validity coin
+    (candidate s is valid iff t_raw > t_min + logit(uv) * sigma_v).  Slot
+    128 + b, outside the bounce and camera slots, so the other streams are
+    untouched; drawn only when softness > 0."""
+    c1 = ((ctx.sample << 8) & _M32) | (128 + int(bounce))
+    w0, w1 = threefry2x32(ctx.k0, ctx.k1, ctx.pixel, c1)
+    return _to_unit_float(w0), _to_unit_float(w1)
 
 
 def camera_jitter(ctx: RayCtx) -> torch.Tensor:

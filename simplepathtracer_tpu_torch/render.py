@@ -1,4 +1,4 @@
-"""Rendering (counterpart of the JAX package's ``render.py``, hard paths).
+"""Rendering (counterpart of the JAX package's ``render.py``).
 
 Three routes, chosen by the config's flags as in the JAX package:
 
@@ -27,7 +27,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .camera import generate_rays
-from .ops.intersect import Hit, intersect_scene
+from .ops import intersect
+from .ops.intersect import (
+    SIL_P_FLOOR,
+    Hit,
+    crossing_scale,
+    grad_capped_sqrt,
+    intersect_scene,
+    intersect_scene_soft,
+    silhouette_logit,
+    silhouette_scale,
+    validity_scale,
+)
 from .ops.materials import scatter, scatter_attrs, sky_color
 from .ops.grad_regen import (
     IDX_PACK,
@@ -42,7 +53,7 @@ from .ops.persistent import (
     render_block_persistent,
 )
 from .ops.plane import ray_plane_intersection
-from .ops.sampling import bounce_noise, camera_jitter, ray_keys
+from .ops.sampling import bounce_noise, camera_jitter, crossing_noise, ray_keys
 from .types import Camera, RenderConfig, RenderState, Scene, resolve_device
 
 
@@ -53,15 +64,20 @@ _GRAD_RAY_BUDGET = 2_000_000
 # gradient path.  A chunk's backward holds its 25 residual planes and 9
 # cotangent planes, 136 B per lane-iteration: 200M x 136 B = 27.2 GB, a
 # third of an H100's 80 GB, beside the packed winner indices (below) and
-# the caller's tensors.  At the cover frame (1200x800, depth 10) it picks
-# 20-spp chunks (n_iter 207, 27.0 GB).  A larger chunk saves only launches:
-# every kernel's work and traffic grow with the chunk.
+# the caller's tensors.  Soft silhouettes add 5 blocker planes and 4
+# blocker cotangent planes, 172 B: 200M x 172 B = 34.4 GB, under half of
+# it.  At the cover frame (1200x800, depth 10) it picks 20-spp chunks
+# (n_iter 207: 27.0 GB hard, 34.2 GB soft); the soft fit's decoupled
+# gradient differentiates 50 spp in 10-spp chunks (n_iter 108, 17.8 GB).
+# A larger chunk saves only launches: every kernel's work and traffic grow
+# with the chunk.
 _GRAD_ITER_BUDGET_REGEN = 200_000_000
-# Bytes of packed winner indices (4 B per 3 lane-iterations) the streamed
-# route may keep across all spp: 24 GiB on an H100's 80 GB, beside one
-# chunk's 27 GB of planes.  At the cover frame that holds
-# 3 x 24 GiB / (4 B x 960,000 x 10) = 2013 spp; beyond, the checkpointed
-# stream re-records each chunk's indices in the backward.
+# Bytes of packed winner indices (4 B per 3 lane-iterations; soft: the
+# blocker indices too, 8 B) the streamed route may keep across all spp:
+# 24 GiB on an H100's 80 GB, beside one chunk's 27-34 GB of planes.  At the
+# cover frame that holds 3 x 24 GiB / (4 B x 960,000 x 10) = 2013 spp
+# (soft: 1006); beyond, the checkpointed stream re-records each chunk's
+# indices in the backward.
 _IDX_PLANE_BUDGET = 24 << 30
 
 
@@ -71,8 +87,14 @@ def stream_capacity_spp(config: RenderConfig, scene) -> int:
     0 when the scene's table is too large for the 10-bit code."""
     if scene.num_spheres > IDX_PACK_MAX_SPHERES:
         return 0
-    per_spp = 4 * config.num_pixels * max(1, config.max_depth)
+    per_spp = _idx_planes(config) * 4 * config.num_pixels * max(1, config.max_depth)
     return int(IDX_PACK * _IDX_PLANE_BUDGET // per_spp)
+
+
+def _idx_planes(config: RenderConfig) -> int:
+    """Packed index planes the streamed route keeps: the winners, and under
+    soft silhouettes the blockers."""
+    return 2 if config.silhouette_softness > 0.0 else 1
 
 
 def grad_safe_config(config: RenderConfig, device=None) -> RenderConfig:
@@ -111,30 +133,127 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
+def _soft_ratio(o, d, hit, alive, scene, soft, t_min, wc3, wr, blk,
+                pw=None, ph_t=None, cross_valid=None):
+    """den / stop_grad(den), 1 in value: the two-sided soft-silhouette
+    estimator's detached ratio of one bounce (the JAX package's jnp path).
+
+    den = max(We Ve - [blocker valid] min(We, Wb) min(Ve, Vb), SIL_P_FLOOR),
+    times, on plane scenes, the crossing coin's probability qf of the
+    realized plane-vs-sphere outcome.  Its gradient is the realized scan
+    outcome's score: in expectation the two-sided visibility derivative."""
+    oc = wc3 - o
+    tcw = torch.sum(oc * d, -1)
+    discw = wr * wr - (torch.sum(oc * oc, -1) - tcw * tcw)
+    xsw = _clip(discw / (silhouette_scale(soft, wr) + 1e-12), -30.0, 30.0)
+    sphere_win = alive & hit.hit
+    if pw is not None:
+        sphere_win = sphere_win & ~pw
+    we = torch.where(sphere_win, 1.0 / (1.0 + torch.exp(-xsw)), 1.0)
+    # Winner validity V = P(t_raw beats the t_min coin), from the winner's
+    # attributes; the realized t is max(t_raw, t_min).
+    sqw = grad_capped_sqrt(torch.maximum(discw, discw.new_tensor(1e-12)),
+                           silhouette_scale(soft, wr))
+    tnw = tcw - sqw
+    t_raw_w = torch.where(tnw > t_min, tnw, tcw + sqw)
+    v_w = torch.sigmoid(_clip((t_raw_w - t_min) / (validity_scale(soft, wr) + 1e-12),
+                              -30.0, 30.0))
+    ve = torch.where(sphere_win, v_w, 1.0)
+    bi = torch.clamp(blk, min=0)
+    bc = scene.centers[bi]
+    brr = scene.radii[bi]
+    ocb = bc - o
+    tcb = torch.sum(ocb * d, -1)
+    discb = brr * brr - (torch.sum(ocb * ocb, -1) - tcb * tcb)
+    xsb = _clip(discb / (silhouette_scale(soft, brr) + 1e-12), -30.0, 30.0)
+    sqb = torch.sqrt(torch.maximum(discb, discb.new_tensor(1e-12)))
+    tnb = tcb - sqb
+    t_raw_b = torch.where(tnb > t_min, tnb, tcb + sqb)
+    t_b = torch.maximum(t_raw_b, t_raw_b.new_tensor(t_min))
+    v_b = torch.sigmoid(_clip((t_raw_b - t_min) / (validity_scale(soft, brr) + 1e-12),
+                              -30.0, 30.0))
+    # The blocker counts where it lies strictly in front of the final
+    # winner: p = We Ve - min(We, Wb) min(Ve, Vb) over the shared coins.
+    bvalid = (blk >= 0) & alive & (t_b < hit.t)
+    wb = torch.where(bvalid, 1.0 / (1.0 + torch.exp(-xsb)), 0.0)
+    vb = torch.where(bvalid, v_b, 1.0)
+    blk_term = torch.where(bvalid, torch.minimum(we, wb) * torch.minimum(ve, vb), 0.0)
+    qf = None
+    if ph_t is not None:
+        # Crossing factor: qx = P(sphere beats plane) from the
+        # differentiable t's.  Where the plane won, P(plane wins) is taken
+        # as sigmoid of the negated argument, not 1 - qx: 1 - qx rounds to
+        # 0 once the sphere leads by ~16.7 sigma_x, and a realized plane
+        # win would then give den / stop_grad(den) = 0 / 0.
+        t_w = torch.maximum(t_raw_w, t_raw_w.new_tensor(t_min))
+        sigx = crossing_scale(soft, wr)
+        arg = _clip((ph_t - t_w) / (sigx + 1e-12), -30.0, 30.0)
+        # Where the plane beat an in-band accepted sphere, that sphere takes
+        # the single blocker slot (as in the kernels): no front blocker.
+        steal = pw & cross_valid & ((t_w - ph_t).detach() < 30.0 * sigx.detach())
+        blk_term = torch.where(steal, 0.0, blk_term)
+        qf = torch.where(pw, torch.sigmoid(-arg), torch.sigmoid(arg))
+        qf = torch.where(cross_valid & alive, qf, 1.0)
+    # Floor only the acceptance probability: the crossing factor's score
+    # is bounded and stays outside the floor.
+    den = torch.maximum(we * ve - blk_term, we.new_tensor(SIL_P_FLOOR))
+    if qf is not None:
+        den = den * qf
+    return den / den.detach()
+
+
 def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
-    """Trace a batch of rays to completion (hard, non-stochastic bounce).
-    Returns radiance [N, 3]; rays alive after ``max_depth`` bounces are
-    black."""
+    """Trace a batch of rays to completion.  Returns radiance [N, 3]; rays
+    alive after ``max_depth`` bounces are black.
+
+    With ``silhouette_softness`` > 0 the bounce is the JAX package's
+    two-sided soft-silhouette estimator: a stochastic-transparency scan
+    (acceptance and validity coins, the strongest rejected front blocker),
+    a stochastic plane-vs-sphere crossing coin on plane scenes, and the
+    detached ratio ``_soft_ratio`` on the entry throughput."""
     n = origins.shape[0]
+    soft = config.silhouette_softness
+    fresnel = bool(soft > 0.0 and intersect.SIL_FRESNEL)
     o, d = origins, dirs
     tp = torch.ones((n, 3), dtype=torch.float32, device=o.device)
     rad = torch.zeros((n, 3), dtype=torch.float32, device=o.device)
     alive = torch.ones((n,), dtype=torch.bool, device=o.device)
+    # The chain's previous sphere winner (-1: none), hard-gated in the scan.
+    prev = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     for b in range(config.max_depth):
         unif = bounce_noise(keys, b)
-        hit = intersect_scene(o, d, scene, config.t_min, config.t_max)
+        widx = pw = ph_t = cross_valid = blk = None
+        if soft > 0.0:
+            uxw, uvw = crossing_noise(keys, b)
+            hit, blk = intersect_scene_soft(
+                o, d, unif[:, 7], uvw, scene, config.t_min, config.t_max, soft,
+                prev_idx=prev,
+            )
+        else:
+            hit = intersect_scene(o, d, scene, config.t_min, config.t_max)
         if scene.plane is None:
-            new_d, att, scattered = scatter(d, hit, scene, unif)
+            new_d, att, scattered = scatter(d, hit, scene, unif, fresnel_score=fresnel)
+            if soft > 0.0:
+                widx = torch.where(hit.hit, hit.index, -1)
         else:
             # Sphere scan + Lambertian ground plane; the plane overrides the
-            # winner where it is nearer.
-            # The plane normal is not a differentiable parameter (offset and
-            # albedo are): detached, as in the JAX package's jnp path.
+            # winner where it is nearer (soft: where it wins the crossing
+            # coin).  The plane normal is not a differentiable parameter
+            # (offset and albedo are): detached, as in the JAX package.
             ph = ray_plane_intersection(
                 o, d, scene.plane[:3].detach(), scene.plane[3],
                 config.t_min, config.t_max,
             )
-            pw = ph.hit & (ph.t < hit.t)
+            if soft > 0.0:
+                # The sphere beats the plane iff t_s < t_p + logit(ux) *
+                # sigma_x(r_winner).
+                thr_x = silhouette_logit(uxw) * crossing_scale(
+                    soft, scene.radii[hit.index].detach())
+                pw = ph.hit & ~(hit.hit & (hit.t < ph.t + thr_x))
+                ph_t = ph.t
+                cross_valid = ph.hit & hit.hit
+            else:
+                pw = ph.hit & (ph.t < hit.t)
             hit = Hit(
                 t=torch.where(pw, ph.t, hit.t),
                 index=hit.index,
@@ -147,7 +266,17 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
             alb = torch.where(pw[:, None], scene.plane[None, 4:7], scene.albedo[i])
             fz = torch.where(pw, 0.0, scene.fuzz[i])
             io = torch.where(pw, 1.0, scene.ior[i])
-            new_d, att, scattered = scatter_attrs(d, hit.normal, mat, alb, fz, io, unif)
+            new_d, att, scattered = scatter_attrs(d, hit.normal, mat, alb, fz, io, unif,
+                                                  fresnel_score=fresnel)
+            if soft > 0.0:
+                widx = torch.where(hit.hit & ~pw, hit.index, -1)
+        if soft > 0.0:
+            srat = _soft_ratio(
+                o, d, hit, alive, scene, soft, config.t_min,
+                scene.centers[hit.index], scene.radii[hit.index], blk,
+                pw=pw, ph_t=ph_t, cross_valid=cross_valid,
+            )
+            tp = tp * srat[:, None]
 
         miss = alive & ~hit.hit
         rad = rad + tp * sky_color(d, scene.sky_lo, scene.sky_hi) * miss[:, None]
@@ -165,6 +294,8 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
             surviving = surviving & ~(unif[:, 6] >= q)
             tp = torch.where(surviving[:, None], tp / q[:, None], tp)
         alive = surviving
+        if soft > 0.0:
+            prev = widx
     return rad
 
 
@@ -264,10 +395,13 @@ def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_s
             # chunk a scan-free re-forward + backward.  Past the idx-plane
             # budget, the checkpointed stream re-records each chunk's
             # indices in the backward with the same kernel.
-            fits = 4 * p * n_samples * config.max_depth <= IDX_PACK * _IDX_PLANE_BUDGET
+            fits = (_idx_planes(config) * 4 * p * n_samples * config.max_depth
+                    <= IDX_PACK * _IDX_PLANE_BUDGET)
+            # A value-only pass keeps no words for a backward.
+            keep = fits and torch.is_grad_enabled() and _requires_grad(scene)
             return render_block_grad_regen_stream(
                 scene, camera, config, key, pixel_ids, sample_offset,
-                n_samples, chunk, n_banks=banks, checkpoint_idx=not fits,
+                n_samples, chunk, n_banks=banks, checkpoint_idx=not keep,
             )
 
     def step(off):
@@ -370,7 +504,13 @@ def _accumulate_balanced(state, scene, camera, config, n_samples, probe):
 
 def render(scene: Scene, camera: Camera, config: RenderConfig, key) -> torch.Tensor:
     """One-shot render on the scene's device: [H, W, 3] gamma-corrected
-    float image in [0, 1]."""
+    float image in [0, 1].
+
+    With ``use_pallas`` the persistent kernel ignores
+    ``silhouette_softness`` and renders hard silhouettes, as the JAX
+    package's persistent kernel does.  A soft image (stochastic acceptance
+    at silhouettes, as a soft fit sees the scene) comes from the other
+    routes: ``use_pallas=False``, or ``grad_safe_config``'s regen route."""
     state = init_state(config, key, device=scene.device)
     state = accumulate(state, scene, camera, config, config.spp)
     return state.image(config.gamma)

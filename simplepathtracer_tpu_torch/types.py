@@ -108,7 +108,6 @@ def make_camera(
 _NOT_PORTED = {
     "use_pallas_hits": False,
     "camera_grad": False,
-    "silhouette_softness": 0.0,
     "rng_impl": "threefry2x32",
 }
 

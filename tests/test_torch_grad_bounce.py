@@ -181,7 +181,7 @@ def _adjoint(t, rr_on):
     g = bounce_tile_adjoint(o3, d3, tp3, a9, fx["mat"], fx["hit"], fx["alive"], fx["u"],
                             sky6, fx["do_rr"], *ct, t_min=T_MIN, t_max=T_MAX, rr_on=rr_on,
                             plane_mask=pm)
-    return [torch.stack(x).numpy() for x in g]
+    return [torch.stack(x).numpy() for x in g[:5]]
 
 
 NAMES = ("o", "d", "tp", "a9", "sky6")

@@ -7,12 +7,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch import inverse
-from simplepathtracer_tpu_torch.ops import bucket, grad_regen, persistent
+from simplepathtracer_tpu_torch.ops import bucket, grad_regen, intersect, persistent
 from simplepathtracer_tpu_torch.render import _persistent_args
 
 REPO = Path(__file__).resolve().parent.parent
@@ -88,14 +89,49 @@ def test_wrapper_on_cpu_takes_plain_version():
         # Camera gradients stay gated on the regen route too.
         (dict(use_pallas_grad=True, grad_regen=True, camera_grad=True), "camera_grad"),
         (dict(camera_grad=True), "camera_grad"),
-        (dict(silhouette_softness=0.05), "silhouette_softness"),
     ],
-    ids=["use_pallas_grad", "use_pallas_hits", "regen_camera_grad", "camera_grad",
-         "silhouette_softness"],
+    ids=["use_pallas_grad", "use_pallas_hits", "regen_camera_grad", "camera_grad"],
 )
 def test_unported_config_fields_raise(fields, match):
     with pytest.raises(NotImplementedError, match=match):
         tpt.RenderConfig(**fields)
+
+
+@pytest.mark.parametrize("path", ["silhouette_softness", "softness", "pixel_loss_decoupled"])
+def test_soft_silhouette_paths_run(path):
+    """Soft silhouettes are ported: the config field, ``fit``'s default
+    softness with geometry leaves, and the decoupled loss run (on the CPU,
+    the eager route) and give finite results."""
+    scene, cam, cfg, target = _tiny()
+    if path == "silhouette_softness":
+        img = tpt.render(scene, cam, cfg.replace(silhouette_softness=0.05), tpt.make_key(0))
+        assert torch.isfinite(img).all() and img.max() > 0
+    elif path == "softness":
+        fitted, losses = tpt.fit(scene, target, cam, cfg, tpt.make_key(0), steps=1, device="cpu")
+        assert np.isfinite(losses[0]) and not torch.equal(fitted.centers, scene.centers)
+    else:
+        params = {k: v.clone().requires_grad_(True) for k, v in tpt.split_params(scene)[0].items()}
+        loss = inverse.pixel_loss_decoupled(params, scene, target, cam,
+                                            cfg.replace(silhouette_softness=0.05),
+                                            tpt.make_key(0), device="cpu")
+        (g,) = torch.autograd.grad(loss, [params["centers"]])
+        assert torch.isfinite(loss) and torch.isfinite(g).all() and g.abs().max() > 0
+
+
+def test_sil_fresnel_raises_on_the_kernel_route(monkeypatch):
+    """The detached Schlick-coin ratio (``SIL_FRESNEL``, off by default) is
+    honoured by the eager route and not ported to the kernels: there it
+    raises instead of being ignored."""
+    scene, cam, cfg, target = _tiny()
+    cfg = cfg.replace(silhouette_softness=0.05)
+    monkeypatch.setattr(intersect, "SIL_FRESNEL", True)
+    params = tpt.split_params(scene)[0]
+    assert torch.isfinite(tpt.pixel_loss(params, scene, target, cam, cfg, tpt.make_key(0),
+                                         device="cpu"))
+    with pytest.raises(NotImplementedError, match="SIL_FRESNEL"):
+        tpt.pixel_loss(params, scene, target, cam,
+                       cfg.replace(use_pallas_grad=True, grad_regen=True), tpt.make_key(0),
+                       device="cpu")
 
 
 def test_regen_config_is_accepted():
@@ -140,7 +176,7 @@ def test_gradient_wrappers_on_cpu_take_plain_versions():
         (grad_regen.regen_backward, grad_regen.regen_bwd_reference),
         (bucket.bucket_cols, bucket.bucket_cols_reference),
     ]
-    before = [(k.launches, p.calls) for k, p in wrappers]
+    before = [(k.launches.copy(), p.calls) for k, p in wrappers]
     params = {k: v.clone().requires_grad_(True) for k, v in tpt.split_params(scene)[0].items()}
     loss = tpt.pixel_loss(params, scene, target, cam, cfg, tpt.make_key(0), device="cpu")
     loss.backward()
@@ -161,14 +197,31 @@ def test_gradient_wrappers_on_cpu_take_plain_versions():
 
 
 @pytest.mark.parametrize(
+    "softness,plane,want",
+    [(0.0, False, "hard"), (0.0, True, "hard"), (0.02, False, "soft"), (0.02, True, "soft_plane")],
+)
+def test_regen_variant_names_the_kernel_instantiation(softness, plane, want):
+    """The key each regen wrapper counts its launches under is the
+    instantiation the CUDA entry points select (csrc/grad_regen.cu:
+    variant_of): softness decides soft, then the plane decides soft_plane."""
+    scene, cam, cfg, _ = _tiny()
+    call = grad_regen.regen_call(
+        [t.to("meta") for t in grad_regen._trace_inputs(scene, cam, cfg)[0][:11]],
+        torch.zeros(6, device="meta"), None, torch.zeros(19, device="meta"),
+        tpt.make_key(0), torch.arange(4, device="meta"), n_samples=1, max_depth=3,
+        width=8, height=4,
+    )
+    assert grad_regen.variant(call._replace(softness=softness, use_plane=plane)) == want
+
+
+@pytest.mark.parametrize(
     "option,match",
     [
-        (dict(softness=0.02), "A.11"),
         (dict(softness=0.0, balance=True), "balance"),
         (dict(softness=0.0, grad_accum=2), "grad_accum"),
         (dict(softness=0.0, snapshot_path="fit.npz"), "A.14"),
     ],
-    ids=["softness", "balance", "grad_accum", "snapshot_path"],
+    ids=["balance", "grad_accum", "snapshot_path"],
 )
 def test_unported_fit_options_raise(option, match):
     scene, cam, cfg, target = _tiny()
@@ -176,7 +229,7 @@ def test_unported_fit_options_raise(option, match):
         tpt.fit(scene, target, cam, cfg, tpt.make_key(0), steps=1, device="cpu", **option)
 
 
-@pytest.mark.parametrize("fn", ["pixel_loss_decoupled", "make_accum_grad_step", "fit_camera"])
+@pytest.mark.parametrize("fn", ["make_accum_grad_step", "fit_camera"])
 def test_unported_inverse_functions_raise(fn):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(inverse, fn)()
