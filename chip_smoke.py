@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py               # what the checks below need
     python3 chip_smoke.py --sweep       # also time bank counts and balancing
+    python3 chip_smoke.py --camera-adfd # also the cover camera gradient
+                                        # against FD, coordinate by coordinate
 
 Builds the CUDA kernels from the sources in the checkout (one nvcc per
 source, in parallel) and holds each against its plain PyTorch version on
@@ -26,9 +28,23 @@ through the soft kernels only, each soft kernel at that fit's chunk on
 2,048 random lanes against its plain version, the plane leaf of
 ``three_sphere_plane`` at its full size (the crossing coin live), and the
 half-buried radius AD/FD of tests/test_crossing.py through the kernels.
-Every phase raises on failure.  The last lines are one JSON object with the
-kernels' numbers and one with the device; without CUDA the script exits
-non-zero and prints neither.  Imports nothing of JAX.
+Phase 8 drives camera gradients through the per-bounce fused kernels
+(``csrc/grad.cu``): raygen, every forward and backward bounce against
+their plain versions at small shapes (bit for bit; sky sums and buckets
+against float64 sums), the fused scene-leaf route at bench.py's shape
+(cover 1200x800, 8 spp in one chunk: value_and_grad of ``pixel_loss``
+against the regeneration route on the same key), ``fit_camera`` on the
+full cover frame with its defaults through the fused kernels only (loss
+must fall; its first gradient must descend the loss and, on a Lambertian
+copy of the frame, have each strong coordinate's sign by central
+differences), each fused kernel at both paths' launch shapes on 2,048
+random rays against its plain version, AD/FD of ``vfov_deg`` through the
+kernels, and README's ``fit_camera`` example.  Comparisons of earlier
+phases against the plain versions run at cut depths or chunks where the
+plain versions' time would grow past the script's budget.  Every phase
+raises on failure.  The last lines are one JSON object with the kernels'
+numbers and one with the device; without CUDA the script exits non-zero
+and prints neither.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -124,6 +140,31 @@ SOFT_PLANE_KERNELS = (
     ("regen_refwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:1095"),
     ("regen_bwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:462"),
 )
+# Phase 8, camera gradients: the per-bounce fused kernels (hard and soft
+# instantiations) and raygen.
+FUSED_KERNELS = (
+    ("grad_fwd", _SRC + "grad.cu", _JAX + "pallas_grad.py:352"),
+    ("grad_bwd", _SRC + "grad.cu", _JAX + "pallas_grad.py:470"),
+    ("grad_fwd_soft", _SRC + "grad.cu", _JAX + "pallas_grad.py:352"),
+    ("grad_bwd_soft", _SRC + "grad.cu", _JAX + "pallas_grad.py:470"),
+    ("raygen", _SRC + "grad.cu", _JAX + "pallas_grad.py:652"),
+)
+# The fused scene-leaf route at bench.py's fwd_bwd_paths_per_sec shape
+# (cover, 8 spp in one chunk); the camera fit's start (origin offset, vfov
+# offset in degrees); AD/FD of vfov (tests/test_camera_grad.py:21-52: eps,
+# and rtol 0.25 as bounds).
+FUSED_SPP = 8
+# Chunks, samples per chunk and depth that phase 6 runs through the plain
+# route (its time grows with each; the fit's own chunk and depth are held
+# kernel by kernel in phase 6 (e)).
+CHECK_CHUNKS, CHECK_SPP_CHUNK, CHECK_DEPTH = 2, 10, 5
+CAM_ORIGIN_START, CAM_VFOV_START = (0.05, -0.05, 0.0), 0.3
+VFOV_ADFD_EPS, VFOV_ADFD_BOUNDS = 0.05, (0.75, 1.25)
+# Camera AD against central differences on the main path (phase 8c): the
+# step in the camera coordinates (a third of it moved no difference by more
+# than 7%), and, on the Lambertian control, the share of the largest
+# difference from which a coordinate must have the gradient's sign.
+CAM_FD_EPS, CAM_SIGN_SHARE = 0.01, 0.25
 # Report-name suffix of each regen kernel variant (ops/grad_regen.variant)
 # and report name of each bucket column count.
 VARIANT_SUFFIX = {"hard": "", "soft": "_soft", "soft_plane": "_soft_plane"}
@@ -151,9 +192,12 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call over ``reps`` calls after one warm call."""
-    fn()
+def cuda_ms(fn, reps, warm=True):
+    """Mean milliseconds per call over ``reps`` calls, after one warm call
+    unless ``warm`` is False (a plain version that has just run on the same
+    inputs)."""
+    if warm:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -162,6 +206,18 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_LAP = [0.0]
+
+
+def lap(label=None):
+    """Print the seconds since the previous lap under ``label`` (where a
+    phase spends its time); with no label, only start a lap."""
+    now = time.perf_counter()
+    if label is not None:
+        print(f"time: {label} {now - _LAP[0]:.2f} s")
+    _LAP[0] = now
 
 
 def sync(dev):
@@ -178,16 +234,30 @@ def peak_gb(dev):
     return torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else float("nan")
 
 
-def grad_wrappers():
-    """{name: (kernel wrapper, plain version)} of the gradient path."""
-    from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
+# (module of simplepathtracer_tpu_torch.ops, kernel wrapper, plain version)
+# of each gradient kernel, and the kernels of each gradient route.
+WRAPPER_SITES = {
+    "regen_fwd": ("grad_regen", "regen_forward", "regen_fwd_reference"),
+    "regen_refwd": ("grad_regen", "regen_refwd", "regen_refwd_reference"),
+    "regen_bwd": ("grad_regen", "regen_backward", "regen_bwd_reference"),
+    "bucket": ("bucket", "bucket_cols", "bucket_cols_reference"),
+    "grad_fwd": ("grad", "grad_forward", "grad_fwd_reference"),
+    "grad_bwd": ("grad", "grad_backward", "grad_bwd_reference"),
+    "raygen": ("grad", "raygen", "raygen_reference"),
+}
+REGEN_ROUTE = ("regen_fwd", "regen_refwd", "regen_bwd", "bucket")
+FUSED_ROUTE = ("grad_fwd", "grad_bwd", "raygen", "bucket")
 
-    return {
-        "regen_fwd": (gr.regen_forward, gr.regen_fwd_reference),
-        "regen_refwd": (gr.regen_refwd, gr.regen_refwd_reference),
-        "regen_bwd": (gr.regen_backward, gr.regen_bwd_reference),
-        "bucket": (bucket.bucket_cols, bucket.bucket_cols_reference),
-    }
+
+def grad_wrappers():
+    """{name: (kernel wrapper, plain version)} of the gradient kernels."""
+    import importlib
+
+    out = {}
+    for name, (mod, kernel, plain) in WRAPPER_SITES.items():
+        m = importlib.import_module(f"simplepathtracer_tpu_torch.ops.{mod}")
+        out[name] = (getattr(m, kernel), getattr(m, plain))
+    return out
 
 
 def reset_counts(wrappers):
@@ -197,12 +267,16 @@ def reset_counts(wrappers):
 
 
 def launch_counts(wrappers):
-    """Launches since the counts were reset, by report name: each regen
-    kernel by variant, the bucket by column count."""
+    """Launches since the counts were reset, by report name: each regen and
+    fused kernel by variant, the bucket by column count."""
     out = {}
     for k in ("regen_fwd", "regen_refwd", "regen_bwd"):
         for v, n in wrappers[k][0].launches.items():
             out[kernel_names(v)[k]] = n
+    for k in ("grad_fwd", "grad_bwd"):
+        for v, n in wrappers[k][0].launches.items():
+            out[k + VARIANT_SUFFIX[v]] = n
+    out["raygen"] = wrappers["raygen"][0].launches["raygen"]
     for cols, n in wrappers["bucket"][0].launches.items():
         out[BUCKET_NAMES[cols]] = n
     return {k: n for k, n in out.items() if n}
@@ -213,27 +287,28 @@ def plain_calls(wrappers):
 
 
 @contextlib.contextmanager
-def plain_route():
-    """Run the gradient path through the plain versions on the card: the
-    wrappers launch their kernels for every CUDA tensor, so the plain
-    versions stand in for them here.  Raises unless every plain version
-    ran inside and no kernel launched (the counts are reset on entry)."""
-    from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
+def plain_route(route=REGEN_ROUTE):
+    """Run a gradient route (its kernels' names) through the plain versions
+    on the card: the wrappers launch their kernels for every CUDA tensor,
+    so the plain versions stand in for them here.  Raises unless every
+    plain version of the route ran inside and no kernel launched (the
+    counts are reset on entry)."""
+    import importlib
 
     wrappers = grad_wrappers()
-    saved = (gr.regen_forward, gr.regen_refwd, gr.regen_backward, bucket.bucket_cols)
-    gr.regen_forward = gr.regen_fwd_reference
-    gr.regen_refwd = gr.regen_refwd_reference
-    gr.regen_backward = gr.regen_bwd_reference
-    bucket.bucket_cols = bucket.bucket_cols_reference
+    sites = [(importlib.import_module(f"simplepathtracer_tpu_torch.ops.{WRAPPER_SITES[k][0]}"),
+              WRAPPER_SITES[k][1], wrappers[k]) for k in route]
+    for m, attr, (_, plain) in sites:
+        setattr(m, attr, plain)
     reset_counts(wrappers)
     try:
         yield
     finally:
-        gr.regen_forward, gr.regen_refwd, gr.regen_backward, bucket.bucket_cols = saved
+        for m, attr, (kernel, _) in sites:
+            setattr(m, attr, kernel)
     launches = launch_counts(wrappers)
     calls = plain_calls(wrappers)
-    if launches or not all(calls.values()):
+    if launches or not all(calls[k] for k in route):
         raise RuntimeError(f"plain route did not take the plain versions only: kernel "
                            f"launches {launches}, plain calls {calls}")
 
@@ -320,16 +395,17 @@ def phase5_kernels(tpt, dev):
         # name, scene and camera, w, h, spp, depth, rr, softness, spp_chunk
         # of the pixel_loss check (the soft plane case is the combined case
         # of tests/test_pallas_grad_regen.py:590: plane, soft, RR, stream)
-        ("cover", cover, 64, 32, 4, 10, 0, 0.0, 2),
-        ("three_sphere_plane", trio_plane, 48, 24, 8, 10, 2, 0.0, 4),
-        ("reference_37x13", reference, 37, 13, 4, 10, 0, 0.0, 2),
-        ("cover_soft", cover, 64, 32, 4, 10, 0, 0.05, 2),
-        ("three_sphere_plane_soft", trio_plane, 48, 24, 8, 10, 2, 0.05, 2),
+        ("cover", cover, 64, 32, 4, 5, 0, 0.0, 2),
+        ("three_sphere_plane", trio_plane, 48, 24, 8, 5, 2, 0.0, 4),
+        ("reference_37x13", reference, 37, 13, 4, 5, 0, 0.0, 2),
+        ("cover_soft", cover, 64, 32, 4, 5, 0, 0.05, 2),
+        ("three_sphere_plane_soft", trio_plane, 48, 24, 8, 5, 2, 0.05, 2),
     ]
     errs = {name: 0.0 for name, _, _ in GRAD_KERNELS + SOFT_KERNELS + SOFT_PLANE_KERNELS}
     plain_ms, kernel_ms, shapes = {}, {}, {}
     gen = torch.Generator().manual_seed(1)
     key = tpt.make_key(3)
+    lap()
     for name, build, w, h, spp, depth, rr, softness, chunk in cases:
         scene, cam = build()
         soft = softness > 0.0
@@ -439,11 +515,12 @@ def phase5_kernels(tpt, dev):
                     timed.append((bname, bucket.bucket_cols, bucket.bucket_cols_reference,
                                   (c, idx, s)))
             for kname, kern, plain, args in timed:
-                plain_ms[kname] = cuda_ms(lambda: plain(*args), reps=2)
+                plain_ms[kname] = cuda_ms(lambda: plain(*args), reps=1, warm=False)
                 kernel_ms[kname] = cuda_ms(lambda: kern(*args), reps=10)
                 shapes[kname] = shape
                 print(f"phase5 {shape}: {kname} plain {plain_ms[kname]:.3f} ms, kernel "
                       f"{kernel_ms[kname]:.3f} ms")
+        lap(f"phase5 {name}")
     return errs, plain_ms, kernel_ms, shapes
 
 
@@ -474,24 +551,29 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
                           sky_lo=scene.sky_lo * SKY_START, sky_hi=scene.sky_hi * SKY_START)
 
     # (a) Gradients on random pixels of the full frame: kernels against the
-    # plain versions on the card, same key, spp and chunking.
+    # plain versions on the card, same key and chunking, over CHECK_CHUNKS
+    # chunks (the streamed route: idx-only forward, re-forward per chunk).
     gen = torch.Generator().manual_seed(2)
     rows = torch.randperm(cfg.num_pixels, generator=gen)[:N_CHECK_PIXELS].to(dev)
+    cfg_a = cfg.replace(spp=CHECK_CHUNKS * CHECK_SPP_CHUNK, spp_chunk=CHECK_SPP_CHUNK,
+                        max_depth=CHECK_DEPTH)
     t0 = time.perf_counter()
-    l_k, g_k = loss_and_grads(tpt, start, target, cam, cfg, key, dev, pixel_perm=rows)
+    l_k, g_k = loss_and_grads(tpt, start, target, cam, cfg_a, key, dev, pixel_perm=rows)
     sync(dev)
     t1 = time.perf_counter()
     with plain_route():
-        l_p, g_p = loss_and_grads(tpt, start, target, cam, cfg, key, dev, pixel_perm=rows)
+        l_p, g_p = loss_and_grads(tpt, start, target, cam, cfg_a, key, dev, pixel_perm=rows)
     sync(dev)
     t2 = time.perf_counter()
     ok, worst = grads_close(list(g_k.values()), list(g_p.values()))
-    print(f"phase6 {N_CHECK_PIXELS} random pixels, {cfg.spp} spp in {n_chunks} chunks: loss kernels "
+    print(f"phase6 {N_CHECK_PIXELS} random pixels, {cfg_a.spp} spp in {CHECK_CHUNKS} chunks, depth "
+          f"{CHECK_DEPTH}: loss kernels "
           f"{l_k.item():.9g} plain {l_p.item():.9g}, gradients max|d| {worst:.3e} "
           f"(kernels {t1 - t0:.2f} s, plain {t2 - t1:.2f} s)")
     if not (torch.equal(l_k, l_p) and ok):
         raise RuntimeError("phase6: pixel_loss through the kernels disagrees with the plain route")
     out["errs"]["grad_random_pixels"] = worst
+    lap("phase6 (a) random pixels against the plain route")
 
     # (b) Regen forward over the full frame against the persistent kernel.
     inputs, cam19 = gr._trace_inputs(scene, cam, cfg)
@@ -512,6 +594,7 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
 
     out["errs"]["regen_vs_persistent"] = knife_edge(
         gr, regen_call, persistent, cfg, chunk, persistent_sums, persistent_counts)
+    lap("phase6 (b) regen forward against the persistent kernel")
 
     # (c) One full-frame gradient: every leaf finite and nonzero.
     reset_peak(dev)
@@ -520,6 +603,7 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
     sync(dev)
     out["grad_s"] = time.perf_counter() - t0
     out["grad_peak_gb"] = peak_gb(dev)
+    lap("phase6 (c) full-frame gradient")
     summary = {k: f"{g.abs().max().item():.3e}" for k, g in grads.items()}
     print(f"phase6 full-frame gradient: loss {loss.item():.6g}, {out['grad_s']:.3f} s, peak "
           f"{out['grad_peak_gb']:.2f} GB, max|grad| per leaf {summary}")
@@ -533,6 +617,7 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
     fit_kw = dict(lr=FIT_LR, softness=0.0, param_mask=mask, device=dev)
     tpt.fit(start, target, cam, cfg, key, steps=1, **fit_kw)
     sync(dev)
+    lap("phase6 (d) warm fit step")
     reset_counts(wrappers)
     reset_peak(dev)
     t0 = time.perf_counter()
@@ -551,11 +636,13 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
           f"launches {out['launches']}, plain calls {out['plain_calls']}")
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise RuntimeError("phase6: the fit's loss did not fall")
+    lap("phase6 (d) fit")
 
     # (e) Each kernel at the main path's chunk shape: against its plain
     # version on the random pixels of (a), timed, and bounded.
     if dev.type == "cuda":
         out.update(full_width_kernels(gr, bucket, regen_call(chunk), scene, cfg, rows))
+    lap("phase6 (e) kernels at full width")
     return out
 
 
@@ -835,6 +922,7 @@ def phase7_soft(tpt, dev, wrappers):
     from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
 
     out = {}
+    lap()
     scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
     key = tpt.make_key(0)
     # (a) The default fit.  The target is rendered soft-to-soft through the
@@ -892,6 +980,7 @@ def phase7_soft(tpt, dev, wrappers):
                            f"(launches {out['launches']}, per step wanted {want}, plain calls "
                            f"{out['plain_calls']})")
     out["per_step"] = want
+    lap("phase7 (a) default fit")
 
     # (b) Each soft kernel at that fit's chunk shape.
     gen = torch.Generator().manual_seed(4)
@@ -903,6 +992,7 @@ def phase7_soft(tpt, dev, wrappers):
                          height=cfg.height, t_min=cfg.t_min, t_max=cfg.t_max,
                          rr_start_depth=cfg.rr_start_depth, softness=DEFAULT_SOFTNESS)
     out.update(full_width_kernels(gr, bucket, call, scene, cfg, rows))
+    lap("phase7 (b) soft kernels at full width")
 
     # (c) three_sphere_plane at its full size: the plane leaf alone, default
     # softness (soft-to-soft target, offset and albedo moved).  The fit runs
@@ -950,26 +1040,29 @@ def phase7_soft(tpt, dev, wrappers):
             and launches_p["bucket"] == launches_p["bucket_blocker"] == steps_chunks
             and not any(plain_p.values())):
         raise RuntimeError("phase7: the three_sphere_plane plane fit failed")
+    lap("phase7 (c) plane fits")
 
-    # The soft plane instantiations at the preset fit's chunk, and the
-    # crossing coin's share of that chunk's plane hits.
+    # The soft plane instantiations at the streamed fit's chunk (the plain
+    # versions' time grows with the chunk's samples), and the crossing
+    # coin's share of that chunk's plane hits.
     inputs_p, cam19_p = gr._trace_inputs(start_p, cam_p, cfg_p)
     call_p = gr.regen_call(inputs_p[:11], inputs_p[11], inputs_p[12], cam19_p, key,
-                           torch.arange(cfg_p.num_pixels, device=dev), n_samples=chunk_p,
+                           torch.arange(cfg_p.num_pixels, device=dev), n_samples=stream_chunk,
                            max_depth=cfg_p.max_depth, width=cfg_p.width, height=cfg_p.height,
                            t_min=cfg_p.t_min, t_max=cfg_p.t_max,
                            rr_start_depth=cfg_p.rr_start_depth, softness=DEFAULT_SOFTNESS)
     rows_p = torch.randperm(cfg_p.num_pixels, generator=gen)[:N_CHECK_PIXELS].to(dev)
     plane_k = full_width_kernels(gr, bucket, call_p, start_p, cfg_p, rows_p)
     codes = plane_k["codes"]
-    print(f"phase7 three_sphere_plane chunk of {chunk_p} spp: plane hits decided by the crossing "
+    print(f"phase7 three_sphere_plane chunk of {stream_chunk} spp: plane hits decided by the crossing "
           f"coin against an in-band sphere {codes['crossing_loser']} of {codes['plane']}")
     if codes["crossing_loser"] == 0:
         raise RuntimeError("phase7: no crossing-loser plane win at full size")
-    out["plane_fit"] = dict(fits=fits, chunk=chunk_p, codes=codes,
-                            shape=f"{cfg_p.width}x{cfg_p.height}x{chunk_p}spp")
+    out["plane_fit"] = dict(fits=fits, chunk=stream_chunk, codes=codes,
+                            shape=f"{cfg_p.width}x{cfg_p.height}x{stream_chunk}spp")
     out["plane_launches"] = launches_p
     out["plane_kernels"] = plane_k
+    lap("phase7 (c) soft plane kernels at full size")
 
     # (d) AD/FD of the half-buried sphere's radius through the kernels
     # (tests/test_crossing.py:132-169: 48x24, 512 spp, depth 3).
@@ -1018,11 +1111,641 @@ def phase7_soft(tpt, dev, wrappers):
     return out
 
 
+def fused_keys(w, h, spp, key, dev):
+    """The ray context of every pixel of a w x h frame for samples 0 ..
+    spp - 1, sample-major (render_pixel_block's order)."""
+    from simplepathtracer_tpu_torch.ops.sampling import ray_keys
+
+    p = w * h
+    pids = torch.arange(p, device=dev).repeat(spp)
+    sids = torch.arange(spp, device=dev).repeat_interleave(p)
+    return ray_keys(key, pids, sids)
+
+
+def fused_call_for(fg, scene, keys, cfg):
+    from simplepathtracer_tpu_torch.ops.grad_regen import scene_inputs
+
+    inputs = scene_inputs(scene)
+    return fg.fused_call(inputs[:11], inputs[11], keys.k0, keys.k1, max_depth=cfg.max_depth,
+                         t_min=cfg.t_min, t_max=cfg.t_max, rr_start_depth=cfg.rr_start_depth,
+                         softness=cfg.silhouette_softness)
+
+
+def sub_keys(keys, rows):
+    return keys._replace(pixel=keys.pixel[rows], sample=keys.sample[rows])
+
+
+def live_spheres(scene):
+    return ((scene.radii.abs() > 1e-3) & (scene.centers[:, 1] > -1e6)).sum().item()
+
+
+def sum_errors(got, terms):
+    """|d| of a kernel's sums ``got`` [K] against the float64 sum of their
+    terms [K, R] (added in another order, with atomics), and the bound of
+    each (BUCKET_* above)."""
+    ref = terms.double().sum(dim=-1)
+    tol = (BUCKET_RTOL * ref.abs() + BUCKET_ATOL_REL * terms.abs().max().double()
+           + BUCKET_SUM_ROUNDINGS * F32_EPS * terms.double().abs().sum(dim=-1))
+    return (got.double() - ref).abs(), tol
+
+
+def fused_fwd_bytes(soft, n, n_live, n_miss):
+    """Bytes one fused forward launch over ``n`` rays must move, ``n_live``
+    of them alive at entry and ``n_miss`` of those missing: a live ray
+    reads its entry state 40, pixel and sample ids 8 (soft: previous winner
+    4) and writes its next state 40 and winner index 4 (soft: blocker and
+    previous winner 8); a miss adds its radiance, 12 read and 12 written.
+    A dead ray needs only its alive flag read and written and its index
+    (soft: and blocker and previous winner) written: copying its state is
+    the kernel's design, not the function's need."""
+    live = 40 + 8 + 40 + 4 + (12 if soft else 0)
+    dead = 4 + 4 + 4 + (8 if soft else 0)
+    return n_live * live + n_miss * 24 + (n - n_live) * dead
+
+
+def fused_bwd_bytes(soft, want_attr, n, n_live):
+    """Bytes one fused backward launch over ``n`` rays must move, ``n_live``
+    of them alive at that bounce: a live ray reads its entry state 40,
+    indices 4 (soft 8), pixel and sample ids 8, carried cotangents 36 and
+    radiance cotangent 12 and writes carried cotangents 36; a dead ray reads
+    its alive flag 4 and passes its carried cotangents through, 36 in and
+    36 out.  Each writes its attribute cotangents, 36 (soft 52), when they
+    are asked for."""
+    attr = (52 if soft else 36) if want_attr else 0
+    live = 40 + (8 if soft else 4) + 8 + 36 + 12 + 36 + attr
+    dead = 4 + 36 + 36 + attr
+    return n_live * live + (n - n_live) * dead
+
+
+def sky_terms(fg, call, state, idx, bidx, pix, samp, bounce, carry, ct_rad):
+    """The sky's 6 cotangents of one backward bounce per ray, [6, N]: the
+    terms the kernel sums (ops/bounce.py:bounce_tile_adjoint on the plain
+    version's inputs), for a bound on that sum in another order."""
+    from simplepathtracer_tpu_torch.ops.bounce import bounce_tile_adjoint
+
+    o, d, tp, alive, u = fg._bounce_inputs(call, state, pix, samp, bounce)
+    i64 = idx.to(torch.int64)
+    a9, mat = fg._winner(call, i64)
+    g = bounce_tile_adjoint(
+        o, d, tp, a9, mat, i64 >= 0, alive, u, tuple(call.consts[i] for i in range(6)),
+        bounce >= call.rr_start_depth, tuple(carry[0:3]), tuple(carry[3:6]),
+        tuple(carry[6:9]), tuple(ct_rad), t_min=call.t_min, t_max=call.t_max,
+        rr_on=bool(call.rr_start_depth), **fg._bounce_kwargs(call, bidx))
+    return torch.stack(g.sky)
+
+
+def phase8_kernels(tpt, dev):
+    """The fused kernels against their plain versions at small shapes: raygen,
+    each forward bounce and each backward bounce bit for bit, the sky sums
+    and the buckets inside the float64 bound, and pixel_loss through the
+    fused route against its plain route.  Returns ({kernel: max |d|},
+    {kernel: plain ms per launch}, {kernel: kernel ms per launch},
+    {kernel: shape of those times})."""
+    from simplepathtracer_tpu_torch.ops import bucket, grad as fg
+    from simplepathtracer_tpu_torch.ops.persistent import camera_constants
+
+    def cover():
+        return tpt.compact_scene(tpt.cover_scene(0, device=dev)), tpt.PRESETS["cover"].camera_fn(dev)
+
+    def trio():
+        return (tpt.three_sphere_scene(device=dev),
+                tpt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=90, device=dev))
+
+    cases = [
+        # name, scene and camera, w, h, spp, depth, rr, softness
+        ("cover", cover, 64, 32, 4, 10, 0, 0.0),
+        ("cover_soft", cover, 64, 32, 4, 10, 0, 0.05),
+        ("three_sphere", trio, 48, 24, 8, 10, 2, 0.0),
+        ("three_sphere_soft", trio, 48, 24, 8, 10, 2, 0.05),
+    ]
+    errs = {name: 0.0 for name, _, _ in FUSED_KERNELS}
+    plain_ms, kernel_ms, shapes = {}, {}, {}
+    gen = torch.Generator().manual_seed(6)
+    key = tpt.make_key(8)
+    for name, build, w, h, spp, depth, rr, softness in cases:
+        scene, cam = build()
+        soft = softness > 0.0
+        sfx = "_soft" if soft else ""
+        cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
+                               silhouette_softness=softness)
+        tag = f"phase8 {name} {w}x{h}x{spp}spp depth {depth} rr {rr} soft {softness}"
+        keys = fused_keys(w, h, spp, key, dev)
+        n = keys.pixel.shape[0]
+        pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+
+        rays = fg.raygen(cam, keys, cfg)
+        sync(dev)
+        rays_p = fg.raygen_reference(cam, keys, cfg)
+        rays_ok = torch.equal(rays, rays_p)
+        errs["raygen"] = max(errs["raygen"], (rays - rays_p).abs().max().item())
+        call = fused_call_for(fg, scene, keys, cfg)
+
+        # Forward, bounce by bounce: kernel and plain version on the same
+        # entry state, every output bit for bit.
+        state = torch.cat([rays, torch.ones((4, n), device=dev)]).contiguous()
+        rad = torch.zeros((3, n), device=dev)
+        prev = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
+        saved, fwd_ok = [], True
+        for b in range(depth):
+            rad_p = rad.clone()
+            got = fg.grad_forward(call, state, rad, prev, pix, samp, b)
+            want = fg.grad_fwd_reference(call, state, rad_p, prev, pix, samp, b)
+            sync(dev)
+            fwd_ok = fwd_ok and torch.equal(rad, rad_p) and all(
+                (g is None and x is None) or torch.equal(g, x) for g, x in zip(got, want))
+            errs["grad_fwd" + sfx] = max(errs["grad_fwd" + sfx], (rad - rad_p).abs().max().item(),
+                                         (got[0] - want[0]).abs().max().item())
+            saved.append((state, got[2], got[3]))
+            state, prev = got[0], got[1]
+
+        # Backward, bounce by bounce: carried and attribute cotangents bit for
+        # bit; the sky sums and the buckets against float64 sums.
+        ct_rad = (torch.randn((3, n), generator=gen) * 1e-3).to(dev)
+        carry = torch.zeros((9, n), device=dev)
+        bwd_ok, sky_ratio, bucket_ratio = True, 0.0, 0.0
+        s = call.n_spheres
+        for b in range(depth - 1, -1, -1):
+            st, idx, bidx = saved[b]
+            ck, ak, sk = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad)
+            sync(dev)
+            cp, ap, _ = fg.grad_bwd_reference(call, st, idx, bidx, pix, samp, b, carry, ct_rad)
+            bwd_ok = bwd_ok and torch.equal(ck, cp) and torch.equal(ak, ap)
+            err, tol = sum_errors(sk, sky_terms(fg, call, st, idx, bidx, pix, samp, b, carry,
+                                                ct_rad))
+            sky_ratio = max(sky_ratio, (err / tol).max().item())
+            errs["grad_bwd" + sfx] = max(errs["grad_bwd" + sfx], (ck - cp).abs().max().item(),
+                                         (ak - ap).abs().max().item(), err.max().item())
+            cols = [(ak[:9], idx)] + ([(ak[9:], bidx)] if soft else [])
+            for c, ix in cols:
+                d_k = bucket.bucket_cols(c, ix, s)
+                d_p = bucket.bucket_cols_reference(c, ix, s)
+                e_k, _, tol_b, _ = bucket_errors(d_k, d_p, *bucket_rows(c, ix, s), s)
+                bucket_ratio = max(bucket_ratio, (e_k / tol_b).max().item())
+            carry = ck
+        print(f"{tag}: raygen {'bit-exact' if rays_ok else 'DIFFERS'}, forward {depth} bounces "
+              f"{'bit-exact' if fwd_ok else 'DIFFER'} (alive after the last "
+              f"{int(saved[-1][0][9].sum().item())} of {n}), backward cotangents "
+              f"{'bit-exact' if bwd_ok else 'DIFFER'}, sky sums max |d| / tol {sky_ratio:.3f}, "
+              f"buckets max |d| / tol {bucket_ratio:.3f}")
+        if not (rays_ok and fwd_ok and bwd_ok and sky_ratio <= 1.0 and bucket_ratio <= 1.0
+                and torch.isfinite(carry).all()):
+            raise RuntimeError(f"{tag}: a fused kernel disagrees with its plain version")
+
+        # pixel_loss through the fused route against its plain route.
+        gcfg = cfg.replace(use_pallas_grad=True)
+        target = torch.full((h, w, 3), 0.25, device=dev)
+        l_k, g_k = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
+        with plain_route(FUSED_ROUTE):
+            l_p, g_p = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
+        ok, worst = grads_close(list(g_k.values()), list(g_p.values()))
+        print(f"{tag}: pixel_loss fused kernels {l_k.item():.9g} plain {l_p.item():.9g}, "
+              f"gradients max|d| {worst:.3e} over {len(g_k)} leaves")
+        if not (ok and torch.equal(l_k, l_p)):
+            raise RuntimeError(f"{tag}: pixel_loss through the fused kernels disagrees with "
+                               "the plain route")
+
+        if name.startswith("cover") and dev.type == "cuda":
+            # Per-launch times of the whole chain at this shape.
+            shape = f"{name} {w}x{h}x{spp}spp depth {depth}"
+
+            def chain(fwd):
+                st, rd = torch.cat([rays, torch.ones((4, n), device=dev)]), torch.zeros((3, n), device=dev)
+                pv = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
+                for b in range(depth):
+                    st, pv, _, _ = fwd(call, st, rd, pv, pix, samp, b)
+
+            def back(bwd):
+                c = torch.zeros((9, n), device=dev)
+                for b in range(depth - 1, -1, -1):
+                    st, idx, bidx = saved[b]
+                    c = bwd(call, st, idx, bidx, pix, samp, b, c, ct_rad)[0]
+
+            timed = [("grad_fwd" + sfx, lambda: chain(fg.grad_forward),
+                      lambda: chain(fg.grad_fwd_reference), depth),
+                     ("grad_bwd" + sfx, lambda: back(fg.grad_backward),
+                      lambda: back(fg.grad_bwd_reference), depth)]
+            if not soft:
+                cam19 = camera_constants(cam, w, h).detach().contiguous()
+                timed.append(("raygen", lambda: fg._raygen_launch(cam19, keys, w, h),
+                              lambda: fg.raygen_reference(cam, keys, cfg), 1))
+            for kname, kern, plain, per in timed:
+                plain_ms[kname] = cuda_ms(plain, reps=1, warm=False) / per
+                kernel_ms[kname] = cuda_ms(kern, reps=5) / per
+                shapes[kname] = shape
+                print(f"phase8 {shape}: {kname} per launch plain {plain_ms[kname]:.3f} ms, "
+                      f"kernel {kernel_ms[kname]:.3f} ms")
+    return errs, plain_ms, kernel_ms, shapes
+
+
+def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr):
+    """Each fused kernel at a main path's launch shape (every pixel of the
+    frame x ``spp`` samples, depth ``cfg.max_depth``), run kernel by kernel
+    as ``_FusedTrace`` runs them: raygen, the forward bounces, the backward
+    bounces (and, with ``want_attr``, the attribute cotangents and their
+    buckets).  Each ray's outputs depend on that ray alone, so the kernels'
+    outputs on the rays ``rows`` must equal the plain versions run on those
+    rays alone, bit for bit; the buckets over every row are held against a
+    float64 index_add_.  Returns the CUDA-event ms per launch (mean over the
+    bounces), the bounds from this run's data (live rays per bounce), and
+    the errors.  Raises on a mismatch."""
+    from simplepathtracer_tpu_torch.ops.persistent import camera_constants
+
+    dev = cam.origin.device
+    soft = cfg.silhouette_softness > 0.0
+    sfx = "_soft" if soft else ""
+    keys = fused_keys(cfg.width, cfg.height, spp, key, dev)
+    n, depth = keys.pixel.shape[0], cfg.max_depth
+    pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+    sk = sub_keys(keys, rows)
+    spix, ssamp = pix[rows], samp[rows]
+    tag = (f"kernel at {cfg.width}x{cfg.height}x{spp}spp ({n} rays){' soft' if soft else ''}, "
+           f"{rows.numel()} random rays:")
+    ms = {k: 0.0 for k in ("raygen", "grad_fwd" + sfx, "grad_bwd" + sfx)}
+    bound = {k: [0.0, 0.0] for k in ms}
+    errs = {k: 0.0 for k in ms}
+
+    # The kernel alone: the host's camera arithmetic (camera_constants) is
+    # the step's, not the kernel's.
+    cam19 = camera_constants(cam, cfg.width, cfg.height).detach().contiguous()
+    ms["raygen"] = cuda_ms(lambda: fg._raygen_launch(cam19, keys, cfg.width, cfg.height), reps=3)
+    rays = fg.raygen(cam, keys, cfg)
+    rays_p = fg.raygen_reference(cam, sk, cfg)
+    bound["raygen"] = [0.0, n * 32 / PEAK_BYTES]
+    ok = torch.equal(rays[:, rows], rays_p)
+
+    call = fused_call_for(fg, scene, keys, cfg)
+    live_s = live_spheres(scene)
+    flops = FLOPS_PER_SOFT_SPHERE_TEST if soft else FLOPS_PER_SPHERE_TEST
+    state = torch.cat([rays, torch.ones((4, n), device=dev)]).contiguous()
+    del rays
+    rad = torch.zeros((3, n), device=dev)
+    prev = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
+    st_p, rad_p = state[:, rows], torch.zeros((3, rows.numel()), device=dev)
+    prev_p = prev[rows] if soft else None
+    saved, live = [], []
+    for b in range(depth):
+        scratch = rad.clone()
+        ms["grad_fwd" + sfx] += cuda_ms(
+            lambda: fg.grad_forward(call, state, scratch, prev, pix, samp, b), reps=2) / depth
+        del scratch
+        nxt, prev_n, idx, bidx = fg.grad_forward(call, state, rad, prev, pix, samp, b)
+        n_live = (state[9] > 0).sum().item()
+        n_miss = n_live - (idx >= 0).sum().item()
+        live.append(n_live)
+        bound["grad_fwd" + sfx][0] += n_live * live_s * flops / PEAK_FP32 / depth
+        bound["grad_fwd" + sfx][1] += fused_fwd_bytes(soft, n, n_live, n_miss) / PEAK_BYTES / depth
+        got = fg.grad_fwd_reference(call, st_p, rad_p, prev_p, spix, ssamp, b)
+        ok = ok and torch.equal(nxt[:, rows], got[0]) and torch.equal(idx[rows], got[2]) and (
+            not soft or (torch.equal(bidx[rows], got[3]) and torch.equal(prev_n[rows], got[1])))
+        errs["grad_fwd" + sfx] = max(errs["grad_fwd" + sfx], (nxt[:, rows] - got[0]).abs().max().item())
+        st_p, prev_p = got[0], got[1]
+        saved.append((state, idx, bidx))
+        state, prev = nxt, prev_n
+    ok = ok and torch.equal(rad[:, rows], rad_p)
+    errs["grad_fwd" + sfx] = max(errs["grad_fwd" + sfx], (rad[:, rows] - rad_p).abs().max().item())
+    print(f"{tag} raygen and {depth} forward bounces {'bit-exact' if ok else 'DIFFER'} "
+          f"(live rays per bounce {live})")
+    if not ok:
+        raise RuntimeError("full width: a fused forward kernel disagrees with its plain version")
+    del state, prev, st_p
+
+    gen = torch.Generator().manual_seed(9)
+    ct_rad = (torch.randn((3, n), generator=gen) * 1e-6).to(dev)
+    carry = torch.zeros((9, n), device=dev)
+    carry_p = carry[:, rows]
+    s = call.n_spheres
+    bucket_ms, bucket_bound, bucket_lib_ms, bucket_ratio, bucket_rows_n = 0.0, [0.0, 0.0], 0.0, 0.0, 0
+    for b in range(depth - 1, -1, -1):
+        st, idx, bidx = saved[b]
+        ms["grad_bwd" + sfx] += cuda_ms(
+            lambda: fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad, want_attr),
+            reps=2) / depth
+        ck, ak, _ = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad, want_attr)
+        bound["grad_bwd" + sfx][0] += (live[b] * (BWD_OPS_PER_ITER_SOFT if soft else BWD_OPS_PER_ITER)
+                                       / PEAK_FP32 / depth)
+        bound["grad_bwd" + sfx][1] += fused_bwd_bytes(soft, want_attr, n, live[b]) / PEAK_BYTES / depth
+        cp, ap, _ = fg.grad_bwd_reference(call, st[:, rows], idx[rows],
+                                          bidx[rows] if soft else None, spix, ssamp, b, carry_p,
+                                          ct_rad[:, rows], want_attr)
+        ok = ok and torch.equal(ck[:, rows], cp) and (not want_attr or torch.equal(ak[:, rows], ap))
+        errs["grad_bwd" + sfx] = max(errs["grad_bwd" + sfx], (ck[:, rows] - cp).abs().max().item())
+        if want_attr:
+            for c, ix in [(ak[:9], idx)] + ([(ak[9:], bidx)] if soft else []):
+                bucket_ms += cuda_ms(lambda: bucket.bucket_cols(c, ix, s), reps=2)
+                d_k = bucket.bucket_cols(c, ix, s)
+                idx_keep, src = bucket_rows(c, ix, s)
+                k = c.shape[0]
+                bucket_rows_n += idx_keep.numel()
+                bucket_bound[1] += (ix.numel() * 4 + idx_keep.numel() * k * 4) / PEAK_BYTES
+                table = torch.zeros((s, k), dtype=torch.float32, device=dev)
+                bucket_lib_ms += cuda_ms(lambda: table.index_add_(0, idx_keep, src), reps=2)
+                lib = torch.zeros_like(table).index_add_(0, idx_keep, src)
+                e_k, _, tol, _ = bucket_errors(d_k, lib, idx_keep, src, s)
+                bucket_ratio = max(bucket_ratio, (e_k / tol).max().item())
+                del idx_keep, src, table, lib
+        carry, carry_p = ck, cp
+        saved[b] = None
+    print(f"{tag} {depth} backward bounces {'bit-exact' if ok else 'DIFFER'} (carried "
+          f"{'and attribute ' if want_attr else ''}cotangents)"
+          + (f"; buckets over all {bucket_rows_n} rows max |d| / tol {bucket_ratio:.3f}"
+             if want_attr else ""))
+    if not (ok and bucket_ratio <= 1.0 and torch.isfinite(carry).all()):
+        raise RuntimeError("full width: a fused backward kernel or bucket disagrees")
+    res = {"ms": ms, "errs": errs, "live": live, "n_rays": n,
+           "bound_ms": {k: max(v) * 1e3 for k, v in bound.items()},
+           "bound_by": {k: "operations" if v[0] >= v[1] else "bytes" for k, v in bound.items()}}
+    if want_attr:
+        res["bucket"] = dict(ms=bucket_ms, bound_ms=bucket_bound[1] * 1e3,
+                             index_add_ms=bucket_lib_ms, rows=bucket_rows_n, ratio=bucket_ratio)
+    for k in ms:
+        print(f"kernel {k} at {cfg.width}x{cfg.height}x{spp}spp: {ms[k]:.3f} ms per launch, bound "
+              f"{res['bound_ms'][k]:.3f} ms ({res['bound_by'][k]}), "
+              f"{res['bound_ms'][k] / ms[k]:.3f} of bound")
+    if want_attr:
+        bk = res["bucket"]
+        print(f"bucket of the fused route: {bk['ms']:.3f} ms over {depth} launches, bound "
+              f"{bk['bound_ms']:.3f} ms (bytes), index_add_ {bk['index_add_ms']:.3f} ms")
+    return res
+
+
+def phase8_fused_route(tpt, dev, wrappers):
+    """The fused scene-leaf route at bench.py's shape: value_and_grad of
+    pixel_loss on the cover frame at 8 spp in one chunk, hard, through the
+    raygen kernel, the fused forward and backward and the buckets; held
+    against the regeneration route on the same key, and each kernel at this
+    shape on random rays.  Returns what the report needs."""
+    from simplepathtracer_tpu_torch.ops import bucket, grad as fg
+
+    scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    key = tpt.make_key(0)
+    fcfg = cfg.replace(use_pallas=False, use_pallas_grad=True, grad_regen=False, spp=FUSED_SPP,
+                       spp_chunk=FUSED_SPP)
+    rcfg = fcfg.replace(grad_regen=True)
+    with torch.no_grad():
+        target = tpt.render_linear(scene, cam, cfg.replace(spp=FUSED_SPP), tpt.fold_in(key, 1000))
+    start = scene.replace(albedo=scene.albedo * ALBEDO_START, sky_lo=scene.sky_lo * SKY_START,
+                          sky_hi=scene.sky_hi * SKY_START)
+    loss_and_grads(tpt, start, target, cam, fcfg, key, dev)
+    sync(dev)
+    reset_counts(wrappers)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    for _ in range(FIT_STEPS):
+        l_f, g_f = loss_and_grads(tpt, start, target, cam, fcfg, key, dev)
+    sync(dev)
+    out = {"step_s": (time.perf_counter() - t0) / FIT_STEPS, "peak_gb": peak_gb(dev)}
+    launches = launch_counts(wrappers)
+    calls = plain_calls(wrappers)
+    out["launches"] = launches
+    per_step = {k: v / FIT_STEPS for k, v in launches.items()}
+    want = {"raygen": 1, "grad_fwd": cfg.max_depth, "grad_bwd": cfg.max_depth,
+            "bucket": cfg.max_depth}
+    paths = cfg.num_pixels * FUSED_SPP
+    print(f"phase8 fused scene-leaf route, cover {cfg.width}x{cfg.height}x{FUSED_SPP}spp in one "
+          f"chunk, depth {cfg.max_depth}, hard: value_and_grad {out['step_s']:.4f} s, "
+          f"{paths / out['step_s'] / 1e6:.2f} Mpaths/s fwd+bwd, peak {out['peak_gb']:.2f} GB, "
+          f"launches per step {per_step}, plain calls {calls}")
+    if per_step != want or any(calls.values()):
+        raise RuntimeError(f"phase8: the fused route did not run through its kernels only "
+                           f"(launches per step {per_step}, wanted {want}, plain calls {calls})")
+
+    # Against the regeneration route on the same key: the same paths (same
+    # rays, same bounce code), summed in another order.
+    l_r, g_r = loss_and_grads(tpt, start, target, cam, rcfg, key, dev)
+    smooth = ("albedo", "sky_lo", "sky_hi")
+    ok, worst = grads_close([g_f[k] for k in smooth], [g_r[k] for k in smooth])
+    _, worst_all = grads_close(list(g_f.values()), list(g_r.values()))
+    rel = abs(l_f.item() - l_r.item()) / abs(l_r.item())
+    with torch.no_grad():
+        img_f = tpt.render_linear(start, cam, fcfg, key)
+        img_r = tpt.render_linear(start, cam, rcfg, key)
+    d = (img_f - img_r).abs()
+    share = (d > 1e-4).float().mean().item()
+    out.update(loss_rel=rel, smooth_grad_err=worst, radiance_share=share)
+    print(f"phase8 fused route vs regen route, same key: loss {l_f.item():.9g} vs "
+          f"{l_r.item():.9g} (rel {rel:.2e}), albedo and sky gradients max|d| {worst:.3e} "
+          f"(every leaf {worst_all:.3e}), radiance max|d| {d.max().item():.3e}, channels "
+          f"|d| > 1e-4: {share:.5f} (bound {KNIFE_EDGE_SHARE})")
+    if not (ok and rel <= 1e-6 and share < KNIFE_EDGE_SHARE):
+        raise RuntimeError("phase8: the fused route disagrees with the regeneration route")
+
+    gen = torch.Generator().manual_seed(10)
+    rows = torch.randperm(paths, generator=gen)[:N_CHECK_PIXELS].to(dev)
+    out.update(fused_full_width(tpt, fg, bucket, start, cam, fcfg, key, FUSED_SPP, rows, True))
+    return out
+
+
+def camera_adfd(tpt, dev, scene, target, start, cfg, key, per_coordinate=True):
+    """The camera gradient the fit steps along -- the decoupled loss's, at
+    ``start`` with ``key`` -- against central differences (CAM_FD_EPS) of
+    the loss's value on the frame ``cfg``: in each of the 7 camera
+    coordinates, or with ``per_coordinate`` False along the gradient's own
+    direction only (the slope a step against it descends).  The
+    differences move the camera of every sample under the same random
+    numbers, so they are smooth; the gradient is a Monte Carlo estimate
+    that noise and the estimator's own bias (the specular BSDF-coin and
+    knife edges it carries no term for) can turn in its weak coordinates.
+    Returns the coordinates' names, AD, FD and, per coordinate, the
+    cosine of AD and FD."""
+    params, cam0 = tpt.split_camera(start)
+    names = [f"{k}[{j}]" for k, v in params.items() for j in range(v.numel())]
+    flat = torch.cat([v.reshape(-1) for v in params.values()])
+
+    def unflat(x):
+        out, i = {}, 0
+        for k, v in params.items():
+            out[k] = x[i:i + v.numel()].reshape(v.shape)
+            i += v.numel()
+        return out
+
+    def loss(p, decoupled):
+        return tpt.camera_pixel_loss(p, cam0, scene, target, cfg, key, decoupled=decoupled,
+                                     device=dev)
+
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    ad = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss(p, True), list(p.values()))])
+    dirs = torch.eye(flat.numel(), device=flat.device) if per_coordinate else (ad / ad.norm())[None]
+    with torch.no_grad():
+        fd = torch.stack([(loss(unflat(flat + CAM_FD_EPS * u), False)
+                           - loss(unflat(flat - CAM_FD_EPS * u), False)) / (2 * CAM_FD_EPS)
+                          for u in dirs])
+    out = {"names": names, "ad": ad.tolist(), "fd": fd.tolist()}
+    if per_coordinate:
+        out["cos"] = (ad @ fd / (ad.norm() * fd.norm())).item()
+    return out
+
+
+def print_camera_adfd(tag, r):
+    pairs = ", ".join(f"{n} {a:+.3e}/{f:+.3e}" for n, a, f in zip(r["names"], r["ad"], r["fd"]))
+    print(f"{tag}: AD/FD per coordinate {pairs}; cos(AD, FD) {r['cos']:.3f}")
+
+
+def camera_sign_check(r):
+    """True when every coordinate whose difference is at least
+    CAM_SIGN_SHARE of the largest has the gradient's sign."""
+    ad, fd = torch.tensor(r["ad"]), torch.tensor(r["fd"])
+    strong = fd.abs() >= CAM_SIGN_SHARE * fd.abs().max()
+    return bool((torch.sign(ad)[strong] == torch.sign(fd)[strong]).all())
+
+
+def phase8_fit_camera(tpt, dev, wrappers, extra_adfd=False):
+    """The slice's main path: fit_camera on the full cover frame with its
+    defaults (softness 0.02, the decoupled loss, leaves origin, lookat,
+    vfov_deg) from an offset camera, through the fused kernels only; then
+    each soft fused kernel at that fit's launch shape on random rays."""
+    from simplepathtracer_tpu_torch.ops import bucket, grad as fg
+
+    lap()
+    scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    key = tpt.make_key(0)
+    soft_cfg = tpt.grad_safe_config(cfg.replace(silhouette_softness=DEFAULT_SOFTNESS), dev)
+    with torch.no_grad():
+        target = tpt.render_linear(scene, cam, soft_cfg, tpt.fold_in(key, 1000))
+    start = cam.replace(origin=cam.origin + torch.tensor(CAM_ORIGIN_START, device=dev),
+                        vfov_deg=cam.vfov_deg + CAM_VFOV_START)
+    tpt.fit_camera(scene, target, start, cfg, key, steps=1, device=dev)
+    sync(dev)
+    reset_counts(wrappers)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    fitted, losses = tpt.fit_camera(scene, target, start, cfg, key, steps=FIT_STEPS, device=dev)
+    sync(dev)
+    out = {"step_s": (time.perf_counter() - t0) / FIT_STEPS, "peak_gb": peak_gb(dev),
+           "losses": losses}
+    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    gcfg = tpt.grad_safe_config(cfg.replace(silhouette_softness=DEFAULT_SOFTNESS,
+                                            camera_grad=True), dev)
+    chunk, n = decoupled_chunks(cfg, gcfg)
+    want = {"grad_fwd_soft": 2 * n * cfg.max_depth, "grad_bwd_soft": n * cfg.max_depth}
+
+    def errors(c):
+        return {"origin": (c.origin - cam.origin).norm().item(),
+                "lookat": (c.lookat - cam.lookat).norm().item(),
+                "vfov_deg": (c.vfov_deg - cam.vfov_deg).abs().item()}
+
+    out.update(chunk=chunk, n_chunks=n, per_step=want, cam_err=(errors(start), errors(fitted)),
+               launches=launches)
+    print(f"phase8 fit_camera, cover {cfg.width}x{cfg.height}x{cfg.spp}spp depth {cfg.max_depth}, "
+          f"defaults (softness {DEFAULT_SOFTNESS}, decoupled loss, leaves "
+          f"{list(tpt.CAMERA_LEAVES)}; {cfg.spp // 2} spp differentiated in {n} chunk(s) of "
+          f"{chunk}), {FIT_STEPS} steps: losses {losses}, {out['step_s']:.3f} s/step, "
+          f"{cfg.num_pixels * cfg.spp / out['step_s'] / 1e6:.2f} Mpaths/s, peak "
+          f"{out['peak_gb']:.2f} GB; camera error {out['cam_err'][0]} -> {out['cam_err'][1]}; "
+          f"launches {launches}, plain calls {calls}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise RuntimeError("phase8: the camera fit's loss did not fall")
+    if launches != {k: v * FIT_STEPS for k, v in want.items()} or any(calls.values()):
+        raise RuntimeError(f"phase8: the camera fit did not run through the fused kernels only "
+                           f"(launches {launches}, per step wanted {want}, plain calls {calls})")
+
+    # The fit's gradient at the start camera against central differences of
+    # the loss: stepping against it must lower the loss; and on a Lambertian
+    # control (every material diffuse, the same geometry, camera, frame and
+    # key), where the estimator has no specular edges to miss, each strong
+    # coordinate must have the sign of its difference.
+    lap("phase8c fit_camera")
+    kcfg = cfg.replace(silhouette_softness=DEFAULT_SOFTNESS)
+    r = camera_adfd(tpt, dev, scene, target, start, kcfg, tpt.fold_in(key, 0),
+                    per_coordinate=False)
+    ad_norm = math.sqrt(sum(a * a for a in r["ad"]))
+    print(f"phase8 camera gradient at the start, cover {cfg.width}x{cfg.height}x{cfg.spp}spp: "
+          f"|AD| {ad_norm:.4e}, slope of the loss along it (central FD, eps {CAM_FD_EPS}) "
+          f"{r['fd'][0]:+.4e}")
+    lap("phase8c descent check")
+    lam = scene.replace(material=torch.zeros_like(scene.material))
+    with torch.no_grad():
+        target_l = tpt.render_linear(lam, cam, soft_cfg, tpt.fold_in(key, 1000))
+    r_l = camera_adfd(tpt, dev, lam, target_l, start, kcfg, tpt.fold_in(key, 0))
+    print_camera_adfd("phase8 camera gradient at the start, Lambertian control", r_l)
+    out["camera_adfd"] = {"ad_norm": ad_norm, "fd_slope": r["fd"][0], "lambertian": r_l}
+    lap("phase8c Lambertian control")
+    if not (r["fd"][0] > 0.0 and camera_sign_check(r_l)):
+        raise RuntimeError("phase8: the camera fit's gradient does not descend the loss, or a "
+                           "strong coordinate has the wrong sign on the Lambertian control")
+    if extra_adfd:
+        # The main path's coordinates, on the fit's first key and another.
+        for label, k in (("fold_in(key, 0)", tpt.fold_in(key, 0)), ("make_key(5)", tpt.make_key(5))):
+            r = camera_adfd(tpt, dev, scene, target, start, kcfg, k)
+            print_camera_adfd(f"phase8 camera gradient at the start, cover, key {label}", r)
+            out["camera_adfd"].setdefault("cover", []).append(r)
+
+    gen = torch.Generator().manual_seed(11)
+    rows = torch.randperm(cfg.num_pixels * chunk, generator=gen)[:N_CHECK_PIXELS].to(dev)
+    out.update(fused_full_width(tpt, fg, bucket, scene, cam, kcfg, key, chunk, rows, False))
+    return out
+
+
+def phase8_adfd(tpt, dev, wrappers):
+    """AD/FD of vfov_deg through the fused kernels, in the setup of
+    tests/test_camera_grad.py:21-52 (Lambertian three_sphere, 48x24, 256
+    spp, depth 3, soft 0.05, eps 0.05)."""
+    scene = tpt.three_sphere_scene(hollow_glass=False, device=dev)
+    scene = scene.replace(material=torch.zeros_like(scene.material))
+    cam = tpt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=60, device=dev)
+    cfg = tpt.RenderConfig(width=48, height=24, spp=256, max_depth=3, silhouette_softness=0.05,
+                           use_pallas_grad=True, grad_regen=False)
+    with torch.no_grad():
+        target = tpt.render_linear(scene, cam.replace(vfov_deg=torch.tensor(62.0, device=dev)),
+                                   cfg, tpt.make_key(99))
+    params, cam0 = tpt.split_camera(cam)
+    reset_counts(wrappers)
+
+    def loss(p):
+        return tpt.camera_pixel_loss(p, cam0, scene, target, cfg, tpt.make_key(3), device=dev)
+
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    (g,) = torch.autograd.grad(loss(p), [p["vfov_deg"]])
+    eps = VFOV_ADFD_EPS
+    with torch.no_grad():
+        fd = (loss(dict(params, vfov_deg=params["vfov_deg"] + eps)).item()
+              - loss(dict(params, vfov_deg=params["vfov_deg"] - eps)).item()) / (2 * eps)
+    ad = g.item()
+    ratio = ad / fd if fd else float("nan")
+    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    print(f"phase8 AD/FD of vfov_deg (Lambertian three_sphere 48x24, 256 spp, depth 3, soft 0.05, "
+          f"eps {eps}): AD {ad:.6e}, FD {fd:.6e}, AD/FD {ratio:.4f} (bound {VFOV_ADFD_BOUNDS}); "
+          f"launches {launches}, plain calls {calls}")
+    if not (VFOV_ADFD_BOUNDS[0] <= ratio <= VFOV_ADFD_BOUNDS[1]
+            and launches.get("grad_bwd_soft", 0) > 0
+            and set(launches) <= {"grad_fwd_soft", "grad_bwd_soft", "raygen"}
+            and not any(calls.values())):
+        raise RuntimeError("phase8: AD/FD of vfov through the fused kernels out of its bound")
+    return {"ad": ad, "fd": fd, "ratio": ratio}
+
+
+def phase8_readme_example(tpt, dev):
+    """README.md's fit_camera example as written there (three_sphere at
+    96x48x8 spp, the origin moved by (0.06, -0.05, 0) and fitted back in 40
+    steps, lr 8e-3, the origin alone): the origin's error must fall."""
+    scene, cam, cfg = tpt.PRESETS["three_sphere"].build(0, device=dev)
+    cfg = cfg.replace(width=96, height=48, spp=8)
+    soft = tpt.grad_safe_config(cfg.replace(silhouette_softness=0.02), dev)
+    target = tpt.render_linear(scene, cam, soft, tpt.make_key(9))
+    start = cam.replace(origin=cam.origin + torch.tensor([0.06, -0.05, 0.0], device=dev))
+    t0 = time.perf_counter()
+    fitted, losses = tpt.fit_camera(scene, target, start, cfg, tpt.make_key(0), steps=40,
+                                    lr=8e-3, leaves=("origin",), device=dev)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    err0 = (start.origin - cam.origin).norm().item()
+    err1 = (fitted.origin - cam.origin).norm().item()
+    print(f"phase8 README fit_camera example (three_sphere 96x48x8spp, 40 steps): losses "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}, origin error {err0:.4f} -> {err1:.4f}, "
+          f"{seconds:.2f} s")
+    if not (all(map(math.isfinite, losses)) and err1 < err0):
+        raise RuntimeError("phase8: the README's fit_camera example did not move the origin "
+                           "toward the truth")
+    return {"losses": [losses[0], losses[-1]], "origin_error": [err0, err1], "seconds": seconds}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
                     help="time the full cover frame for 1, 2, 4, 8, 16 banks "
                          "and with lane balancing")
+    ap.add_argument("--camera-adfd", action="store_true",
+                    help="phase 8c: also the cover camera gradient against finite differences "
+                         "coordinate by coordinate, on the fit's first key and on make_key(5)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1035,6 +1758,14 @@ def main(argv=None):
     from simplepathtracer_tpu_torch.render import _persistent_args
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    phase_s, lap = {}, [t_start]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - lap[0], 2)
+        lap[0] = now
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {card_line()}")
@@ -1049,6 +1780,8 @@ def main(argv=None):
 
     kernel = persistent.render_block_persistent
     plain = persistent.render_block_persistent_reference
+
+    phase_done("build")
 
     # ---- phase 1: kernel vs plain version --------------------------------
     trio_cam = dict(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=90)
@@ -1085,6 +1818,8 @@ def main(argv=None):
         if name == "cover":
             compare_args = (call, kw, f"{w}x{h}x{spp}spp")
 
+    phase_done("phase1")
+
     # ---- phase 2: balancing changes no pixel -----------------------------
     scene = tpt.reference_scene(device=dev)
     cam = tpt.make_camera(origin=(0, 1, -3), lookat=(0, 1, 0), vfov_deg=90, device=dev)
@@ -1098,6 +1833,8 @@ def main(argv=None):
     if not torch.equal(st.accum, st2.accum):
         raise RuntimeError("phase2: balanced accumulate differs from the 2+6 schedule")
     print("phase2 balanced 40x26 8spp (probe 2): bit-identical to the 2+6 schedule")
+
+    phase_done("phase2")
 
     # ---- phase 3: the main path at full width ----------------------------
     preset = tpt.PRESETS["cover"]
@@ -1123,6 +1860,8 @@ def main(argv=None):
         raise RuntimeError("phase3: the main path did not run through the kernel")
     img_mean = img.mean(dim=(0, 1)).tolist()
     print(f"phase3 image mean rgb {img_mean}")
+
+    phase_done("phase3")
 
     # ---- phase 4: kernel vs plain version at the main path's shapes -------
     # The kernel renders the whole 1200x800 frame at 100 spp; the plain
@@ -1184,8 +1923,12 @@ def main(argv=None):
             t = cuda_ms(lambda: tpt.render(scene, cam, c, key), reps=1)
             print(f"sweep: render() {name} {t:.3f} ms")
 
+    phase_done("phase4")
+
     # ---- phase 5: gradient kernels vs plain versions, small shapes --------
     grad_errs, grad_plain_ms, grad_kernel_small_ms, grad_shapes = phase5_kernels(tpt, dev)
+
+    phase_done("phase5")
 
     # ---- phase 6: the gradient path at full width -------------------------
     wrappers = grad_wrappers()
@@ -1209,6 +1952,8 @@ def main(argv=None):
         "losses": main6["losses"], "launches_per_step": per_step,
     }))
 
+    phase_done("phase6")
+
     # ---- phase 7: soft silhouettes on the main path ----------------------
     main7 = phase7_soft(tpt, dev, wrappers)
     for res in (main7, main7["plane_kernels"]):
@@ -1223,6 +1968,45 @@ def main(argv=None):
         "center_x_err": main7["center_x_err"], "radius_err": main7["radius_err"],
         "launches_per_step": main7["per_step"], "plane_fit": main7["plane_fit"],
         "plane_launches": main7["plane_launches"], "adfd": main7["adfd"],
+    }))
+
+    phase_done("phase7")
+
+    # ---- phase 8: camera gradients through the fused kernels -------------
+    fused_errs, fused_plain_ms, fused_small_ms, fused_shapes = phase8_kernels(tpt, dev)
+    phase_done("phase8a")
+    main8b = phase8_fused_route(tpt, dev, wrappers)
+    phase_done("phase8b")
+    main8c = phase8_fit_camera(tpt, dev, wrappers, extra_adfd=args.camera_adfd)
+    phase_done("phase8c")
+    adfd8 = phase8_adfd(tpt, dev, wrappers)
+    phase_done("phase8d")
+    readme8 = phase8_readme_example(tpt, dev)
+    phase_done("phase8e")
+    for res in (main8b, main8c):
+        for name, err in res["errs"].items():
+            fused_errs[name] = max(fused_errs[name], err)
+    print("phase8: " + json.dumps({
+        "fused_route": {
+            "shape": f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth {cfg.max_depth}, one chunk",
+            "s_per_step": main8b["step_s"],
+            "mpaths_per_s": cfg.num_pixels * FUSED_SPP / main8b["step_s"] / 1e6,
+            "peak_gb": main8b["peak_gb"], "launches": main8b["launches"], "steps": FIT_STEPS,
+            "loss_rel_vs_regen": main8b["loss_rel"], "bucket": main8b["bucket"],
+            "live_rays_per_bounce": main8b["live"],
+        },
+        "fit_camera": {
+            "shape": f"{cfg.width}x{cfg.height}x{cfg.spp}spp depth {cfg.max_depth}",
+            "softness": DEFAULT_SOFTNESS, "spp_chunk": main8c["chunk"],
+            "chunks": main8c["n_chunks"], "steps": FIT_STEPS, "s_per_step": main8c["step_s"],
+            "mpaths_per_s": cfg.num_pixels * cfg.spp / main8c["step_s"] / 1e6,
+            "peak_gb": main8c["peak_gb"], "losses": main8c["losses"],
+            "camera_error": main8c["cam_err"], "launches_per_step": main8c["per_step"],
+            "camera_adfd": main8c["camera_adfd"],
+            "live_rays_per_bounce": main8c["live"],
+        },
+        "vfov_adfd": adfd8,
+        "readme_fit_camera": readme8,
     }))
 
     report = {"kernels": [{
@@ -1299,6 +2083,29 @@ def main(argv=None):
             "launches_over_fit_steps": FIT_STEPS,
             "launches_over_fits": [f["spp_chunk"] for f in plane_fit["fits"]],
         })
+    for name, source, replaces in FUSED_KERNELS:
+        res = main8c if name.endswith("_soft") else main8b
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": res["launches"][name],
+            "max_abs_err": fused_errs[name],
+            "ms": res["ms"][name],
+            "plain_ms": fused_plain_ms[name],
+            "bound_ms": res["bound_ms"][name],
+            "bound_by": res["bound_by"][name],
+            "library_ms": None,
+            "ms_shape": (f"{cfg.width}x{cfg.height}x{res['n_rays'] // cfg.num_pixels}spp depth "
+                         f"{cfg.max_depth}{' soft ' + str(DEFAULT_SOFTNESS) if res is main8c else ''}"
+                         ", per launch"),
+            "plain_ms_shape": fused_shapes[name] + ", per launch",
+            "kernel_ms_at_plain_shape": fused_small_ms[name],
+            "launches_over_steps": FIT_STEPS,
+        })
+    print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (from the card's first use; "
+          f"per phase {phase_s})")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

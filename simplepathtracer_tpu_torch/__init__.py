@@ -3,7 +3,9 @@
 The forward render of every preset runs on an NVIDIA Hopper card through a
 hand-written CUDA kernel (``csrc/persistent.cu``), and inverse rendering
 (``fit``, ``pixel_loss``; soft silhouettes included) through the
-hand-written regeneration gradient kernels (``csrc/grad_regen.cu``, ``csrc/bucket.cu``), all built with nvcc
+hand-written regeneration gradient kernels (``csrc/grad_regen.cu``,
+``csrc/bucket.cu``), and camera fits (``fit_camera``) through the
+per-bounce fused gradient kernels (``csrc/grad.cu``), all built with nvcc
 at first use; on CPU tensors the same functions run as plain PyTorch.  Entry points
 that create tensors run on ``cuda`` unless the caller passes ``device``.
 """
@@ -29,11 +31,16 @@ from .render import (
     trace_rays,
 )
 from .inverse import (
+    CAMERA_LEAVES,
+    camera_pixel_loss,
     fit,
+    fit_camera,
+    merge_camera,
     merge_params,
     pixel_loss,
     pixel_loss_decoupled,
     render_linear,
+    split_camera,
     split_params,
 )
 from .presets import PRESETS, Preset
@@ -65,6 +72,11 @@ __all__ = [
     "trace_rays",
     "grad_safe_config",
     "fit",
+    "fit_camera",
+    "camera_pixel_loss",
+    "CAMERA_LEAVES",
+    "split_camera",
+    "merge_camera",
     "pixel_loss",
     "pixel_loss_decoupled",
     "render_linear",

@@ -6,7 +6,8 @@ leaf names, as numpy arrays or anything ``np.asarray`` accepts, and build
 the port's ``Scene`` / ``Camera`` in float32 / int32 on a device.  So both
 packages can render identical tables.  ``convert_params`` and
 ``params_to_numpy`` carry a fit's params (or gradients) dict across and
-back.  Nothing here imports JAX.
+back, camera leaves (``split_camera``) included.  Nothing here imports
+JAX.
 """
 
 from __future__ import annotations
@@ -52,8 +53,9 @@ def convert_camera(src, device=None) -> Camera:
 
 
 def convert_params(params, device=None) -> dict:
-    """A params dict of the JAX package's ``inverse.split_params`` (leaf
-    name -> array) as the port's: float32 tensors on ``device``."""
+    """A params dict of the JAX package's ``inverse.split_params`` or
+    ``inverse.split_camera`` (leaf name -> array) as the port's: float32
+    tensors on ``device``, ready for ``merge_params`` / ``merge_camera``."""
     device = resolve_device(device)
     return {
         k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)

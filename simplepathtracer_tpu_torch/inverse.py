@@ -8,15 +8,20 @@ kernels on CUDA, plain autograd on the CPU.  Discrete structure (the hit
 selection, the material switch, Schlick coins) is locally constant, as in
 the JAX package.  With ``softness`` > 0 and a geometry leaf fitted (the
 default), ``fit`` turns on two-sided soft silhouettes and differentiates
-``pixel_loss_decoupled``.
+``pixel_loss_decoupled``.  ``fit_camera`` fits camera leaves (origin,
+lookat, vfov) the same way through ``camera_pixel_loss``: on CUDA the fused
+gradient kernels, whose backward returns the rays' cotangents, under the
+differentiable ray generation.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
 ignored: cost-balanced pixel order (``balance``), the gradient-accumulated
-estimator (``grad_accum``, ``make_accum_grad_step``), fit snapshots
-(``snapshot_path``; A.14) and camera fits (``fit_camera``; A.12).
+estimator (``grad_accum``, ``make_accum_grad_step``) and fit snapshots
+(``snapshot_path``; A.14).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -120,11 +125,6 @@ def make_accum_grad_step(*args, **kwargs):
     )
 
 
-def fit_camera(*args, **kwargs):
-    """Camera pose fits: not ported (ROADMAP A.12)."""
-    raise NotImplementedError("fit_camera is not ported yet: ROADMAP A.12")
-
-
 def make_optimizer(params, lr: float = 1e-2) -> torch.optim.Optimizer:
     """Adam with optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8)."""
     return torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
@@ -211,3 +211,90 @@ def fit(
             callback(i, losses[-1], params)
     final = {k: v.detach() for k, v in params.items()}
     return merge_params(final, static_scene), losses
+
+
+# Camera leaves fitted by ``fit_camera``: pose and field of view.  vup stays
+# fixed, aperture and focus_dist are available but off (as in the JAX
+# package).
+CAMERA_LEAVES = ("origin", "lookat", "vfov_deg")
+
+
+def split_camera(camera: Camera, leaves=CAMERA_LEAVES):
+    """({leaf: tensor} for ``leaves``, camera)."""
+    return {k: getattr(camera, k) for k in leaves}, camera
+
+
+def merge_camera(params, camera: Camera) -> Camera:
+    return camera.replace(**params)
+
+
+def camera_pixel_loss(cam_params, camera0, scene, target, config, key,
+                      decoupled=False, device=None):
+    """Mean squared error in linear radiance as a function of camera
+    leaves.  The render takes ``grad_safe_config``'s route with
+    ``camera_grad``: rays from the differentiable ``generate_rays`` into
+    the fused gradient kernels (CUDA) or the plain autograd path (CPU); the
+    regeneration kernels and the raygen kernel detach the camera and are
+    skipped.  ``decoupled`` (soft silhouettes): the value of the full-spp
+    render, the gradient of the independent-pair estimator, as in
+    ``pixel_loss_decoupled``.  ``device`` as in ``pixel_loss``."""
+    dev = resolve_device(device)
+    config = grad_safe_config(config.replace(camera_grad=True), dev).replace(grad_regen=False)
+    camera = merge_camera(cam_params, camera0)
+    _check_device(dev, scene.centers, target)
+    spp = int(config.spp)
+    if not decoupled:
+        img = render_linear(scene, camera, config, key)
+        return torch.mean((img - target) ** 2)
+    h = max(spp // 2, 1)
+    fixed = camera.replace(**{
+        f.name: getattr(camera, f.name).detach() for f in dataclasses.fields(camera)
+    })
+    acc_a = render_sample_batch(scene, fixed, config, key, 0, h)
+    acc_b = render_sample_batch(scene, camera, config, key, h, spp - h)
+    t = target.reshape(-1, 3)
+    value = torch.mean(((acc_a + acc_b) / spp - t) ** 2)
+    resid = (2.0 * (acc_a / h - t) / t.numel()).detach()
+    gterm = torch.sum(resid * acc_b) / (spp - h)
+    return (value - gterm).detach() + gterm
+
+
+def fit_camera(
+    scene: Scene,
+    target,
+    camera_init: Camera,
+    config: RenderConfig,
+    key,
+    steps: int = 100,
+    lr: float = 1e-2,
+    leaves=CAMERA_LEAVES,
+    callback=None,
+    softness: float = 0.02,
+    device=None,
+):
+    """Adam-optimize camera leaves against ``target`` (pose recovery, the
+    camera-side counterpart of ``fit``).  ``softness`` > 0 sets
+    ``silhouette_softness`` and differentiates the decoupled loss: for
+    sky-lit Lambertian scenes the silhouettes carry most of the pose
+    signal; render the target soft-to-soft.  Step i renders with the key
+    ``fold_in(key, i)``.  Returns (camera, losses).  ``device`` as in
+    ``pixel_loss``."""
+    dev = resolve_device(device)
+    params, camera0 = split_camera(camera_init, leaves)
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    opt = make_optimizer(params, lr)
+    if softness:
+        config = config.replace(silhouette_softness=float(softness))
+    decoupled = config.silhouette_softness > 0.0
+    losses = []
+    for i in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = camera_pixel_loss(params, camera0, scene, target, config, fold_in(key, i),
+                                 decoupled=decoupled, device=dev)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        if callback is not None:
+            callback(i, losses[-1], params)
+    final = {k: v.detach() for k, v in params.items()}
+    return merge_camera(final, camera0), losses

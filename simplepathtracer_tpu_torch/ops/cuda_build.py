@@ -53,6 +53,18 @@ _SIGNATURES = {
         [P, I, I, I, P, I, U, U, U, I, F, F, I, F, P, P, P, P, P, P],
     # cols, idx, n_rows, n_cols, n_buckets, out, stream
     "spt_bucket": [P, P, ctypes.c_longlong, I, I, P, P],
+    # n, tab, n_spheres, consts, variant, soft_tab, k0, k1, bounce, t_min,
+    # t_max, rr_start_depth, state, pix, samp, prev_in, next, rad, prev_out,
+    # idx_out, bidx_out, stream
+    "spt_grad_forward":
+        [I, P, I, P, I, P, U, U, U, F, F, I, P, P, P, P, P, P, P, P, P, P],
+    # n, tab, n_spheres, consts, variant, k0, k1, bounce, t_min, t_max,
+    # rr_start_depth, state, idx, bidx, pix, samp, ct_in, ct_rad, ct_out,
+    # ct_attr, sky_out, stream
+    "spt_grad_backward":
+        [I, P, I, P, I, U, U, U, F, F, I, P, P, P, P, P, P, P, P, P, P, P],
+    # n, cam19, k0, k1, pix, samp, width, inv_w, inv_h, rays, stream
+    "spt_raygen": [I, P, U, U, P, P, I, F, F, P, P],
 }
 
 

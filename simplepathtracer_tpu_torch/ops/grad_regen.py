@@ -173,41 +173,36 @@ class RegenCall(NamedTuple):
     softness: float
 
 
-def regen_call(tables, sky6, plane7, cam19, key, pixel_ids, *, n_samples,
-               max_depth, width, height, t_min=1e-3, t_max=3.0e7,
-               rr_start_depth=0, n_banks=GPU_BANKS, softness=0.0) -> RegenCall:
-    """A ``RegenCall`` from the 11 sphere tables (cx, cy, cz, radius,
-    radius^2, albedo rgb, material, fuzz, ior), sky f32[6], plane f32[7] or
-    None, camera f32[19] and key (values only: nothing here is
-    differentiated)."""
+def scene_block(tables, sky6, softness=0.0):
+    """What the gradient kernels read of the scene, values only: the
+    [S_pad, 10] table (cx cy cz r albedo rgb fuzz ior material; padded as
+    ``pad_scene_tables``), the sky and the soft constants (f32[6] and f32[3]:
+    softness, softness x 8 and softness x 0.1, each rounded to float32
+    once, as the plain versions round them) and, under soft silhouettes,
+    the soft scan's [S_pad, 4] table (the JAX package's
+    ``soft_scan_tables``: silhouette scale, 1 / r^2, validity scale, -30 x
+    validity scale), computed once here so the kernels and their plain
+    versions read the same thresholds.  Raises for ``SIL_FRESNEL``, which
+    the kernels do not port."""
     f32 = torch.float32
     softness = float(softness)
     if softness > 0.0 and intersect.SIL_FRESNEL:
         raise NotImplementedError(
             "intersect.SIL_FRESNEL=True: the detached Schlick-coin ratio is "
-            "not ported to the regeneration kernels (ROADMAP A.11 leftovers); "
+            "not ported to the gradient kernels (ROADMAP A.11 leftovers); "
             "the eager route (use_pallas_grad=False) honours it"
         )
     with torch.no_grad():
-        s = tables[0].shape[0]
         cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = pad_scene_tables(
             [t.detach() for t in tables]
         )
         tab = torch.stack(
             [cx, cy, cz, rad, ar, ag, ab, fz, io, mat.to(f32)], dim=1
         ).to(f32).contiguous()
-        dev = tab.device
-        plane = (plane7.detach() if plane7 is not None
-                 else torch.zeros(7, dtype=f32, device=dev))
-        # The soft constants as the plain versions round them (the kernels
-        # read them instead of recomputing in float32).
         soft3 = tab.new_tensor([
             _f32(softness), _f32(softness * intersect._SIL_R0),
             _f32(softness * intersect._SIG_V0),
         ])
-        consts = torch.cat(
-            [sky6.detach().to(f32), plane.to(f32), cam19.detach().to(f32), soft3]
-        ).contiguous()
         soft_tab = None
         if softness > 0.0:
             # Padding slots have a NaN radius: NaN scale and 1 / r^2, so
@@ -218,13 +213,30 @@ def regen_call(tables, sky6, plane7, cam19, key, pixel_ids, *, n_samples,
                 [intersect.silhouette_scale(softness, r), 1.0 / (r * r), sigv, -30.0 * sigv],
                 dim=1,
             ).contiguous()
+    return tab, sky6.detach().to(f32), soft3, soft_tab
+
+
+def regen_call(tables, sky6, plane7, cam19, key, pixel_ids, *, n_samples,
+               max_depth, width, height, t_min=1e-3, t_max=3.0e7,
+               rr_start_depth=0, n_banks=GPU_BANKS, softness=0.0) -> RegenCall:
+    """A ``RegenCall`` from the 11 sphere tables (cx, cy, cz, radius,
+    radius^2, albedo rgb, material, fuzz, ior), sky f32[6], plane f32[7] or
+    None, camera f32[19] and key (values only: nothing here is
+    differentiated)."""
+    f32 = torch.float32
+    softness = float(softness)
+    tab, sky, soft3, soft_tab = scene_block(tables, sky6, softness)
+    with torch.no_grad():
+        plane = (plane7.detach() if plane7 is not None
+                 else torch.zeros(7, dtype=f32, device=tab.device))
+        consts = torch.cat([sky, plane.to(f32), cam19.detach().to(f32), soft3]).contiguous()
     p = pixel_ids.shape[0]
     nb, n_lanes = bank_geometry(p, n_banks)
     budget = nb * int(n_samples) * int(max_depth)
     k0, k1 = key_words(key)
     return RegenCall(
         pixel_ids=pixel_ids.to(torch.int32).contiguous(), tab=tab,
-        consts=consts, soft_tab=soft_tab, k0=k0, k1=k1, n_spheres=s,
+        consts=consts, soft_tab=soft_tab, k0=k0, k1=k1, n_spheres=tables[0].shape[0],
         use_plane=plane7 is not None, n_samples=int(n_samples),
         max_depth=int(max_depth), width=int(width), height=int(height),
         t_min=float(t_min), t_max=float(t_max),
@@ -942,10 +954,10 @@ class _RegenTraceCkstream(torch.autograd.Function):
         return _stream_backward(ctx, g_rad, None)
 
 
-def _trace_inputs(scene, camera, config):
-    """Differentiable inputs (11 tables, sky6, plane7) and the detached
-    camera block.  r^2 is scan-only and the plane's unit normal is not a
-    parameter: both detached, as in the JAX package."""
+def scene_inputs(scene):
+    """The scene's differentiable inputs of the gradient kernels: (11
+    tables, sky6, plane7 or None).  r^2 is scan-only and the plane's unit
+    normal is not a parameter: both detached, as in the JAX package."""
     c, a = scene.centers, scene.albedo
     tables = (
         c[:, 0], c[:, 1], c[:, 2], scene.radii,
@@ -956,8 +968,14 @@ def _trace_inputs(scene, camera, config):
     plane7 = None
     if scene.plane is not None:
         plane7 = torch.cat([scene.plane[:3].detach(), scene.plane[3:]])
+    return (*tables, sky6, plane7)
+
+
+def _trace_inputs(scene, camera, config):
+    """Differentiable inputs (``scene_inputs``) and the detached camera
+    block."""
     cam19 = camera_constants(camera, config.width, config.height).detach()
-    return (*tables, sky6, plane7), cam19
+    return scene_inputs(scene), cam19
 
 
 def _spec(config, key, pixel_ids, cam19, sample_offset, n_samples, chunk, n_banks):

@@ -1,6 +1,6 @@
 """Rendering (counterpart of the JAX package's ``render.py``).
 
-Three routes, chosen by the config's flags as in the JAX package:
+Four routes, chosen by the config's flags as in the JAX package:
 
 * ``use_pallas=True`` (every preset): the persistent kernel renders a whole
   pixel block and all its samples in one launch
@@ -9,6 +9,11 @@ Three routes, chosen by the config's flags as in the JAX package:
 * ``use_pallas_grad`` with ``grad_regen``: the regeneration gradient
   kernels (``ops/grad_regen.py``), streamed over spp chunks when the
   packed winner indices fit ``_IDX_PLANE_BUDGET``.  Differentiable.
+* ``use_pallas_grad`` alone, or with ``camera_grad``: the per-bounce fused
+  gradient kernels (``ops/grad.py``) on explicit rays, sphere scenes only.
+  Camera rays come from the raygen kernel, or under ``camera_grad`` from
+  the differentiable ``generate_rays``, whose (origin, direction)
+  cotangents the fused backward returns.  Differentiable.
 * otherwise the plain wavefront — every live ray advances one bounce per
   step, materials resolved with masked selects, in the JAX jnp path's
   formulation (matmul-expanded intersection).  Differentiable by autograd,
@@ -40,6 +45,7 @@ from .ops.intersect import (
     validity_scale,
 )
 from .ops.materials import scatter, scatter_attrs, sky_color
+from .ops.grad import trace_pixels_fused, trace_rays_fused
 from .ops.grad_regen import (
     IDX_PACK,
     IDX_PACK_MAX_SPHERES,
@@ -60,6 +66,17 @@ from .types import Camera, RenderConfig, RenderState, Scene, resolve_device
 # Rays differentiated per spp chunk on the plain (autograd) path: the JAX
 # package's value, which bounds the per-bounce residuals autograd keeps.
 _GRAD_RAY_BUDGET = 2_000_000
+# Ray-bounces (rays x max_depth) per spp chunk on the fused gradient route
+# (ops/grad.py).  Its backward keeps, per ray and bounce, the entry state
+# (10 planes) and the winner index, 44 B (soft silhouettes: and the blocker
+# index, 48 B), where the JAX kernels keep 84 B (104): the port reads the
+# winner's attributes back from the table by index.  500M ray-bounces hold
+# 22-24 GB of them, under a third of an H100's 80 GB, beside what autograd
+# keeps of generate_rays under camera gradients (~100 B per ray) and the
+# backward's carried and attribute cotangents (~90 B per ray).  At the
+# cover frame (1200x800, depth 10) that allows 52-spp chunks: the decoupled
+# camera fit differentiates its 50 spp in one chunk, with no remat.
+_GRAD_RAY_BOUNCE_BUDGET_FUSED = 500_000_000
 # Lane-iterations (spp x pixels x max_depth) per spp chunk on the regen
 # gradient path.  A chunk's backward holds its 25 residual planes and 9
 # cotangent planes, 136 B per lane-iteration: 200M x 136 B = 27.2 GB, a
@@ -105,7 +122,10 @@ def grad_safe_config(config: RenderConfig, device=None) -> RenderConfig:
     regeneration gradient kernels (``use_pallas_grad`` + ``grad_regen``);
     on the CPU it takes the plain autograd path, as the JAX package does
     off the TPU.  Without an ``spp_chunk``, one is picked that keeps a
-    chunk's differentiated work near the route's budget.
+    chunk's differentiated work near the route's budget: the regeneration
+    kernels', the fused kernels' (``use_pallas_grad`` without
+    ``grad_regen``, or with ``camera_grad``, which skips the regeneration
+    kernels), or the plain path's.
     """
     if config.use_pallas:
         on_kernel_device = resolve_device(device).type == "cuda"
@@ -115,16 +135,23 @@ def grad_safe_config(config: RenderConfig, device=None) -> RenderConfig:
             grad_regen=config.grad_regen or on_kernel_device,
         )
     if config.spp_chunk == 0:
-        if config.use_pallas_grad and config.grad_regen:
-            max_chunk = _GRAD_ITER_BUDGET_REGEN // (
-                config.num_pixels * max(1, config.max_depth)
-            )
+        ray_bounces = config.num_pixels * max(1, config.max_depth)
+        if _uses_regen(config):
+            max_chunk = _GRAD_ITER_BUDGET_REGEN // ray_bounces
+        elif config.use_pallas_grad:
+            max_chunk = _GRAD_RAY_BOUNCE_BUDGET_FUSED // ray_bounces
         else:
             max_chunk = _GRAD_RAY_BUDGET // config.num_pixels
         max_chunk = max(1, max_chunk)
         if config.spp > max_chunk:
             config = config.replace(spp_chunk=max_chunk)
     return config
+
+
+def _uses_regen(config: RenderConfig) -> bool:
+    """The regeneration kernels serve the gradient: they consume pixel ids
+    and detach the camera, so ``camera_grad`` excludes them."""
+    return config.use_pallas_grad and config.grad_regen and not config.camera_grad
 
 
 def _clip(x, lo, hi):
@@ -210,7 +237,15 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     two-sided soft-silhouette estimator: a stochastic-transparency scan
     (acceptance and validity coins, the strongest rejected front blocker),
     a stochastic plane-vs-sphere crossing coin on plane scenes, and the
-    detached ratio ``_soft_ratio`` on the entry throughput."""
+    detached ratio ``_soft_ratio`` on the entry throughput.
+
+    With ``use_pallas_grad`` a sphere scene goes through the fused gradient
+    kernels (``ops/grad.py:trace_rays_fused``); they are sphere-only, so a
+    plane scene takes the bounce below, as in the JAX package."""
+    if scene.plane is not None and config.use_pallas_grad:
+        config = config.replace(use_pallas_grad=False)
+    if config.use_pallas_grad:
+        return trace_rays_fused(origins, dirs, keys, scene, config)
     n = origins.shape[0]
     soft = config.silhouette_softness
     fresnel = bool(soft > 0.0 and intersect.SIL_FRESNEL)
@@ -300,8 +335,14 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
 
 
 def render_pixels(scene, camera, config, key, pixel_ids, sample_ids):
-    """Radiance [N, 3] for explicit (pixel, sample) pairs."""
+    """Radiance [N, 3] for explicit (pixel, sample) pairs.  On the fused
+    gradient route a sphere scene's camera rays come from the raygen kernel
+    (the camera detached) unless ``camera_grad`` asks for the
+    differentiable ``generate_rays``."""
     keys = ray_keys(key, pixel_ids, sample_ids)
+    if (config.use_pallas_grad and not config.use_pallas and scene.plane is None
+            and not config.camera_grad):
+        return trace_pixels_fused(camera, keys, scene, config)
     jit4 = camera_jitter(keys)
     origins, dirs = generate_rays(camera, config.width, config.height, keys.pixel, jit4)
     return trace_rays(origins, dirs, keys, scene, config)
@@ -361,12 +402,15 @@ def _balanced_perm(counts, n_banks: int = GPU_BANKS):
     return order[rank]
 
 
-def _requires_grad(scene) -> bool:
-    return any(
-        t is not None and t.requires_grad
-        for t in (scene.centers, scene.radii, scene.albedo, scene.fuzz,
-                  scene.ior, scene.sky_lo, scene.sky_hi, scene.plane)
-    )
+def _requires_grad(scene, camera=None) -> bool:
+    """Whether a scene leaf (or, given a camera, a camera leaf) needs a
+    gradient."""
+    leaves = [scene.centers, scene.radii, scene.albedo, scene.fuzz, scene.ior,
+              scene.sky_lo, scene.sky_hi, scene.plane]
+    if camera is not None:
+        leaves += [camera.origin, camera.lookat, camera.vup, camera.vfov_deg,
+                   camera.aperture, camera.focus_dist]
+    return any(t is not None and t.requires_grad for t in leaves)
 
 
 def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_samples):
@@ -374,13 +418,17 @@ def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_s
     ids for an explicit block of pixels.  Outside the persistent kernel,
     samples are folded in ``spp_chunk``-sized steps to bound live memory;
     under autograd each step is recomputed in the backward
-    (``torch.utils.checkpoint``), or the regen route streams its chunks."""
+    (``torch.utils.checkpoint``), or the regen route streams its chunks.
+    Under ``camera_grad`` the camera's leaves count as differentiated too.
+    The JAX package's ``_coherent_pixel_order`` (pixel tiles for the TPU
+    kernels' block skipping) is not ported: it changes no value, and a
+    warp's 32 row-adjacent rays are coherent already."""
     if config.use_pallas:
         # Samples loop inside the kernel: no spp chunking.
         return _render_block_pallas(
             scene, camera, config, key, pixel_ids, sample_offset, n_samples
         )
-    use_regen = config.use_pallas_grad and config.grad_regen
+    use_regen = _uses_regen(config)
     p = pixel_ids.shape[0]
     chunk = min(config.spp_chunk or n_samples, n_samples)
     if n_samples % chunk:
@@ -415,7 +463,8 @@ def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_s
         rad = render_pixels(scene, camera, config, key, pids, sids)
         return torch.sum(rad.reshape(chunk, p, 3), dim=0)
 
-    remat = n_steps > 1 and torch.is_grad_enabled() and _requires_grad(scene)
+    remat = n_steps > 1 and torch.is_grad_enabled() and _requires_grad(
+        scene, camera if config.camera_grad else None)
     acc = torch.zeros((p, 3), dtype=torch.float32, device=pixel_ids.device)
     for i in range(n_steps):
         off = sample_offset + i * chunk

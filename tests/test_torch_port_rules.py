@@ -1,7 +1,7 @@
 """Rules the PyTorch port keeps: it imports neither JAX nor the JAX package,
 its entry points never fall back silently to the CPU, the kernel wrappers
-take their plain versions only for CPU tensors, and paths not ported yet
-raise instead of being ignored."""
+take their plain versions only for CPU tensors, paths not ported yet raise
+instead of being ignored, and paths ported run."""
 
 import subprocess
 import sys
@@ -13,7 +13,7 @@ import torch
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch import inverse
-from simplepathtracer_tpu_torch.ops import bucket, grad_regen, intersect, persistent
+from simplepathtracer_tpu_torch.ops import bucket, grad as fused, grad_regen, intersect, persistent
 from simplepathtracer_tpu_torch.render import _persistent_args
 
 REPO = Path(__file__).resolve().parent.parent
@@ -83,18 +83,50 @@ def test_wrapper_on_cpu_takes_plain_version():
 @pytest.mark.parametrize(
     "fields,match",
     [
-        # The per-bounce fused gradient kernels (regen off) are not ported.
-        (dict(use_pallas_grad=True), "use_pallas_grad"),
         (dict(use_pallas_hits=True), "use_pallas_hits"),
-        # Camera gradients stay gated on the regen route too.
-        (dict(use_pallas_grad=True, grad_regen=True, camera_grad=True), "camera_grad"),
-        (dict(camera_grad=True), "camera_grad"),
+        (dict(rng_impl="rbg"), "rng_impl"),
     ],
-    ids=["use_pallas_grad", "use_pallas_hits", "regen_camera_grad", "camera_grad"],
+    ids=["use_pallas_hits", "rng_impl"],
 )
 def test_unported_config_fields_raise(fields, match):
     with pytest.raises(NotImplementedError, match=match):
         tpt.RenderConfig(**fields)
+
+
+@pytest.mark.parametrize(
+    "fields,route",
+    [
+        # The per-bounce fused gradient kernels (regen off).
+        (dict(use_pallas_grad=True), "fused"),
+        # Camera gradients skip the regen kernels for the fused ones.
+        (dict(use_pallas_grad=True, grad_regen=True, camera_grad=True), "fused"),
+        # Without the fused kernels, camera gradients take the eager route.
+        (dict(camera_grad=True), "eager"),
+    ],
+    ids=["use_pallas_grad", "regen_camera_grad", "camera_grad"],
+)
+def test_ported_config_fields_run(fields, route):
+    """The config builds, and a camera-leaf gradient through it is finite,
+    nonzero and taken on the route the flags name: the fused kernels' plain
+    versions (the regen ones untouched) or the eager route (neither)."""
+    scene, cam, cfg, target = _tiny()
+    cfg = cfg.replace(**fields)
+    params, cam0 = tpt.split_camera(cam)
+    params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    before = (fused.grad_fwd_reference.calls, fused.grad_bwd_reference.calls,
+              grad_regen.regen_fwd_reference.calls)
+    loss = inverse.camera_pixel_loss(params, cam0, scene, target, cfg, tpt.make_key(0),
+                                     device="cpu")
+    grads = torch.autograd.grad(loss, list(params.values()))
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
+    assert max(g.abs().max().item() for g in grads) > 0
+    after = (fused.grad_fwd_reference.calls, fused.grad_bwd_reference.calls,
+             grad_regen.regen_fwd_reference.calls)
+    ran = [a - b for a, b in zip(after, before)]
+    if route == "fused":
+        assert ran == [cfg.max_depth, cfg.max_depth, 0]
+    else:
+        assert ran == [0, 0, 0]
 
 
 @pytest.mark.parametrize("path", ["silhouette_softness", "softness", "pixel_loss_decoupled"])
@@ -147,13 +179,15 @@ def _tiny():
     return scene, cam, cfg, torch.zeros((4, 8, 3))
 
 
-@pytest.mark.parametrize("entry", ["pixel_loss", "fit"])
+@pytest.mark.parametrize("entry", ["pixel_loss", "fit", "fit_camera"])
 def test_gradient_entry_points_without_device_raise_without_cuda(entry, monkeypatch):
     scene, cam, cfg, target = _tiny()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "fit":
             tpt.fit(scene, target, cam, cfg, tpt.make_key(0), steps=1, softness=0.0)
+        elif entry == "fit_camera":
+            tpt.fit_camera(scene, target, cam, cfg, tpt.make_key(0), steps=1)
         else:
             tpt.pixel_loss(tpt.split_params(scene)[0], scene, target, cam, cfg, tpt.make_key(0))
 
@@ -229,10 +263,24 @@ def test_unported_fit_options_raise(option, match):
         tpt.fit(scene, target, cam, cfg, tpt.make_key(0), steps=1, device="cpu", **option)
 
 
-@pytest.mark.parametrize("fn", ["make_accum_grad_step", "fit_camera"])
+@pytest.mark.parametrize("fn", ["make_accum_grad_step"])
 def test_unported_inverse_functions_raise(fn):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(inverse, fn)()
+
+
+def test_fit_camera_runs_on_the_cpu():
+    """``fit_camera`` (ported) runs with device='cpu' through the fused
+    kernels' plain versions when the config asks for them, moves the camera
+    and reports finite losses; without CUDA and without a device it
+    raises."""
+    scene, cam, cfg, target = _tiny()
+    calls = fused.grad_bwd_reference.calls
+    fitted, losses = tpt.fit_camera(scene, target, cam, cfg.replace(use_pallas_grad=True),
+                                    tpt.make_key(0), steps=2, device="cpu")
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert not torch.equal(fitted.origin, cam.origin) and torch.equal(fitted.vup, cam.vup)
+    assert fused.grad_bwd_reference.calls == calls + 2 * cfg.max_depth
 
 
 def test_slot_map_depth_limit():

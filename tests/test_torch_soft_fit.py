@@ -31,6 +31,17 @@ from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene, pa
 STEPS, LR, SEED = 3, 2e-2, 7
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test: the suite runs several test processes
+    at once, and torch's thread pools oversubscribed across them ran this
+    file's large CPU tensors (the AD/FD renders) ~50x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fits():
     scene = spt.three_sphere_scene(hollow_glass=False)
