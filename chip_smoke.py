@@ -39,7 +39,18 @@ must fall; its first gradient must descend the loss and, on a Lambertian
 copy of the frame, have each strong coordinate's sign by central
 differences), each fused kernel at both paths' launch shapes on 2,048
 random rays against its plain version, AD/FD of ``vfov_deg`` through the
-kernels, and README's ``fit_camera`` example.  Comparisons of earlier
+kernels, and README's ``fit_camera`` example.  Phase 9 drives the
+explicit-ray forward and the ``use_pallas_hits`` gradient route
+(``csrc/bounce_step.cu``, ``csrc/closest_hit.cu``): the bounce-step kernel
+and both closest-hit kernels against their plain versions on every bounce
+of small traces (bit for bit); ``render_pixels`` of the cover preset over
+the full frame x 8 spp through the bounce-step kernel (each launch timed,
+2,048 random rays against the plain version, per-pixel sums against the
+persistent kernel: the knife-edge bound); ``fit`` through the hits route
+(closest-hit-attributes and bucket kernels only; the loss must fall; its
+first value and gradient against the fused route on the same rays, and
+the kernel at each bounce of a chunk on 2,048 random rays); and
+``intersect_scene_pallas`` on the full frame's camera rays.  Comparisons of earlier
 phases against the plain versions run at cut depths or chunks where the
 plain versions' time would grow past the script's budget.  Every phase
 raises on failure.  The last lines are one JSON object with the kernels'
@@ -59,6 +70,9 @@ import time
 
 import numpy as np
 import torch
+
+# The script's own wall time is counted from here.
+_T_IMPORT = time.perf_counter()
 
 # One sphere test is 20 FP32 operations (csrc/persistent.cu, closest_hit).
 FLOPS_PER_SPHERE_TEST = 20
@@ -165,6 +179,22 @@ VFOV_ADFD_EPS, VFOV_ADFD_BOUNDS = 0.05, (0.75, 1.25)
 # than 7%), and, on the Lambertian control, the share of the largest
 # difference from which a coordinate must have the gradient's sign.
 CAM_FD_EPS, CAM_SIGN_SHARE = 0.01, 0.25
+# Phase 9, the explicit-ray forward and the use_pallas_hits gradient route:
+# the bounce-step and closest-hit kernels.  Both main paths run at bench.py's
+# fwd_bwd shape, the cover frame x FUSED_SPP samples.
+EXPLICIT_KERNELS = (
+    ("bounce_step", _SRC + "bounce_step.cu", _JAX + "pallas_bounce.py:56"),
+    ("closest_hit_attrs", _SRC + "closest_hit.cu", _JAX + "pallas_intersect.py:161"),
+    ("closest_hit", _SRC + "closest_hit.cu", _JAX + "pallas_intersect.py:47"),
+)
+# Bytes per ray each must move: the bounce step's 13 state planes and the
+# pixel and sample ids in, 13 planes out (4 B each); the closest-hit
+# kernels' origin and direction (24 B) and alive flag (a 1-B bool) in, and
+# the index, 9 attributes and material (44 B) or the index and t (8 B) out.
+BOUNCE_STEP_BYTES, ATTRS_BYTES, HIT_BYTES = 112, 69, 33
+# The hits route against the fused route on the same key (phase 9c): loss
+# relative difference, and each smooth leaf's gradient relative L2 error.
+HITS_LOSS_RTOL, HITS_GRAD_L2 = 1e-4, 2e-2
 # Report-name suffix of each regen kernel variant (ops/grad_regen.variant)
 # and report name of each bucket column count.
 VARIANT_SUFFIX = {"hard": "", "soft": "_soft", "soft_plane": "_soft_plane"}
@@ -244,9 +274,14 @@ WRAPPER_SITES = {
     "grad_fwd": ("grad", "grad_forward", "grad_fwd_reference"),
     "grad_bwd": ("grad", "grad_backward", "grad_bwd_reference"),
     "raygen": ("grad", "raygen", "raygen_reference"),
+    "bounce_step": ("bounce_step", "bounce_step", "bounce_step_reference"),
+    "closest_hit_attrs": ("closest_hit", "closest_hit_attrs", "closest_hit_attrs_reference"),
+    "closest_hit": ("closest_hit", "closest_hit", "closest_hit_reference"),
 }
 REGEN_ROUTE = ("regen_fwd", "regen_refwd", "regen_bwd", "bucket")
 FUSED_ROUTE = ("grad_fwd", "grad_bwd", "raygen", "bucket")
+EXPLICIT_ROUTE = ("bounce_step",)
+HITS_ROUTE = ("closest_hit_attrs", "bucket")
 
 
 def grad_wrappers():
@@ -268,7 +303,8 @@ def reset_counts(wrappers):
 
 def launch_counts(wrappers):
     """Launches since the counts were reset, by report name: each regen and
-    fused kernel by variant, the bucket by column count."""
+    fused kernel by variant, the bucket by column count, the others by
+    name."""
     out = {}
     for k in ("regen_fwd", "regen_refwd", "regen_bwd"):
         for v, n in wrappers[k][0].launches.items():
@@ -276,7 +312,8 @@ def launch_counts(wrappers):
     for k in ("grad_fwd", "grad_bwd"):
         for v, n in wrappers[k][0].launches.items():
             out[k + VARIANT_SUFFIX[v]] = n
-    out["raygen"] = wrappers["raygen"][0].launches["raygen"]
+    for k in ("raygen", "bounce_step", "closest_hit_attrs", "closest_hit"):
+        out[k] = wrappers[k][0].launches[k]
     for cols, n in wrappers["bucket"][0].launches.items():
         out[BUCKET_NAMES[cols]] = n
     return {k: n for k, n in out.items() if n}
@@ -362,8 +399,9 @@ def bucket_errors(d_k, d_p, idx_keep, src, s):
     return (d_k.double() - ref).abs(), (d_p.double() - ref).abs(), tol, ref.abs().max().item()
 
 
-def loss_and_grads(tpt, scene, target, cam, cfg, key, dev, pixel_perm=None):
-    params, _ = tpt.split_params(scene)
+def loss_and_grads(tpt, scene, target, cam, cfg, key, dev, pixel_perm=None, leaves=None):
+    """pixel_loss and its gradient in every leaf, or in ``leaves`` only."""
+    params, _ = tpt.split_params(scene) if leaves is None else tpt.split_params(scene, leaves)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
     loss = tpt.pixel_loss(params, scene, target, cam, cfg, key, pixel_perm=pixel_perm, device=dev)
     grads = torch.autograd.grad(loss, list(params.values()))
@@ -1738,6 +1776,417 @@ def phase8_readme_example(tpt, dev):
     return {"losses": [losses[0], losses[-1]], "origin_error": [err0, err1], "seconds": seconds}
 
 
+def explicit_cases(tpt, dev):
+    """(name, scene, camera, width, height, spp, depth, rr) of phase 9's
+    small shapes."""
+    def trio_cam():
+        return tpt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=90, device=dev)
+
+    trio = tpt.three_sphere_scene(hollow_glass=True, device=dev)
+    return [
+        ("three_sphere", trio, trio_cam(), 48, 24, 8, 10, 0),
+        ("three_sphere_plane", tpt.with_ground_plane(trio), trio_cam(), 48, 24, 8, 10, 2),
+        ("cover", tpt.compact_scene(tpt.cover_scene(0, device=dev)),
+         tpt.PRESETS["cover"].camera_fn(dev), 64, 32, 4, 10, 0),
+    ]
+
+
+def camera_rays(cam, keys, width, height):
+    """The eager camera rays render_pixels makes for ``keys``."""
+    from simplepathtracer_tpu_torch.camera import generate_rays
+    from simplepathtracer_tpu_torch.ops.sampling import camera_jitter
+
+    return generate_rays(cam, width, height, keys.pixel, camera_jitter(keys))
+
+
+def phase9_kernels(tpt, dev):
+    """The bounce-step and closest-hit kernels against their plain versions
+    at small shapes: every bounce of a trace, and on each bounce's rays both
+    closest-hit kernels, bit for bit; trace_rays_pallas through the kernel
+    against the same route through the plain version.  Returns ({kernel:
+    max |d|}, {kernel: plain ms per launch}, {kernel: kernel ms per launch},
+    {kernel: shape of those times})."""
+    from simplepathtracer_tpu_torch.ops import bounce_step as bs
+    from simplepathtracer_tpu_torch.ops import closest_hit as ch
+    from simplepathtracer_tpu_torch.ops.grad_regen import scene_inputs
+    from simplepathtracer_tpu_torch.render import bounce_step_call, trace_rays_pallas
+
+    errs = {name: 0.0 for name, _, _ in EXPLICIT_KERNELS}
+    plain_ms, kernel_ms, shapes = {}, {}, {}
+    key = tpt.make_key(1)
+    for name, scene, cam, w, h, spp, depth, rr in explicit_cases(tpt, dev):
+        cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
+                               use_pallas=True)
+        tag = f"phase9 {name} {w}x{h}x{spp}spp depth {depth} rr {rr}"
+        keys = fused_keys(w, h, spp, key, dev)
+        o, d = camera_rays(cam, keys, w, h)
+        call = bounce_step_call(scene, keys, cfg)
+        tables = tuple(t.contiguous() for t in scene_inputs(scene)[:11])
+        pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+        state = bs.initial_state(o, d)
+        ok, live = True, []
+        for b in range(depth):
+            nxt = bs.bounce_step(call, state, pix, samp, b)
+            sync(dev)
+            want = bs.bounce_step_reference(call, state, pix, samp, b)
+            ok = ok and torch.equal(nxt, want)
+            errs["bounce_step"] = max(errs["bounce_step"], (nxt - want).abs().max().item())
+            ro, rd, alive = state[0:3].T.contiguous(), state[3:6].T.contiguous(), state[12] > 0
+            live.append(int(alive.sum().item()))
+            got = ch.closest_hit_attrs(ro, rd, alive, tables, cfg.t_min, cfg.t_max)
+            want = ch.closest_hit_attrs_reference(ro, rd, alive, tables, cfg.t_min, cfg.t_max)
+            a_k, a_p = torch.stack(got[1]), torch.stack(want[1])
+            ok = ok and torch.equal(got[0], want[0]) and torch.equal(a_k, a_p) and torch.equal(
+                got[2], want[2])
+            errs["closest_hit_attrs"] = max(errs["closest_hit_attrs"],
+                                            (a_k - a_p).abs().max().item())
+            got = ch.closest_hit(ro, rd, alive, scene.centers, scene.radii, cfg.t_min, cfg.t_max)
+            want = ch.closest_hit_reference(ro, rd, alive, scene.centers, scene.radii, cfg.t_min,
+                                            cfg.t_max)
+            ok = ok and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            errs["closest_hit"] = max(errs["closest_hit"], (got[1] - want[1]).abs().max().item())
+            state = nxt
+        with torch.no_grad():
+            rad_k = trace_rays_pallas(o, d, keys, scene, cfg)
+            with plain_route(EXPLICIT_ROUTE):
+                rad_p = trace_rays_pallas(o, d, keys, scene, cfg)
+        route_ok = torch.equal(rad_k, rad_p) and torch.equal(rad_k, state[9:12].T)
+        print(f"{tag}: bounce step and both closest-hit kernels on every bounce's rays "
+              f"{'bit-exact' if ok else 'DIFFER'} (live rays per bounce {live}); "
+              f"trace_rays_pallas kernel vs plain route {'bit-exact' if route_ok else 'DIFFERS'}")
+        if not (ok and route_ok and torch.isfinite(rad_k).all() and rad_k.max() > 0):
+            raise RuntimeError(f"{tag}: a kernel disagrees with its plain version")
+
+        if name == "cover":
+            # Per-launch times at this shape, bounce 0 (every ray live).
+            shape = f"{name} {w}x{h}x{spp}spp, bounce 0, per launch"
+            st0 = bs.initial_state(o, d)
+            al = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+            timed = [
+                ("bounce_step", lambda: bs.bounce_step(call, st0, pix, samp, 0),
+                 lambda: bs.bounce_step_reference(call, st0, pix, samp, 0)),
+                ("closest_hit_attrs", lambda: ch.closest_hit_attrs(o, d, al, tables),
+                 lambda: ch.closest_hit_attrs_reference(o, d, al, tables)),
+                ("closest_hit", lambda: ch.closest_hit(o, d, al, scene.centers, scene.radii),
+                 lambda: ch.closest_hit_reference(o, d, al, scene.centers, scene.radii)),
+            ]
+            for kname, kern, plain in timed:
+                plain_ms[kname] = cuda_ms(plain, reps=2)
+                kernel_ms[kname] = cuda_ms(kern, reps=5)
+                shapes[kname] = shape
+                print(f"phase9 {shape}: {kname} plain {plain_ms[kname]:.3f} ms, kernel "
+                      f"{kernel_ms[kname]:.3f} ms")
+    return errs, plain_ms, kernel_ms, shapes
+
+
+def phase9_explicit_forward(tpt, dev, wrappers):
+    """Main path 1: render_pixels of the cover preset over every pixel x
+    FUSED_SPP samples (7.68 M rays) through the bounce-step kernel.  Then
+    the trace launch by launch at that shape: CUDA-event ms, live rays,
+    bounds, and 2,048 random rays traced by the plain version alongside
+    (bit for bit); and the per-pixel sums against the persistent kernel's
+    for the same key and samples (the knife-edge bound, on the persistent
+    kernel's own camera rays), with the share of paths that differ found by
+    running each sample alone through the persistent kernel.  Returns what
+    the report needs."""
+    from simplepathtracer_tpu_torch.ops import bounce_step as bs
+    from simplepathtracer_tpu_torch.ops.persistent import render_block_persistent
+    from simplepathtracer_tpu_torch.render import _persistent_args, bounce_step_call
+
+    scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    key = tpt.make_key(0)
+    spp, p, depth = FUSED_SPP, cfg.num_pixels, cfg.max_depth
+    keys = fused_keys(cfg.width, cfg.height, spp, key, dev)
+    n = keys.pixel.shape[0]
+    small = fused_keys(64, 32, 1, key, dev)
+    tpt.render_pixels(scene, cam, cfg, key, small.pixel, small.sample)
+    sync(dev)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    rad = tpt.render_pixels(scene, cam, cfg, key, keys.pixel, keys.sample)
+    sync(dev)
+    out = {"s": time.perf_counter() - t0}
+    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    out["launches"] = launches
+    print(f"phase9 main path 1: render_pixels cover {cfg.width}x{cfg.height}x{spp}spp "
+          f"({n} rays) depth {depth}, use_pallas: {out['s']:.4f} s, "
+          f"{n / out['s'] / 1e6:.2f} Mpaths/s, launches {launches}, plain calls {calls}")
+    if launches != {"bounce_step": depth} or any(calls.values()):
+        raise RuntimeError("phase9: render_pixels did not run through the bounce-step kernel only")
+    if rad.shape != (n, 3) or not torch.isfinite(rad).all() or rad.max() <= 0:
+        raise RuntimeError("phase9: render_pixels' radiance is not finite or is all zero")
+
+    # Launch by launch, with 2,048 random rays traced by the plain version.
+    o, d = camera_rays(cam, keys, cfg.width, cfg.height)
+    call = bounce_step_call(scene, keys, cfg)
+    pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(11))[:N_CHECK_PIXELS].to(dev)
+    state = bs.initial_state(o, d)
+    del o, d
+    st_p = state[:, rows]
+    s_live = live_spheres(scene)
+    ms_b, bound, live, ok, err = [], [0.0, 0.0], [], True, 0.0
+    for b in range(depth):
+        ms_b.append(cuda_ms(lambda: bs.bounce_step(call, state, pix, samp, b), reps=2))
+        nxt = bs.bounce_step(call, state, pix, samp, b)
+        n_live = int((state[12] > 0).sum().item())
+        live.append(n_live)
+        bound[0] += n_live * s_live * FLOPS_PER_SPHERE_TEST / PEAK_FP32 / depth
+        bound[1] += n * BOUNCE_STEP_BYTES / PEAK_BYTES / depth
+        got = bs.bounce_step_reference(call, st_p, pix[rows], samp[rows], b)
+        ok = ok and torch.equal(nxt[:, rows], got)
+        err = max(err, (nxt[:, rows] - got).abs().max().item())
+        st_p, state = got, nxt
+    ok = ok and torch.equal(state[9:12].T, rad)
+    del state, nxt
+    ms = sum(ms_b) / depth
+    out.update(ms=ms, ms_per_bounce=ms_b, live=live, err=err, bound_ms=max(bound) * 1e3,
+               bound_by="operations" if bound[0] >= bound[1] else "bytes")
+    print(f"phase9 bounce step at {cfg.width}x{cfg.height}x{spp}spp: {ms:.3f} ms per launch "
+          f"(mean over {depth}; per bounce {[round(x, 3) for x in ms_b]}), bound "
+          f"{out['bound_ms']:.3f} ms ({out['bound_by']}), "
+          f"{out['bound_ms'] / ms:.3f} of bound; live rays per bounce {live}; "
+          f"{N_CHECK_PIXELS} random rays against the plain version "
+          f"{'bit-exact' if ok else 'DIFFER'}, the trace equals render_pixels' radiance")
+    if not ok:
+        raise RuntimeError("phase9: the bounce-step kernel disagrees with its plain version at "
+                           "full width")
+
+    # Against the persistent kernel: the same paths (key, pixels, samples)
+    # in its own arithmetic (selects, not lerps).  Its camera rays are the
+    # raygen kernel's (common.cuh:camera_ray, bit-exact in phase 8a), which
+    # round otherwise than render_pixels' eager generate_rays: an ulp on
+    # most rays, enough to flip a grazing path.  So the bound holds the
+    # bounce-step trace of the persistent kernel's own rays; render_pixels'
+    # paths are compared too and reported.
+    from simplepathtracer_tpu_torch.ops import grad as fg
+    from simplepathtracer_tpu_torch.render import trace_rays_pallas
+
+    tables, sky6, cam19 = _persistent_args(scene, cam, cfg)
+    pix_all = torch.arange(p, device=dev)
+
+    def persistent(sample_offset, n_samples):
+        return render_block_persistent(pix_all, tables, sky6, cam19, key, sample_offset,
+                                       n_samples, depth, cfg.width, cfg.height, t_min=cfg.t_min,
+                                       t_max=cfg.t_max, rr_start_depth=cfg.rr_start_depth)
+
+    rays = fg.raygen(cam, keys, cfg)
+    with torch.no_grad():
+        rad_r = trace_rays_pallas(rays[0:3].T, rays[3:6].T, keys, scene, cfg)
+    del rays
+    sums_q = persistent(0, spp)
+    per_q = [persistent(s, 1) for s in range(spp)]
+    stats = {}
+    for name, r in (("raygen_rays", rad_r), ("render_pixels", rad)):
+        per = r.reshape(spp, p, 3)
+        dd = ((per.sum(dim=0) - sums_q) / spp).abs()
+        flipped = sum(int(((per[s] - per_q[s]).abs().amax(dim=1) > FLIP_TOL).sum().item())
+                      for s in range(spp))
+        stats[name] = dict(mean=dd.mean().item(), share=(dd > 1e-4).float().mean().item(),
+                           max=dd.max().item(), flipped_paths=flipped / n)
+        print(f"phase9 explicit-ray forward ({name}) vs persistent kernel, per-pixel means over "
+              f"{spp} spp: mean|d| {stats[name]['mean']:.3e}, share |d| > 1e-4 "
+              f"{stats[name]['share']:.5f} (bound {KNIFE_EDGE_SHARE}), max|d| "
+              f"{stats[name]['max']:.3e}; paths whose radiance differs by > {FLIP_TOL}: "
+              f"{flipped} of {n} ({flipped / n:.2e})")
+    out["vs_persistent"] = stats
+    k = stats["raygen_rays"]
+    if not (k["mean"] < 1e-4 and k["share"] < KNIFE_EDGE_SHARE):
+        raise RuntimeError("phase9: the explicit-ray forward disagrees with the persistent kernel")
+    return out
+
+
+def phase9_hits_fit(tpt, dev, wrappers):
+    """Main path 2: fit on the cover frame through the use_pallas_hits route
+    (the preset's config with use_pallas off, spp FUSED_SPP, albedo and sky
+    fitted from the phase-6 start): one warm step, FIT_STEPS timed, through
+    the closest-hit-attributes and bucket kernels only.  Then the first
+    step's value and gradient against the fused route on the same key, and
+    the closest-hit-attributes kernel at each bounce of one chunk: CUDA-event
+    ms, live rays, bounds, 2,048 random rays against the plain version.
+    Returns what the report needs."""
+    from simplepathtracer_tpu_torch.inverse import fit_config
+    from simplepathtracer_tpu_torch.ops import bucket
+    from simplepathtracer_tpu_torch.ops import closest_hit as ch
+    from simplepathtracer_tpu_torch.ops.grad_regen import scene_inputs
+
+    scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    key = tpt.make_key(0)
+    depth = cfg.max_depth
+    hcfg = cfg.replace(use_pallas=False, use_pallas_hits=True, spp=FUSED_SPP)
+    gcfg = fit_config(hcfg, dev)
+    chunk = gcfg.spp_chunk or FUSED_SPP
+    n_chunks = FUSED_SPP // chunk
+    if not (gcfg.use_pallas_hits and not gcfg.use_pallas_grad and FUSED_SPP % chunk == 0):
+        raise RuntimeError(f"phase9: fit does not take the hits route ({gcfg})")
+    with torch.no_grad():
+        target = tpt.render_linear(scene, cam, cfg.replace(spp=FUSED_SPP), tpt.fold_in(key, 1000))
+    start = scene.replace(albedo=scene.albedo * ALBEDO_START, sky_lo=scene.sky_lo * SKY_START,
+                          sky_hi=scene.sky_hi * SKY_START)
+    leaves = ("albedo", "sky_lo", "sky_hi")
+    fit_kw = dict(lr=FIT_LR, softness=0.0, leaves=leaves, device=dev)
+    tpt.fit(start, target, cam, hcfg, key, steps=1, **fit_kw)
+    sync(dev)
+    lap("phase9 (c) warm fit step")
+    reset_counts(wrappers)
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    fitted, losses = tpt.fit(start, target, cam, hcfg, key, steps=FIT_STEPS, **fit_kw)
+    sync(dev)
+    out = {"step_s": (time.perf_counter() - t0) / FIT_STEPS, "peak_gb": peak_gb(dev),
+           "losses": losses, "chunk": chunk, "n_chunks": n_chunks}
+    out["launches"] = launch_counts(wrappers)
+    calls = plain_calls(wrappers)
+    per_step = {k: v / FIT_STEPS for k, v in out["launches"].items()}
+    out["per_step"] = per_step
+    # With more than one chunk each chunk's forward runs twice
+    # (render_pixel_block rematerializes it in the backward).  Its backward
+    # buckets once per bounce but the last, whose attributes reach no output
+    # (its hit point and direction are not read again).
+    fwd_runs = 2 if n_chunks > 1 else 1
+    want = {"closest_hit_attrs": fwd_runs * n_chunks * depth,
+            "bucket": n_chunks * (depth - 1)}
+    paths = cfg.num_pixels * FUSED_SPP
+    print(f"phase9 main path 2: fit (use_pallas_hits) cover {cfg.width}x{cfg.height}x"
+          f"{FUSED_SPP}spp depth {depth}, {n_chunks} chunks of {chunk} spp, {FIT_STEPS} steps: "
+          f"losses {losses}, {out['step_s']:.4f} s/step, {paths / out['step_s'] / 1e6:.2f} "
+          f"Mpaths/s fwd+bwd, peak {out['peak_gb']:.2f} GB, launches per step {per_step}, "
+          f"plain calls {calls}")
+    if per_step != want or any(calls.values()):
+        raise RuntimeError(f"phase9: the hits fit did not run through its kernels only "
+                           f"(launches per step {per_step}, wanted {want})")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise RuntimeError("phase9: the hits fit's loss did not fall")
+    lap("phase9 (c) fit")
+
+    # The first step's value and gradient against the fused route (phase
+    # 8b's, one chunk) on the same key and the same camera rays: the same
+    # paths in other arithmetic (the fused bounce's hit rebuild).  camera_grad
+    # gives the fused route render_pixels' eager rays in place of raygen's,
+    # which round otherwise by an ulp on most rays and flip ~0.7% of paths
+    # (phase 9b); the camera needs no gradient here.
+    key0 = tpt.fold_in(key, 0)
+    l_h, g_h = loss_and_grads(tpt, start, target, cam, hcfg, key0, dev, leaves=leaves)
+    fcfg = cfg.replace(use_pallas=False, use_pallas_grad=True, grad_regen=False, spp=FUSED_SPP,
+                       spp_chunk=FUSED_SPP, camera_grad=True)
+    l_f, g_f = loss_and_grads(tpt, start, target, cam, fcfg, key0, dev, leaves=leaves)
+    loss_rel = abs(l_h.item() - l_f.item()) / abs(l_f.item())
+    grad_l2 = {k: ((g_h[k] - g_f[k]).norm() / g_f[k].norm()).item() for k in leaves}
+    out.update(loss_rel=loss_rel, grad_l2=grad_l2)
+    print(f"phase9 hits route vs fused route, first step's key: loss {l_h.item():.9g} vs "
+          f"{l_f.item():.9g} (rel {loss_rel:.2e}, bound {HITS_LOSS_RTOL}), gradient relative L2 "
+          f"{grad_l2} (bound {HITS_GRAD_L2}); the fit's first loss {losses[0]:.9g}")
+    if not (loss_rel <= HITS_LOSS_RTOL and max(grad_l2.values()) <= HITS_GRAD_L2
+            and losses[0] == l_h.item()):
+        raise RuntimeError("phase9: the hits route disagrees with the fused route")
+    lap("phase9 (c) against the fused route")
+
+    # The closest-hit-attributes kernel at each bounce of chunk 0: record
+    # the rays the route hands it, then time and check each launch.
+    keys = fused_keys(cfg.width, cfg.height, chunk, key0, dev)
+    n = keys.pixel.shape[0]
+    tables = tuple(t.contiguous() for t in scene_inputs(start)[:11])
+    kernel = ch.closest_hit_attrs
+    recorded = []
+
+    def record(o, d, alive, tabs, t_min, t_max):
+        recorded.append((o, d, alive))
+        return kernel(o, d, alive, tabs, t_min, t_max)
+
+    # The wrapper counts its launches on the module's name: keep the count.
+    record.launches = kernel.launches
+    ch.closest_hit_attrs = record
+    try:
+        with torch.no_grad():
+            tpt.render_pixels(start, cam, gcfg, key0, keys.pixel, keys.sample)
+    finally:
+        ch.closest_hit_attrs = kernel
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(12))[:N_CHECK_PIXELS].to(dev)
+    s_live = live_spheres(scene)
+    # The bucket the backward runs on each bounce's winners (random
+    # cotangents; the last bounce has none).
+    ct = (torch.randn((9, n), generator=torch.Generator().manual_seed(14)) * 1e-6).to(dev)
+    ms_b, bucket_ms, bound, live, ok, err = [], [], [0.0, 0.0], [], True, 0.0
+    for b, (o, d, alive) in enumerate(recorded):
+        ms_b.append(cuda_ms(lambda: kernel(o, d, alive, tables, cfg.t_min, cfg.t_max), reps=2))
+        got = kernel(o, d, alive, tables, cfg.t_min, cfg.t_max)
+        if b + 1 < depth:
+            bucket_ms.append(cuda_ms(lambda: bucket.bucket_cols(ct, got[0], scene.num_spheres),
+                                     reps=2))
+        want = ch.closest_hit_attrs_reference(o[rows], d[rows], alive[rows], tables, cfg.t_min,
+                                              cfg.t_max)
+        a_k, a_p = torch.stack(got[1])[:, rows], torch.stack(want[1])
+        ok = ok and torch.equal(got[0][rows], want[0]) and torch.equal(a_k, a_p) and torch.equal(
+            got[2][rows], want[2])
+        err = max(err, (a_k - a_p).abs().max().item())
+        n_live = int(alive.sum().item())
+        live.append(n_live)
+        bound[0] += n_live * s_live * FLOPS_PER_SPHERE_TEST / PEAK_FP32 / depth
+        bound[1] += n * ATTRS_BYTES / PEAK_BYTES / depth
+    del recorded
+    ms = sum(ms_b) / depth
+    kernels_s = (per_step["closest_hit_attrs"] * ms + per_step["bucket"] * sum(bucket_ms)
+                 / len(bucket_ms)) / 1e3
+    out.update(ms=ms, ms_per_bounce=ms_b, bucket_ms=bucket_ms, live=live, err=err, n_rays=n,
+               bound_ms=max(bound) * 1e3, kernel_share=kernels_s / out["step_s"],
+               bound_by="operations" if bound[0] >= bound[1] else "bytes")
+    print(f"phase9 closest_hit_attrs at one chunk ({cfg.width}x{cfg.height}x{chunk}spp, {n} "
+          f"rays): {ms:.3f} ms per launch (mean over {len(live)}; per bounce "
+          f"{[round(x, 3) for x in ms_b]}), bound {out['bound_ms']:.3f} ms "
+          f"({out['bound_by']}), {out['bound_ms'] / ms:.3f} of bound; live rays per bounce "
+          f"{live}; {N_CHECK_PIXELS} random rays against the plain version "
+          f"{'bit-exact' if ok else 'DIFFER'}; bucket per bounce "
+          f"{[round(x, 3) for x in bucket_ms]} ms; the step's launches take "
+          f"{kernels_s:.4f} s of {out['step_s']:.4f} s ({out['kernel_share']:.3f})")
+    if not (ok and len(live) == depth):
+        raise RuntimeError("phase9: the closest-hit-attributes kernel disagrees with its plain "
+                           "version at full width")
+    return out
+
+
+def phase9_closest_hit(tpt, dev, wrappers):
+    """intersect_scene_pallas (kernel 11) on the full frame's camera rays
+    (one sample per pixel): launches, CUDA-event ms, bound, and 2,048 random
+    rays against the plain version.  Returns what the report needs."""
+    from simplepathtracer_tpu_torch.ops import closest_hit as ch
+    from simplepathtracer_tpu_torch.ops import intersect
+
+    scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    keys = fused_keys(cfg.width, cfg.height, 1, tpt.make_key(0), dev)
+    o, d = camera_rays(cam, keys, cfg.width, cfg.height)
+    n = o.shape[0]
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    reset_counts(wrappers)
+    hit = intersect.intersect_scene_pallas(o, d, alive, scene, cfg.t_min, cfg.t_max)
+    sync(dev)
+    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    ms = cuda_ms(lambda: ch.closest_hit(o, d, alive, scene.centers, scene.radii, cfg.t_min,
+                                        cfg.t_max), reps=5)
+    idx, t = ch.closest_hit(o, d, alive, scene.centers, scene.radii, cfg.t_min, cfg.t_max)
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(13))[:N_CHECK_PIXELS].to(dev)
+    i_p, t_p = ch.closest_hit_reference(o[rows], d[rows], alive[rows], scene.centers,
+                                        scene.radii, cfg.t_min, cfg.t_max)
+    ok = (torch.equal(idx[rows], i_p) and torch.equal(t[rows], t_p)
+          and torch.equal(hit.hit, idx >= 0) and bool(torch.isfinite(hit.t).all()))
+    s_live = live_spheres(scene)
+    ops_s = n * s_live * FLOPS_PER_SPHERE_TEST / PEAK_FP32
+    bytes_s = n * HIT_BYTES / PEAK_BYTES
+    out = {"ms": ms, "launches": launches, "err": (t[rows] - t_p).abs().max().item(),
+           "bound_ms": max(ops_s, bytes_s) * 1e3,
+           "bound_by": "operations" if ops_s >= bytes_s else "bytes", "n_rays": n,
+           "hit_share": (idx >= 0).float().mean().item()}
+    print(f"phase9 intersect_scene_pallas cover {cfg.width}x{cfg.height} camera rays ({n}), "
+          f"{s_live} live spheres: launches {launches}, plain calls {calls}; closest_hit "
+          f"{ms:.3f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}), "
+          f"{out['bound_ms'] / ms:.3f} of bound, hits {out['hit_share']:.4f}; "
+          f"{N_CHECK_PIXELS} random rays against the plain version "
+          f"{'bit-exact' if ok else 'DIFFER'}")
+    if launches != {"closest_hit": 1} or any(calls.values()) or not ok:
+        raise RuntimeError("phase9: intersect_scene_pallas did not run through the closest-hit "
+                           "kernel, or the kernel disagrees with its plain version")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
@@ -2009,6 +2458,41 @@ def main(argv=None):
         "readme_fit_camera": readme8,
     }))
 
+    # ---- phase 9: the explicit-ray forward and the use_pallas_hits route --
+    exp_errs, exp_plain_ms, exp_small_ms, exp_shapes = phase9_kernels(tpt, dev)
+    phase_done("phase9a")
+    main9b = phase9_explicit_forward(tpt, dev, wrappers)
+    phase_done("phase9b")
+    main9c = phase9_hits_fit(tpt, dev, wrappers)
+    phase_done("phase9c")
+    main9d = phase9_closest_hit(tpt, dev, wrappers)
+    phase_done("phase9d")
+    for name, res in (("bounce_step", main9b), ("closest_hit_attrs", main9c),
+                      ("closest_hit", main9d)):
+        exp_errs[name] = max(exp_errs[name], res["err"])
+    paths9 = cfg.num_pixels * FUSED_SPP
+    print("phase9: " + json.dumps({
+        "explicit_forward": {
+            "shape": f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth {cfg.max_depth}",
+            "s": main9b["s"], "mpaths_per_s": paths9 / main9b["s"] / 1e6,
+            "ms_per_launch": main9b["ms"], "ms_per_bounce": main9b["ms_per_bounce"],
+            "live_rays_per_bounce": main9b["live"],
+            "vs_persistent": main9b["vs_persistent"],
+        },
+        "hits_fit": {
+            "shape": f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth {cfg.max_depth}",
+            "spp_chunk": main9c["chunk"], "chunks": main9c["n_chunks"], "steps": FIT_STEPS,
+            "s_per_step": main9c["step_s"], "mpaths_per_s": paths9 / main9c["step_s"] / 1e6,
+            "peak_gb": main9c["peak_gb"], "losses": main9c["losses"],
+            "launches_per_step": main9c["per_step"], "loss_rel_vs_fused": main9c["loss_rel"],
+            "grad_l2_vs_fused": main9c["grad_l2"], "live_rays_per_bounce": main9c["live"],
+            "attrs_ms_per_bounce": main9c["ms_per_bounce"],
+            "bucket_ms_per_bounce": main9c["bucket_ms"],
+            "kernel_share_of_step": main9c["kernel_share"],
+        },
+        "closest_hit": {"rays": main9d["n_rays"], "hit_share": main9d["hit_share"]},
+    }))
+
     report = {"kernels": [{
         "name": "persistent_render",
         "route": "cuda",
@@ -2104,8 +2588,35 @@ def main(argv=None):
             "kernel_ms_at_plain_shape": fused_small_ms[name],
             "launches_over_steps": FIT_STEPS,
         })
+    explicit = {"bounce_step": (main9b, f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth "
+                                        f"{cfg.max_depth}, per launch (render_pixels)"),
+                "closest_hit_attrs": (main9c, f"{cfg.width}x{cfg.height}x{main9c['chunk']}spp "
+                                              f"chunk of the hits fit, per launch"),
+                "closest_hit": (main9d, f"{cfg.width}x{cfg.height} camera rays, one launch")}
+    for name, source, replaces in EXPLICIT_KERNELS:
+        res, ms_shape = explicit[name]
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": (main9c["launches"] if name == "closest_hit_attrs"
+                         else res["launches"]).get(name, 0),
+            "max_abs_err": exp_errs[name],
+            "ms": res["ms"],
+            "plain_ms": exp_plain_ms[name],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+            "ms_shape": ms_shape,
+            "plain_ms_shape": exp_shapes[name],
+            "kernel_ms_at_plain_shape": exp_small_ms[name],
+        }
+        if name == "closest_hit_attrs":
+            row["launches_over_fit_steps"] = FIT_STEPS
+        report["kernels"].append(row)
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (from the card's first use; "
-          f"per phase {phase_s})")
+          f"per phase {phase_s}); wall {time.perf_counter() - _T_IMPORT:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

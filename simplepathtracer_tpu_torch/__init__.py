@@ -1,13 +1,17 @@
 """simplepathtracer_tpu_torch — the PyTorch / CUDA port of simplepathtracer_tpu.
 
 The forward render of every preset runs on an NVIDIA Hopper card through a
-hand-written CUDA kernel (``csrc/persistent.cu``), and inverse rendering
-(``fit``, ``pixel_loss``; soft silhouettes included) through the
-hand-written regeneration gradient kernels (``csrc/grad_regen.cu``,
-``csrc/bucket.cu``), and camera fits (``fit_camera``) through the
+hand-written CUDA kernel (``csrc/persistent.cu``), explicit rays
+(``trace_rays`` / ``render_pixels`` under ``use_pallas``) through the
+bounce-step kernel (``csrc/bounce_step.cu``), inverse rendering (``fit``,
+``pixel_loss``; soft silhouettes included) through the hand-written
+regeneration gradient kernels (``csrc/grad_regen.cu``, ``csrc/bucket.cu``)
+or, under ``use_pallas_hits``, the closest-hit kernels
+(``csrc/closest_hit.cu``), and camera fits (``fit_camera``) through the
 per-bounce fused gradient kernels (``csrc/grad.cu``), all built with nvcc
-at first use; on CPU tensors the same functions run as plain PyTorch.  Entry points
-that create tensors run on ``cuda`` unless the caller passes ``device``.
+at first use; on CPU tensors the same functions run as plain PyTorch.
+Entry points that create tensors run on ``cuda`` unless the caller passes
+``device``.
 """
 
 from .types import Camera, Material, RenderConfig, RenderState, Scene, make_camera

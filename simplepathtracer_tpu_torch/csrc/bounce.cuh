@@ -783,19 +783,8 @@ __device__ __forceinline__ void winner_attrs(const SphereTables& t,
     w[7] = 0.0f;
     w[8] = 1.0f;
     mat = kLambertian;
-  } else if (bi >= 0) {
-    const float4 g = t.geo[bi], a = t.att[bi];
-    const float2 a2 = t.att2[bi];
-    w[0] = g.x; w[1] = g.y; w[2] = g.z; w[3] = g.w;
-    w[4] = a.x; w[5] = a.y; w[6] = a.z; w[7] = a.w;
-    w[8] = a2.x;
-    mat = static_cast<int>(a2.y);
   } else {
-    w[0] = w[1] = w[2] = 0.0f;
-    w[3] = 1.0f;
-    w[4] = w[5] = w[6] = w[7] = 0.0f;
-    w[8] = 1.0f;
-    mat = kLambertian;
+    sphere_attrs(t, bi, w, mat);
   }
 }
 

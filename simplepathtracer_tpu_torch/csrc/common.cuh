@@ -1,10 +1,11 @@
-// Device functions shared by the port's kernels (persistent.cu,
-// grad_regen.cu): the counterparts of the tile functions of the JAX
-// package's ops/pallas_common.py that the forward and gradient kernels run
-// (threefry2x32, to_unit_float, the bounce uniforms of
+// Device functions shared by the port's kernels (persistent.cu, grad_regen.cu,
+// grad.cu, bounce_step.cu, closest_hit.cu): the counterparts of the tile
+// functions of the JAX package's ops/pallas_common.py that the forward and
+// gradient kernels run (threefry2x32, to_unit_float, the bounce uniforms of
 // pallas_grad_regen._uniforms7_tile, camera_ray_tiles, closest_hit_scan and
 // its shared-memory sphere tables, plane_override, scatter_tiles, and the
-// soft scan closest_hit_scan_soft with silhouette_logit_tile).
+// soft scan closest_hit_scan_soft with silhouette_logit_tile), and the
+// host's grid-stride launch helpers.
 //
 // Numerics: the library is built without --use_fast_math and with
 // --fmad=false, so every add, multiply, divide and sqrt rounds as the
@@ -135,6 +136,27 @@ __device__ __forceinline__ SphereTables load_sphere_tables(
     t.att2[i] = make_float2(row[8], row[9]);
   }
   return t;
+}
+
+// The attributes of sphere slot bi (cx cy cz r, albedo rgb, fuzz, ior) into
+// w[9] and its material; on a miss (bi < 0) the scan's defaults: r = 1,
+// ior = 1, the rest 0.
+__device__ __forceinline__ void sphere_attrs(const SphereTables& t, int bi,
+                                             float* w, int& mat) {
+  if (bi >= 0) {
+    const float4 g = t.geo[bi], a = t.att[bi];
+    const float2 a2 = t.att2[bi];
+    w[0] = g.x; w[1] = g.y; w[2] = g.z; w[3] = g.w;
+    w[4] = a.x; w[5] = a.y; w[6] = a.z; w[7] = a.w;
+    w[8] = a2.x;
+    mat = static_cast<int>(a2.y);
+  } else {
+    w[0] = w[1] = w[2] = 0.0f;
+    w[3] = 1.0f;
+    w[4] = w[5] = w[6] = w[7] = 0.0f;
+    w[8] = 1.0f;
+    mat = kLambertian;
+  }
 }
 
 // Closest sphere hit: nearest root in (t_min, bt), first index on ties;
@@ -320,6 +342,36 @@ __device__ __forceinline__ bool scatter(
     sdx = gx * ginv; sdy = gy * ginv; sdz = gz * ginv;
   }
   return mat != kMetal || (sdx * nfx + sdy * nfy + sdz * nfz > 0.0f);
+}
+
+// Blocks for a grid-stride launch of ``threads``-thread blocks over n items:
+// at most as many as the card keeps resident at once (so each block loads
+// its tables once), at least one.
+template <typename Kernel>
+cudaError_t grid_for(Kernel kernel, int threads, long long n, size_t smem,
+                     int& blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  const long long want = (n + threads - 1) / threads;
+  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  blocks = static_cast<int>(want < cap ? want : cap);
+  if (blocks < 1) blocks = 1;
+  return cudaSuccess;
+}
+
+// Allow ``smem`` bytes of dynamic shared memory where it is above 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace spt

@@ -320,33 +320,6 @@ __global__ void __launch_bounds__(kThreads) raygen_kernel(
   }
 }
 
-// Blocks for a grid-stride launch over n rays: at most as many as the card
-// keeps resident at once (so each loads its tables once), at least one.
-template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, int n, size_t smem, int& blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return err;
-  const long long want = (static_cast<long long>(n) + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  blocks = static_cast<int>(want < cap ? want : cap);
-  if (blocks < 1) blocks = 1;
-  return cudaSuccess;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <int V>
 cudaError_t launch_fwd(int n, const void* tab, int n_spheres,
                        const void* consts, const void* soft_tab, uint32_t k0,
@@ -359,7 +332,8 @@ cudaError_t launch_fwd(int n, const void* tab, int n_spheres,
                       (kSmemPerSphere + (V != kHard ? sizeof(float4) : 0));
   int blocks = 0;
   cudaError_t err = allow_smem(grad_fwd_kernel<V>, smem);
-  if (err == cudaSuccess) err = grid_for(grad_fwd_kernel<V>, n, smem, blocks);
+  if (err == cudaSuccess)
+    err = grid_for(grad_fwd_kernel<V>, kThreads, n, smem, blocks);
   if (err != cudaSuccess) return err;
   grad_fwd_kernel<V><<<blocks, kThreads, smem, stream>>>(
       n, static_cast<const float*>(tab), n_spheres,
@@ -384,7 +358,8 @@ cudaError_t launch_bwd(int n, const void* tab, int n_spheres,
   const size_t smem = static_cast<size_t>(n_spheres) * kSmemPerSphere;
   int blocks = 0;
   cudaError_t err = allow_smem(grad_bwd_kernel<V>, smem);
-  if (err == cudaSuccess) err = grid_for(grad_bwd_kernel<V>, n, smem, blocks);
+  if (err == cudaSuccess)
+    err = grid_for(grad_bwd_kernel<V>, kThreads, n, smem, blocks);
   if (err != cudaSuccess) return err;
   grad_bwd_kernel<V><<<blocks, kThreads, smem, stream>>>(
       n, static_cast<const float*>(tab), n_spheres,
@@ -458,7 +433,8 @@ extern "C" int spt_raygen(int n, const void* cam19, unsigned int k0,
                           int width, float inv_w, float inv_h, void* rays,
                           void* stream) {
   int blocks = 0;
-  const cudaError_t err = spt::grid_for(spt::raygen_kernel, n, 0, blocks);
+  const cudaError_t err =
+      spt::grid_for(spt::raygen_kernel, spt::kThreads, n, 0, blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   spt::raygen_kernel<<<blocks, spt::kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(

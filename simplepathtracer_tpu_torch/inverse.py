@@ -3,10 +3,13 @@ gradients (counterpart of the JAX package's ``inverse.py``).
 
 ``fit`` runs Adam (``torch.optim.Adam`` with optax.adam's defaults) on the
 differentiable leaves of a scene.  ``pixel_loss`` renders through
-``grad_safe_config``'s route for the device: the regeneration gradient
-kernels on CUDA, plain autograd on the CPU.  Discrete structure (the hit
-selection, the material switch, Schlick coins) is locally constant, as in
-the JAX package.  With ``softness`` > 0 and a geometry leaf fitted (the
+``grad_safe_config``'s route for the device: for a ``use_pallas`` preset
+the regeneration gradient kernels on CUDA, plain autograd on the CPU; a
+``use_pallas_hits`` config takes the closest-hit-attributes kernel under
+the eager bounce.  On CUDA ``fit`` gives a config that names no kernel
+route the fused gradient kernels (``fit_config``).  Discrete structure
+(the hit selection, the material switch, Schlick coins) is locally
+constant, as in the JAX package.  With ``softness`` > 0 and a geometry leaf fitted (the
 default), ``fit`` turns on two-sided soft silhouettes and differentiates
 ``pixel_loss_decoupled``.  ``fit_camera`` fits camera leaves (origin,
 lookat, vfov) the same way through ``camera_pixel_loss``: on CUDA the fused
@@ -118,6 +121,18 @@ def pixel_loss_decoupled(params, static_scene, target, camera, config, key,
     return (value - gterm).detach() + gterm
 
 
+def fit_config(config: RenderConfig, device=None) -> RenderConfig:
+    """The config ``fit`` differentiates on ``device`` (CUDA unless named):
+    ``grad_safe_config``'s, and on CUDA a config that names neither kernel
+    route (``use_pallas_grad``, ``use_pallas_hits``) gets the fused
+    gradient kernels, as the JAX ``fit`` does on the TPU."""
+    dev = resolve_device(device)
+    config = grad_safe_config(config, dev)
+    if dev.type == "cuda" and not (config.use_pallas_grad or config.use_pallas_hits):
+        config = config.replace(use_pallas_grad=True)
+    return config
+
+
 def make_accum_grad_step(*args, **kwargs):
     """The gradient-accumulated estimator: not ported yet."""
     raise NotImplementedError(
@@ -186,7 +201,7 @@ def fit(
     dev = resolve_device(device)
     if softness and any(k in leaves for k in _GEOMETRY_LEAVES):
         config = config.replace(silhouette_softness=float(softness))
-    config = grad_safe_config(config, dev)
+    config = fit_config(config, dev)
     loss_fn = pixel_loss_decoupled if config.silhouette_softness > 0.0 else pixel_loss
     params, opt = init(scene_init, lr, leaves)
     static_scene = scene_init

@@ -26,6 +26,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17")
@@ -65,7 +67,35 @@ _SIGNATURES = {
         [I, P, I, P, I, U, U, U, F, F, I, P, P, P, P, P, P, P, P, P, P, P],
     # n, cam19, k0, k1, pix, samp, width, inv_w, inv_h, rays, stream
     "spt_raygen": [I, P, U, U, P, P, I, F, F, P, P],
+    # n, tab, n_spheres, consts, use_plane, k0, k1, bounce, t_min, t_max,
+    # rr_start_depth, state, pix, samp, next, stream
+    "spt_bounce_step": [I, P, I, P, I, U, U, U, F, F, I, P, P, P, P, P],
+    # n, spheres, n_spheres, origins, dirs, alive, t_min, t_max, idx, t,
+    # stream
+    "spt_closest_hit": [I, P, I, P, P, P, F, F, P, P, P],
+    # n, tab, n_spheres, origins, dirs, alive, t_min, t_max, idx, attr, mat,
+    # stream
+    "spt_closest_hit_attrs": [I, P, I, P, P, P, F, F, P, P, P, P],
 }
+
+
+# Rays (or lanes) per launch of the per-ray kernels: they index one with a
+# 32-bit int.
+MAX_RAYS = 1 << 30
+
+
+def on_cpu(t) -> bool:
+    """Whether a wrapper takes its plain version for ``t``: True on the CPU,
+    False on CUDA (the kernel); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+def stream(dev) -> int:
+    """The handle of PyTorch's current CUDA stream on ``dev``: kernels
+    launch there."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 @dataclasses.dataclass(frozen=True)

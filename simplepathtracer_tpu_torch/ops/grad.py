@@ -43,7 +43,7 @@ import torch
 
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
-from .cuda_build import load_library
+from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
 from .grad_regen import (
     _SMEM_SOFT_PER_SPHERE,
     _blocker,
@@ -62,8 +62,6 @@ STATE_PLANES = 10
 # Carried cotangent planes: origin, direction, throughput.
 CARRY_PLANES = 9
 _VARIANTS = {"hard": 0, "soft": 1}
-# Rays per launch: the kernels index a ray with a 32-bit int.
-_MAX_RAYS = 1 << 30
 
 
 class FusedCall(NamedTuple):
@@ -111,12 +109,6 @@ def variant(call: FusedCall) -> str:
 # Wrappers
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type == "cpu"
-
-
 def _check_cuda(call: FusedCall, n: int, *tensors):
     dev = tensors[0].device
     extra = () if call.soft_tab is None else (call.soft_tab,)
@@ -129,7 +121,7 @@ def _check_cuda(call: FusedCall, n: int, *tensors):
             raise ValueError("inputs must be contiguous")
         if t.dtype not in (torch.float32, torch.int32):
             raise ValueError(f"inputs must be float32 or int32, got {t.dtype}")
-    if not 0 < n < _MAX_RAYS:
+    if not 0 < n < MAX_RAYS:
         raise ValueError(f"ray count {n} out of range")
     s_pad = call.tab.shape[0]
     per_sphere = _SMEM_PER_SPHERE + (_SMEM_SOFT_PER_SPHERE if call.softness > 0.0 else 0)
@@ -145,10 +137,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def grad_forward(call: FusedCall, state, rad, prev, pix, samp, bounce: int):
     """One forward bounce over N rays: ``state`` [10, N] f32, ``rad`` [3, N]
     f32 (this bounce's radiance is added to it in place), ``prev`` [N]
@@ -156,7 +144,7 @@ def grad_forward(call: FusedCall, state, rad, prev, pix, samp, bounce: int):
     ``pix`` / ``samp`` [N] int32 pixel and sample ids.  Returns (next state
     [10, N], next previous winner (soft; else None), winner index [N] int32,
     blocker index [N] int32 (soft; else None))."""
-    if _on_cpu(state):
+    if on_cpu(state):
         return grad_fwd_reference(call, state, rad, prev, pix, samp, bounce)
     soft = call.softness > 0.0
     n = state.shape[1]
@@ -180,7 +168,7 @@ def grad_forward(call: FusedCall, state, rad, prev, pix, samp, bounce: int):
             int(bounce), call.t_min, call.t_max, call.rr_start_depth,
             state.data_ptr(), pix.data_ptr(), samp.data_ptr(), _ptr(prev),
             nxt.data_ptr(), rad.data_ptr(), _ptr(prev_out), idx.data_ptr(),
-            _ptr(bidx), _stream(dev),
+            _ptr(bidx), stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"fused forward kernel launch failed: CUDA error {err}")
@@ -202,7 +190,7 @@ def grad_backward(call: FusedCall, state, idx, bidx, pix, samp, bounce: int,
     [9, N] -- soft [13, N], the blocker's cx cy cz r appended; zero where
     no winner (blocker) -- or None unless ``want_attr``, the sky's f32[6]
     summed over the rays)."""
-    if _on_cpu(state):
+    if on_cpu(state):
         return grad_bwd_reference(call, state, idx, bidx, pix, samp, bounce,
                                   ct_carry, ct_rad, want_attr)
     soft = call.softness > 0.0
@@ -226,7 +214,7 @@ def grad_backward(call: FusedCall, state, idx, bidx, pix, samp, bounce: int,
             call.t_max, call.rr_start_depth, state.data_ptr(), idx.data_ptr(),
             _ptr(bidx), pix.data_ptr(), samp.data_ptr(), ct_carry.data_ptr(),
             ct_rad.data_ptr(), ct_out.data_ptr(), _ptr(attr), sky.data_ptr(),
-            _stream(dev),
+            stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"fused backward kernel launch failed: CUDA error {err}")
@@ -243,7 +231,7 @@ def raygen(camera, keys, config):
     package's ``raygen_tiles``.  Detached: the camera is not differentiated
     on this route."""
     cam19 = camera_constants(camera, config.width, config.height).detach().contiguous()
-    if _on_cpu(cam19):
+    if on_cpu(cam19):
         return raygen_reference(camera, keys, config)
     return _raygen_launch(cam19, keys, config.width, config.height)
 
@@ -256,7 +244,7 @@ def _raygen_launch(cam19, keys, width: int, height: int):
     pix = keys.pixel.to(torch.int32).contiguous()
     samp = keys.sample.to(torch.int32).contiguous()
     dev = cam19.device
-    if not 0 < n < _MAX_RAYS or pix.device != dev or samp.device != dev or (
+    if not 0 < n < MAX_RAYS or pix.device != dev or samp.device != dev or (
         cam19.shape != (19,) or cam19.dtype != torch.float32 or not cam19.is_contiguous()
     ):
         raise ValueError(f"{n} rays, ids not on {dev}, or cam19 not a contiguous f32[19]")
@@ -265,7 +253,7 @@ def _raygen_launch(cam19, keys, width: int, height: int):
     with torch.cuda.device(dev):
         err = lib.lib.spt_raygen(
             n, cam19.data_ptr(), keys.k0, keys.k1, pix.data_ptr(), samp.data_ptr(),
-            int(width), _f32(1.0 / width), _f32(1.0 / height), rays.data_ptr(), _stream(dev),
+            int(width), _f32(1.0 / width), _f32(1.0 / height), rays.data_ptr(), stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"raygen kernel launch failed: CUDA error {err}")

@@ -56,6 +56,7 @@ import torch
 
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
+from .closest_hit import sphere_attrs_plain, sphere_table
 from .cuda_build import load_library
 from .persistent import (
     _MAX_SMEM,
@@ -66,7 +67,6 @@ from .persistent import (
     camera_constants,
     camera_ray_plain,
     closest_hit_plain,
-    pad_scene_tables,
 )
 from . import intersect
 from .sampling import _to_unit_float, key_words, threefry2x32
@@ -175,9 +175,9 @@ class RegenCall(NamedTuple):
 
 def scene_block(tables, sky6, softness=0.0):
     """What the gradient kernels read of the scene, values only: the
-    [S_pad, 10] table (cx cy cz r albedo rgb fuzz ior material; padded as
-    ``pad_scene_tables``), the sky and the soft constants (f32[6] and f32[3]:
-    softness, softness x 8 and softness x 0.1, each rounded to float32
+    [S_pad, 10] table (``closest_hit.sphere_table``), the sky and the soft
+    constants (f32[6] and f32[3]: softness, softness x 8 and softness x 0.1,
+    each rounded to float32
     once, as the plain versions round them) and, under soft silhouettes,
     the soft scan's [S_pad, 4] table (the JAX package's
     ``soft_scan_tables``: silhouette scale, 1 / r^2, validity scale, -30 x
@@ -192,13 +192,8 @@ def scene_block(tables, sky6, softness=0.0):
             "not ported to the gradient kernels (ROADMAP A.11 leftovers); "
             "the eager route (use_pallas_grad=False) honours it"
         )
+    tab = sphere_table(tables)
     with torch.no_grad():
-        cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = pad_scene_tables(
-            [t.detach() for t in tables]
-        )
-        tab = torch.stack(
-            [cx, cy, cz, rad, ar, ag, ab, fz, io, mat.to(f32)], dim=1
-        ).to(f32).contiguous()
         soft3 = tab.new_tensor([
             _f32(softness), _f32(softness * intersect._SIL_R0),
             _f32(softness * intersect._SIG_V0),
@@ -207,7 +202,7 @@ def scene_block(tables, sky6, softness=0.0):
         if softness > 0.0:
             # Padding slots have a NaN radius: NaN scale and 1 / r^2, so
             # every test of theirs fails (their validity rows are finite).
-            r = rad.to(f32)
+            r = tab[:, 3]
             sigv = intersect.validity_scale(softness, r)
             soft_tab = torch.stack(
                 [intersect.silhouette_scale(softness, r), 1.0 / (r * r), sigv, -30.0 * sigv],
@@ -452,15 +447,13 @@ def _winner(call: RegenCall, idx):
     sphere slot, the ground plane (either plane code: normal, offset,
     albedo; fuzz 0, ior 1) or a miss (-1: the scan's defaults r = 1,
     ior = 1)."""
-    tab = call.tab
-    s_pad = tab.shape[0]
-    rows = tab[idx.clamp(0, s_pad - 1)]
-    default = tab.new_tensor([0, 0, 0, 1, 0, 0, 0, 0, 1, 0])
-    vals = torch.where(((idx >= 0) & (idx < s_pad))[:, None], rows, default)
+    attr, mat = sphere_attrs_plain(call.tab, idx)
     if call.use_plane:
-        plane_row = torch.cat([call.consts[6:13], tab.new_tensor([0, 1, 0])])
-        vals = torch.where(is_plane(idx)[:, None], plane_row, vals)
-    return tuple(vals[:, j] for j in range(9)), vals[:, 9].to(torch.int64)
+        pm = is_plane(idx)
+        plane9 = torch.cat([call.consts[6:13], attr.new_tensor([0, 1])])
+        attr = torch.where(pm[None, :], plane9[:, None], attr)
+        mat = torch.where(pm, 0, mat)
+    return tuple(attr.unbind(0)), mat.to(torch.int64)
 
 
 def _blocker(call: RegenCall, bidx):

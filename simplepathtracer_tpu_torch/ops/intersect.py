@@ -16,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import closest_hit as _ch
 from .sampling import _f32
 
 
@@ -74,6 +75,16 @@ def hit_from_gathered(origins, dirs, i, hit, c, r, t_min, t_max) -> Hit:
     n = (point - c) / r[:, None]
     n = n / torch.sqrt(torch.sum(n * n, -1, keepdim=True) + 1e-20)
     return Hit(t=t, index=i, hit=hit, point=point, normal=n)
+
+
+def intersect_scene_pallas(origins, dirs, alive, scene, t_min=1e-3, t_max=3.0e7) -> Hit:
+    """Closest hit through the closest-hit kernel (``closest_hit.closest_hit``,
+    the JAX ``_closest_hit_kernel``'s formulation) on detached inputs; the
+    differentiable t, point and normal are rebuilt by ``_hit_from_index``.
+    ``alive`` [N] bool: dead rays miss."""
+    idx, _ = _ch.closest_hit(origins.detach(), dirs.detach(), alive, scene.centers.detach(),
+                             scene.radii.detach(), t_min=t_min, t_max=t_max)
+    return _hit_from_index(origins, dirs, idx.to(torch.int64), scene, t_min, t_max)
 
 
 # ---------------------------------------------------------------------------

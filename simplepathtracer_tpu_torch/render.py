@@ -1,11 +1,14 @@
 """Rendering (counterpart of the JAX package's ``render.py``).
 
-Four routes, chosen by the config's flags as in the JAX package:
+Routes, chosen by the config's flags as in the JAX package:
 
-* ``use_pallas=True`` (every preset): the persistent kernel renders a whole
-  pixel block and all its samples in one launch
-  (``ops/persistent.py:render_block_persistent``) — the CUDA kernel on a
+* ``render`` with ``use_pallas=True`` (every preset): the persistent kernel
+  renders a whole pixel block and all its samples in one launch
+  (``ops/persistent.py:render_block_persistent``) -- the CUDA kernel on a
   CUDA tensor, its plain version on a CPU tensor.  Forward only.
+* ``trace_rays`` / ``render_pixels`` (explicit rays) with ``use_pallas``:
+  ``trace_rays_pallas``, one launch of the bounce-step kernel per bounce
+  (``ops/bounce_step.py``).  Forward only.
 * ``use_pallas_grad`` with ``grad_regen``: the regeneration gradient
   kernels (``ops/grad_regen.py``), streamed over spp chunks when the
   packed winner indices fit ``_IDX_PLANE_BUDGET``.  Differentiable.
@@ -14,7 +17,12 @@ Four routes, chosen by the config's flags as in the JAX package:
   Camera rays come from the raygen kernel, or under ``camera_grad`` from
   the differentiable ``generate_rays``, whose (origin, direction)
   cotangents the fused backward returns.  Differentiable.
-* otherwise the plain wavefront — every live ray advances one bounce per
+* ``use_pallas_hits`` (hard silhouettes, sphere scenes): the eager bounce
+  below with the closest hit from the closest-hit-attributes kernel
+  (``ops/closest_hit.py``), detached, and the table's gradient reattached
+  to the winner's attributes (``ops/table_gather.py:attach_attr_columns``,
+  whose backward runs the bucket kernel).  Differentiable.
+* otherwise the plain wavefront -- every live ray advances one bounce per
   step, materials resolved with masked selects, in the JAX jnp path's
   formulation (matmul-expanded intersection).  Differentiable by autograd,
   with JAX's gradient rules at ties.
@@ -32,12 +40,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .camera import generate_rays
+from .ops import bounce_step as _bs
+from .ops import closest_hit as _ch
 from .ops import intersect
 from .ops.intersect import (
     SIL_P_FLOOR,
     Hit,
     crossing_scale,
     grad_capped_sqrt,
+    hit_from_gathered,
     intersect_scene,
     intersect_scene_soft,
     silhouette_logit,
@@ -51,6 +62,7 @@ from .ops.grad_regen import (
     IDX_PACK_MAX_SPHERES,
     render_block_grad_regen,
     render_block_grad_regen_stream,
+    scene_inputs,
 )
 from .ops.persistent import (
     GPU_BANKS,
@@ -60,6 +72,7 @@ from .ops.persistent import (
 )
 from .ops.plane import ray_plane_intersection
 from .ops.sampling import bounce_noise, camera_jitter, crossing_noise, ray_keys
+from .ops.table_gather import attach_attr_columns, pack_tables
 from .types import Camera, RenderConfig, RenderState, Scene, resolve_device
 
 
@@ -117,12 +130,15 @@ def _idx_planes(config: RenderConfig) -> int:
 def grad_safe_config(config: RenderConfig, device=None) -> RenderConfig:
     """A config for differentiating on ``device`` (CUDA unless named).
 
-    The persistent kernel is forward only, so ``use_pallas`` is cleared.
-    On CUDA a ``use_pallas`` preset keeps its speed intent through the
-    regeneration gradient kernels (``use_pallas_grad`` + ``grad_regen``);
-    on the CPU it takes the plain autograd path, as the JAX package does
-    off the TPU.  Without an ``spp_chunk``, one is picked that keeps a
-    chunk's differentiated work near the route's budget: the regeneration
+    The persistent and bounce-step kernels are forward only, so
+    ``use_pallas`` is cleared.  On CUDA a ``use_pallas`` preset keeps its
+    speed intent through the regeneration gradient kernels
+    (``use_pallas_grad`` + ``grad_regen``; the JAX package also sets
+    ``use_pallas_hits``, which no route then reads); on the CPU it takes
+    the plain autograd path, as the JAX package does off the TPU.  A
+    ``use_pallas_hits`` config keeps its flag.  Without an ``spp_chunk``,
+    one is picked that keeps a chunk's differentiated work near the route's
+    budget: the regeneration
     kernels', the fused kernels' (``use_pallas_grad`` without
     ``grad_regen``, or with ``camera_grad``, which skips the regeneration
     kernels), or the plain path's.
@@ -229,6 +245,39 @@ def _soft_ratio(o, d, hit, alive, scene, soft, t_min, wc3, wr, blk,
     return den / den.detach()
 
 
+def bounce_step_call(scene, keys, config) -> _bs.BounceCall:
+    """The bounce-step kernel's tables and options for ``scene`` under
+    ``config``, keyed by ``keys`` (values only)."""
+    inputs = scene_inputs(scene)
+    return _bs.bounce_call(
+        inputs[:11], inputs[11], inputs[12], keys.k0, keys.k1, t_min=config.t_min,
+        t_max=config.t_max, rr_start_depth=config.rr_start_depth,
+    )
+
+
+def trace_rays_pallas(origins, dirs, keys, scene: Scene, config: RenderConfig):
+    """Forward-only radiance [N, 3] of explicit rays: ``max_depth`` launches
+    of the bounce-step kernel (``ops/bounce_step.py``) on SoA state, the JAX
+    package's ``trace_rays_pallas``.  Its arithmetic is the TPU bounce
+    kernel's (direct |oc|^2, lerped state updates), not the eager bounce's;
+    soft silhouettes are not read (hard scan).  Raises when autograd would
+    need a gradient through it: a ray or a scene leaf requires one."""
+    if torch.is_grad_enabled() and (
+        origins.requires_grad or dirs.requires_grad or _requires_grad(scene)
+    ):
+        raise RuntimeError(
+            "trace_rays_pallas (use_pallas) is forward only: clear use_pallas "
+            "(grad_safe_config) to differentiate, or run under torch.no_grad()"
+        )
+    call = bounce_step_call(scene, keys, config)
+    state = _bs.initial_state(origins, dirs)
+    pix = keys.pixel.to(torch.int32).contiguous()
+    samp = keys.sample.to(torch.int32).contiguous()
+    for b in range(config.max_depth):
+        state = _bs.bounce_step(call, state, pix, samp, b)
+    return state[9:12].T.contiguous()
+
+
 def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     """Trace a batch of rays to completion.  Returns radiance [N, 3]; rays
     alive after ``max_depth`` bounces are black.
@@ -239,13 +288,28 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     a stochastic plane-vs-sphere crossing coin on plane scenes, and the
     detached ratio ``_soft_ratio`` on the entry throughput.
 
-    With ``use_pallas_grad`` a sphere scene goes through the fused gradient
-    kernels (``ops/grad.py:trace_rays_fused``); they are sphere-only, so a
-    plane scene takes the bounce below, as in the JAX package."""
-    if scene.plane is not None and config.use_pallas_grad:
-        config = config.replace(use_pallas_grad=False)
+    The routes, in the JAX package's order: ``use_pallas`` goes to the
+    forward-only ``trace_rays_pallas``.  The fused and hits kernels are
+    sphere-only, so a plane scene clears ``use_pallas_grad`` and
+    ``use_pallas_hits``; the closest-hit kernel has no stochastic scan, so
+    soft silhouettes clear ``use_pallas_hits``.  Then ``use_pallas_grad``
+    goes through the fused gradient kernels
+    (``ops/grad.py:trace_rays_fused``), and ``use_pallas_hits`` takes the
+    bounce below with the closest hit from the closest-hit-attributes
+    kernel."""
+    if config.use_pallas:
+        return trace_rays_pallas(origins, dirs, keys, scene, config)
+    if scene.plane is not None and (config.use_pallas_grad or config.use_pallas_hits):
+        config = config.replace(use_pallas_grad=False, use_pallas_hits=False)
+    if config.silhouette_softness > 0.0 and config.use_pallas_hits:
+        config = config.replace(use_pallas_hits=False)
     if config.use_pallas_grad:
         return trace_rays_fused(origins, dirs, keys, scene, config)
+    if config.use_pallas_hits:
+        # The table's float attributes, differentiable, and its values for
+        # the kernel.
+        attr9 = pack_tables(scene)
+        hit_tables = tuple(t.detach() for t in scene_inputs(scene)[:11])
     n = origins.shape[0]
     soft = config.silhouette_softness
     fresnel = bool(soft > 0.0 and intersect.SIL_FRESNEL)
@@ -258,53 +322,67 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     for b in range(config.max_depth):
         unif = bounce_noise(keys, b)
         widx = pw = ph_t = cross_valid = blk = None
-        if soft > 0.0:
-            uxw, uvw = crossing_noise(keys, b)
-            hit, blk = intersect_scene_soft(
-                o, d, unif[:, 7], uvw, scene, config.t_min, config.t_max, soft,
-                prev_idx=prev,
+        if config.use_pallas_hits:
+            # The winner's index and attributes from the kernel, detached;
+            # attach_attr_columns buckets their cotangents into the table by
+            # the -1-masked index (a miss or dead ray buckets nowhere).
+            idx, attr_vals, mat = _ch.closest_hit_attrs(
+                o.detach(), d.detach(), alive, hit_tables, config.t_min, config.t_max)
+            cx, cy, cz, r, ar, ag, ab, fz, io = attach_attr_columns(attr9, idx, *attr_vals)
+            hit = hit_from_gathered(
+                o, d, torch.clamp(idx, min=0).to(torch.int64), idx >= 0,
+                torch.stack([cx, cy, cz], -1), r, config.t_min, config.t_max,
             )
+            new_d, att, scattered = scatter_attrs(
+                d, hit.normal, mat, torch.stack([ar, ag, ab], -1), fz, io, unif)
         else:
-            hit = intersect_scene(o, d, scene, config.t_min, config.t_max)
-        if scene.plane is None:
-            new_d, att, scattered = scatter(d, hit, scene, unif, fresnel_score=fresnel)
             if soft > 0.0:
-                widx = torch.where(hit.hit, hit.index, -1)
-        else:
-            # Sphere scan + Lambertian ground plane; the plane overrides the
-            # winner where it is nearer (soft: where it wins the crossing
-            # coin).  The plane normal is not a differentiable parameter
-            # (offset and albedo are): detached, as in the JAX package.
-            ph = ray_plane_intersection(
-                o, d, scene.plane[:3].detach(), scene.plane[3],
-                config.t_min, config.t_max,
-            )
-            if soft > 0.0:
-                # The sphere beats the plane iff t_s < t_p + logit(ux) *
-                # sigma_x(r_winner).
-                thr_x = silhouette_logit(uxw) * crossing_scale(
-                    soft, scene.radii[hit.index].detach())
-                pw = ph.hit & ~(hit.hit & (hit.t < ph.t + thr_x))
-                ph_t = ph.t
-                cross_valid = ph.hit & hit.hit
+                uxw, uvw = crossing_noise(keys, b)
+                hit, blk = intersect_scene_soft(
+                    o, d, unif[:, 7], uvw, scene, config.t_min, config.t_max, soft,
+                    prev_idx=prev,
+                )
             else:
-                pw = ph.hit & (ph.t < hit.t)
-            hit = Hit(
-                t=torch.where(pw, ph.t, hit.t),
-                index=hit.index,
-                hit=hit.hit | pw,
-                point=torch.where(pw[:, None], ph.point, hit.point),
-                normal=torch.where(pw[:, None], ph.normal, hit.normal),
-            )
-            i = hit.index
-            mat = torch.where(pw, 0, scene.material[i])
-            alb = torch.where(pw[:, None], scene.plane[None, 4:7], scene.albedo[i])
-            fz = torch.where(pw, 0.0, scene.fuzz[i])
-            io = torch.where(pw, 1.0, scene.ior[i])
-            new_d, att, scattered = scatter_attrs(d, hit.normal, mat, alb, fz, io, unif,
-                                                  fresnel_score=fresnel)
-            if soft > 0.0:
-                widx = torch.where(hit.hit & ~pw, hit.index, -1)
+                hit = intersect_scene(o, d, scene, config.t_min, config.t_max)
+            if scene.plane is None:
+                new_d, att, scattered = scatter(d, hit, scene, unif, fresnel_score=fresnel)
+                if soft > 0.0:
+                    widx = torch.where(hit.hit, hit.index, -1)
+            else:
+                # Sphere scan + Lambertian ground plane; the plane overrides the
+                # winner where it is nearer (soft: where it wins the crossing
+                # coin).  The plane normal is not a differentiable parameter
+                # (offset and albedo are): detached, as in the JAX package.
+                ph = ray_plane_intersection(
+                    o, d, scene.plane[:3].detach(), scene.plane[3],
+                    config.t_min, config.t_max,
+                )
+                if soft > 0.0:
+                    # The sphere beats the plane iff t_s < t_p + logit(ux) *
+                    # sigma_x(r_winner).
+                    thr_x = silhouette_logit(uxw) * crossing_scale(
+                        soft, scene.radii[hit.index].detach())
+                    pw = ph.hit & ~(hit.hit & (hit.t < ph.t + thr_x))
+                    ph_t = ph.t
+                    cross_valid = ph.hit & hit.hit
+                else:
+                    pw = ph.hit & (ph.t < hit.t)
+                hit = Hit(
+                    t=torch.where(pw, ph.t, hit.t),
+                    index=hit.index,
+                    hit=hit.hit | pw,
+                    point=torch.where(pw[:, None], ph.point, hit.point),
+                    normal=torch.where(pw[:, None], ph.normal, hit.normal),
+                )
+                i = hit.index
+                mat = torch.where(pw, 0, scene.material[i])
+                alb = torch.where(pw[:, None], scene.plane[None, 4:7], scene.albedo[i])
+                fz = torch.where(pw, 0.0, scene.fuzz[i])
+                io = torch.where(pw, 1.0, scene.ior[i])
+                new_d, att, scattered = scatter_attrs(d, hit.normal, mat, alb, fz, io, unif,
+                                                      fresnel_score=fresnel)
+                if soft > 0.0:
+                    widx = torch.where(hit.hit & ~pw, hit.index, -1)
         if soft > 0.0:
             srat = _soft_ratio(
                 o, d, hit, alive, scene, soft, config.t_min,
@@ -350,13 +428,7 @@ def render_pixels(scene, camera, config, key, pixel_ids, sample_ids):
 
 def _persistent_args(scene, camera, config):
     """Sphere tables, sky and camera blocks of the persistent kernel."""
-    tables = (
-        scene.centers[:, 0], scene.centers[:, 1], scene.centers[:, 2],
-        scene.radii, scene.radii * scene.radii,
-        scene.albedo[:, 0], scene.albedo[:, 1], scene.albedo[:, 2],
-        scene.material.to(torch.int32), scene.fuzz, scene.ior,
-    )
-    tables = tuple(t.contiguous() for t in tables)
+    tables = tuple(t.contiguous() for t in scene_inputs(scene)[:11])
     sky6 = torch.cat([scene.sky_lo, scene.sky_hi]).to(torch.float32)
     cam19 = camera_constants(camera, config.width, config.height)
     return tables, sky6, cam19

@@ -106,7 +106,6 @@ def make_camera(
 # Fields of paths this port does not have yet, with their defaults.  Setting
 # one away from its default raises instead of being ignored.
 _NOT_PORTED = {
-    "use_pallas_hits": False,
     "rng_impl": "threefry2x32",
 }
 
@@ -116,10 +115,13 @@ class RenderConfig:
     """Static render configuration; the JAX package's fields and defaults.
 
     ``use_pallas`` keeps its meaning: the forward render goes through the
-    persistent kernel (on a CUDA tensor the CUDA kernel, on a CPU tensor its
-    plain PyTorch version).  So do ``use_pallas_grad`` (the per-bounce fused
-    gradient kernels, ``ops/grad.py``), with ``grad_regen`` the regeneration
-    gradient kernels (``ops/grad_regen.py``), ``grad_regen_banks`` (pixel
+    persistent kernel, explicit rays through the bounce-step kernel (on a
+    CUDA tensor the CUDA kernel, on a CPU tensor its plain PyTorch version).
+    So do ``use_pallas_hits`` (the closest-hit-attributes kernel under the
+    differentiable eager bounce, ``ops/closest_hit.py``), ``use_pallas_grad``
+    (the per-bounce fused gradient kernels, ``ops/grad.py``), with
+    ``grad_regen`` the regeneration gradient kernels
+    (``ops/grad_regen.py``), ``grad_regen_banks`` (pixel
     banks per lane; 0 = ``GPU_BANKS``) and ``camera_grad`` (gradient renders
     make their rays with the differentiable ``camera.generate_rays`` and
     skip the regeneration kernels, which detach the camera).  The JAX

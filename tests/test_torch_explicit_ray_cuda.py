@@ -1,0 +1,106 @@
+"""The bounce-step and closest-hit kernels (``csrc/bounce_step.cu``,
+``csrc/closest_hit.cu``) against their plain versions on the card.  They
+are CUDA kernels with no CPU mode, so these tests skip without an NVIDIA
+GPU; ``chip_smoke.py`` phase 9 holds the same comparisons at the main
+paths' shapes.  This file imports no JAX:
+
+    python -m pytest --noconftest tests/test_torch_explicit_ray_cuda.py -m cuda
+
+Every output must be bit-exact: the kernels round every operation as their
+plain versions do (``--fmad=false``, IEEE sqrt and division).  The hits
+route's gradient runs the bucket kernel, whose atomics add in an order
+that changes from run to run: its gradients are held to rtol 1e-5.
+"""
+
+import pytest
+import torch
+
+import simplepathtracer_tpu_torch as tpt
+from simplepathtracer_tpu_torch.camera import generate_rays
+from simplepathtracer_tpu_torch.ops import bounce_step as bs
+from simplepathtracer_tpu_torch.ops import bucket
+from simplepathtracer_tpu_torch.ops import closest_hit as ch
+from simplepathtracer_tpu_torch.ops.sampling import camera_jitter, ray_keys
+from simplepathtracer_tpu_torch.ops.grad_regen import scene_inputs
+from simplepathtracer_tpu_torch.render import bounce_step_call
+
+
+def _case(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    if name == "cover":
+        scene = tpt.compact_scene(tpt.cover_scene(0, device="cuda"))
+        cam = tpt.PRESETS["cover"].camera_fn("cuda")
+        w, h, spp, rr = 64, 32, 4, 0
+    else:
+        scene = tpt.three_sphere_scene(hollow_glass=True, device="cuda")
+        if name == "three_sphere_plane":
+            scene = tpt.with_ground_plane(scene)
+        cam = tpt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=90, device="cuda")
+        w, h, spp, rr = 48, 24, 8, 2
+    p = w * h
+    keys = ray_keys(tpt.make_key(1), torch.arange(p, device="cuda").repeat(spp),
+                    torch.arange(spp, device="cuda").repeat_interleave(p))
+    cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=10, rr_start_depth=rr,
+                           use_pallas=True)
+    o, d = generate_rays(cam, w, h, keys.pixel, camera_jitter(keys))
+    return scene, cam, cfg, keys, o, d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["three_sphere", "three_sphere_plane", "cover"])
+def test_explicit_ray_kernels_match_plain_on_card(name):
+    """Each bounce of the bounce-step kernel, and on each bounce's rays the
+    two closest-hit kernels, bit for bit against their plain versions."""
+    scene, cam, cfg, keys, o, d = _case(name)
+    call = bounce_step_call(scene, keys, cfg)
+    tables = tuple(t.contiguous() for t in scene_inputs(scene)[:11])
+    state = bs.initial_state(o, d)
+    pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+    launches = (bs.bounce_step.launches["bounce_step"],
+                ch.closest_hit_attrs.launches["closest_hit_attrs"],
+                ch.closest_hit.launches["closest_hit"])
+    for b in range(cfg.max_depth):
+        nxt = bs.bounce_step(call, state, pix, samp, b)
+        torch.cuda.synchronize()
+        assert torch.equal(nxt, bs.bounce_step_reference(call, state, pix, samp, b)), b
+        ro, rd, alive = state[0:3].T.contiguous(), state[3:6].T.contiguous(), state[12] > 0
+        got = ch.closest_hit_attrs(ro, rd, alive, tables)
+        want = ch.closest_hit_attrs_reference(ro, rd, alive, tables)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]), b
+        assert all(torch.equal(a, w) for a, w in zip(got[1], want[1])), b
+        got = ch.closest_hit(ro, rd, alive, scene.centers, scene.radii)
+        want = ch.closest_hit_reference(ro, rd, alive, scene.centers, scene.radii)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), b
+        state = nxt
+    assert (bs.bounce_step.launches["bounce_step"],
+            ch.closest_hit_attrs.launches["closest_hit_attrs"],
+            ch.closest_hit.launches["closest_hit"]) == tuple(x + cfg.max_depth for x in launches)
+    assert torch.isfinite(state).all() and state[9:12].max() > 0
+
+
+@pytest.mark.cuda
+def test_hits_pixel_loss_kernels_match_plain_on_card(monkeypatch):
+    """pixel_loss through the hits route: through the kernels, and through
+    the plain versions on the same card tensors (loss bit-equal, gradients
+    to the bucket's atomics)."""
+    scene, cam, cfg, *_ = _case("three_sphere")
+    cfg = cfg.replace(use_pallas=False, use_pallas_hits=True, spp=2, max_depth=6)
+    target = torch.full((cfg.height, cfg.width, 3), 0.25, device="cuda")
+
+    def loss_grads():
+        params, static = tpt.split_params(scene)
+        params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = tpt.pixel_loss(params, static, target, cam, cfg, tpt.make_key(3), device="cuda")
+        return loss, torch.autograd.grad(loss, list(params.values()))
+
+    n_bucket = bucket.bucket_cols.launches[9]
+    l_k, g_k = loss_grads()
+    # One bucket per bounce but the last, whose attributes reach no output.
+    assert bucket.bucket_cols.launches[9] == n_bucket + cfg.max_depth - 1
+    monkeypatch.setattr(ch, "closest_hit_attrs", ch.closest_hit_attrs_reference)
+    monkeypatch.setattr(bucket, "bucket_cols", bucket.bucket_cols_reference)
+    l_p, g_p = loss_grads()
+    assert torch.equal(l_k, l_p)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)

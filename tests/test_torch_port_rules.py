@@ -13,7 +13,15 @@ import torch
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch import inverse
-from simplepathtracer_tpu_torch.ops import bucket, grad as fused, grad_regen, intersect, persistent
+from simplepathtracer_tpu_torch.ops import (
+    bounce_step,
+    bucket,
+    closest_hit,
+    grad as fused,
+    grad_regen,
+    intersect,
+    persistent,
+)
 from simplepathtracer_tpu_torch.render import _persistent_args
 
 REPO = Path(__file__).resolve().parent.parent
@@ -79,14 +87,35 @@ def test_wrapper_on_cpu_takes_plain_version():
             torch.arange(4, device="meta"), tables, sky6, cam19, tpt.make_key(0), 0, 1, 4, 16, 8
         )
 
+    # The explicit-ray forward and the closest-hit kernels: bounce step
+    # (render_pixels under use_pallas), closest hit with attributes (the
+    # hits route) and closest hit (intersect_scene_pallas).
+    wrappers = [
+        (bounce_step.bounce_step, bounce_step.bounce_step_reference),
+        (closest_hit.closest_hit_attrs, closest_hit.closest_hit_attrs_reference),
+        (closest_hit.closest_hit, closest_hit.closest_hit_reference),
+    ]
+    before = [(k.launches.copy(), p.calls) for k, p in wrappers]
+    pids = torch.arange(16 * 8)
+    with torch.no_grad():
+        rad = tpt.render_pixels(scene, cam, cfg, tpt.make_key(0), pids, torch.zeros_like(pids))
+        tpt.render_pixels(scene, cam, cfg.replace(use_pallas=False, use_pallas_hits=True),
+                          tpt.make_key(0), pids, torch.zeros_like(pids))
+    o = torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1)
+    d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(4, 1)
+    hit = intersect.intersect_scene_pallas(o, d, torch.ones(4, dtype=torch.bool), scene)
+    assert torch.isfinite(rad).all() and hit.hit.all()
+    for (k, p), (launches, calls) in zip(wrappers, before):
+        assert k.launches == launches
+        assert p.calls > calls
+
 
 @pytest.mark.parametrize(
     "fields,match",
     [
-        (dict(use_pallas_hits=True), "use_pallas_hits"),
         (dict(rng_impl="rbg"), "rng_impl"),
     ],
-    ids=["use_pallas_hits", "rng_impl"],
+    ids=["rng_impl"],
 )
 def test_unported_config_fields_raise(fields, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -102,31 +131,31 @@ def test_unported_config_fields_raise(fields, match):
         (dict(use_pallas_grad=True, grad_regen=True, camera_grad=True), "fused"),
         # Without the fused kernels, camera gradients take the eager route.
         (dict(camera_grad=True), "eager"),
+        # The closest-hit-attributes kernel under the eager bounce.
+        (dict(use_pallas_hits=True), "hits"),
     ],
-    ids=["use_pallas_grad", "regen_camera_grad", "camera_grad"],
+    ids=["use_pallas_grad", "regen_camera_grad", "camera_grad", "use_pallas_hits"],
 )
 def test_ported_config_fields_run(fields, route):
     """The config builds, and a camera-leaf gradient through it is finite,
     nonzero and taken on the route the flags name: the fused kernels' plain
-    versions (the regen ones untouched) or the eager route (neither)."""
+    versions (the regen ones untouched), the closest-hit-attributes kernel's
+    or the eager route (none)."""
     scene, cam, cfg, target = _tiny()
     cfg = cfg.replace(**fields)
     params, cam0 = tpt.split_camera(cam)
     params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    before = (fused.grad_fwd_reference.calls, fused.grad_bwd_reference.calls,
-              grad_regen.regen_fwd_reference.calls)
+    counters = (fused.grad_fwd_reference, fused.grad_bwd_reference,
+                grad_regen.regen_fwd_reference, closest_hit.closest_hit_attrs_reference)
+    before = [c.calls for c in counters]
     loss = inverse.camera_pixel_loss(params, cam0, scene, target, cfg, tpt.make_key(0),
                                      device="cpu")
     grads = torch.autograd.grad(loss, list(params.values()))
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
     assert max(g.abs().max().item() for g in grads) > 0
-    after = (fused.grad_fwd_reference.calls, fused.grad_bwd_reference.calls,
-             grad_regen.regen_fwd_reference.calls)
-    ran = [a - b for a, b in zip(after, before)]
-    if route == "fused":
-        assert ran == [cfg.max_depth, cfg.max_depth, 0]
-    else:
-        assert ran == [0, 0, 0]
+    ran = [c.calls - b for c, b in zip(counters, before)]
+    d = cfg.max_depth
+    assert ran == {"fused": [d, d, 0, 0], "hits": [0, 0, 0, d], "eager": [0, 0, 0, 0]}[route]
 
 
 @pytest.mark.parametrize("path", ["silhouette_softness", "softness", "pixel_loss_decoupled"])
