@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py               # what the checks below need
-    python3 chip_smoke.py --sweep       # also time bank counts and balancing
+    python3 chip_smoke.py --sweep       # also time lane balancing
     python3 chip_smoke.py --camera-adfd # also the cover camera gradient
                                         # against FD, coordinate by coordinate
 
@@ -11,7 +11,7 @@ the card.  Phases 1-4 serve the forward render: the persistent kernel
 against its plain version, balancing, the full-width ``cover`` preset
 (1200x800, 100 spp, depth 10, thin-lens defocus) through ``render()``, and
 2,048 random pixels of that frame re-rendered by the plain version (bit for
-bit).  Phases 5-6 serve inverse rendering: the regeneration forward (both
+bit), with the kernel's registers, spill and resident grid.  Phases 5-6 serve inverse rendering: the regeneration forward (both
 modes), re-forward, backward and bucket kernels against their plain
 versions at small shapes, through ``pixel_loss`` on 2,048 random pixels of
 the full frame, and kernel by kernel at one full-width chunk (2,048 random
@@ -38,7 +38,8 @@ full cover frame with its defaults through the fused kernels only (loss
 must fall; its first gradient must descend the loss and, on a Lambertian
 copy of the frame, have each strong coordinate's sign by central
 differences), each fused kernel at both paths' launch shapes on 2,048
-random rays against its plain version, AD/FD of ``vfov_deg`` through the
+random rays against its plain version (the forward timed per bounce, with
+its ns per live ray-bounce), AD/FD of ``vfov_deg`` through the
 kernels, and README's ``fit_camera`` example.  Phase 9 drives the
 explicit-ray forward and the ``use_pallas_hits`` gradient route
 (``csrc/bounce_step.cu``, ``csrc/closest_hit.cu``): the bounce-step kernel
@@ -236,6 +237,25 @@ def cuda_ms(fn, reps, warm=True):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ptxas_usage(log, entry):
+    """Registers, spill stores and stack frame (bytes) that nvcc's
+    ``-Xptxas -v`` printed for the kernel whose mangled name contains
+    ``entry``."""
+    out, seen = {}, False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            seen = entry in line
+        elif seen and "bytes stack frame" in line:
+            words = line.replace(",", "").split()
+            out["stack_bytes"] = int(words[words.index("stack") - 2])
+            out["spill_bytes"] = int(words[words.index("spill") - 2])
+        elif seen and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            out["registers"] = int(words[words.index("registers") - 1])
+            seen = False
+    return out
 
 
 _LAP = [0.0]
@@ -1420,11 +1440,12 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
     prev = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
     st_p, rad_p = state[:, rows], torch.zeros((3, rows.numel()), device=dev)
     prev_p = prev[rows] if soft else None
-    saved, live = [], []
+    saved, live, fwd_ms = [], [], []
     for b in range(depth):
         scratch = rad.clone()
-        ms["grad_fwd" + sfx] += cuda_ms(
-            lambda: fg.grad_forward(call, state, scratch, prev, pix, samp, b), reps=2) / depth
+        fwd_ms.append(cuda_ms(
+            lambda: fg.grad_forward(call, state, scratch, prev, pix, samp, b), reps=2))
+        ms["grad_fwd" + sfx] += fwd_ms[-1] / depth
         del scratch
         nxt, prev_n, idx, bidx = fg.grad_forward(call, state, rad, prev, pix, samp, b)
         n_live = (state[9] > 0).sum().item()
@@ -1443,6 +1464,13 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
     errs["grad_fwd" + sfx] = max(errs["grad_fwd" + sfx], (rad[:, rows] - rad_p).abs().max().item())
     print(f"{tag} raygen and {depth} forward bounces {'bit-exact' if ok else 'DIFFER'} "
           f"(live rays per bounce {live})")
+    # ns per live ray-bounce: bounce 0 (coherent camera rays, all alive)
+    # against the later bounces' (scattered survivors).
+    ns_live = [t * 1e6 / max(1, n_l) for t, n_l in zip(fwd_ms, live)]
+    ns_later = sum(fwd_ms[1:]) * 1e6 / max(1, sum(live[1:]))
+    print(f"kernel grad_fwd{sfx} per bounce: ms {[round(t, 3) for t in fwd_ms]}; ns per live "
+          f"ray-bounce {[round(t, 3) for t in ns_live]}; bounce 0 {ns_live[0]:.3f} ns, bounces "
+          f"1-{depth - 1} {ns_later:.3f} ns")
     if not ok:
         raise RuntimeError("full width: a fused forward kernel disagrees with its plain version")
     del state, prev, st_p
@@ -1489,7 +1517,8 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
              if want_attr else ""))
     if not (ok and bucket_ratio <= 1.0 and torch.isfinite(carry).all()):
         raise RuntimeError("full width: a fused backward kernel or bucket disagrees")
-    res = {"ms": ms, "errs": errs, "live": live, "n_rays": n,
+    res = {"ms": ms, "errs": errs, "live": live, "n_rays": n, "fwd_ms_per_bounce": fwd_ms,
+           "fwd_ns_per_live_ray_bounce": ns_live,
            "bound_ms": {k: max(v) * 1e3 for k, v in bound.items()},
            "bound_by": {k: "operations" if v[0] >= v[1] else "bytes" for k, v in bound.items()}}
     if want_attr:
@@ -2190,8 +2219,7 @@ def phase9_closest_hit(tpt, dev, wrappers):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
-                    help="time the full cover frame for 1, 2, 4, 8, 16 banks "
-                         "and with lane balancing")
+                    help="time the full cover frame with and without lane balancing")
     ap.add_argument("--camera-adfd", action="store_true",
                     help="phase 8c: also the cover camera gradient against finite differences "
                          "coordinate by coordinate, on the fit's first key and on make_key(5)")
@@ -2349,6 +2377,12 @@ def main(argv=None):
     print(f"kernel cover full frame: {ms:.3f} ms, iterations {iters:.0f} "
           f"({iters / paths:.3f} per path), {live} live spheres, bound {bound_ms:.3f} ms (FP32 ops), "
           f"{bound_ms / ms:.3f} of bound")
+    usage = ptxas_usage(lib.log, "persistent_kernel")
+    usage["grid_blocks"] = persistent.grid_blocks(cfg.num_pixels, scene.num_spheres)
+    print(f"persistent kernel: {usage.get('registers')} registers, {usage.get('spill_bytes')} B "
+          f"spilled, {usage.get('stack_bytes')} B stack frame (nvcc -Xptxas -v); resident grid "
+          f"{usage['grid_blocks']} blocks x 128 "
+          f"lanes ({usage['grid_blocks'] * 128} lanes fetch the frame's {cfg.num_pixels} pixels)")
     call, kw, shape = compare_args
     kw = dict(kw, return_counts=False)
     plain_ms = cuda_ms(lambda: plain(*call, **kw), reps=2)
@@ -2356,16 +2390,8 @@ def main(argv=None):
     print(f"cover {shape}: plain {plain_ms:.3f} ms, kernel {kernel_small_ms:.3f} ms")
 
     if args.sweep:
-        chosen = persistent.GPU_BANKS
-        try:
-            for nb in (1, 2, 4, 8, 16):
-                persistent.GPU_BANKS = nb
-                t = cuda_ms(lambda: kernel(*full_call), reps=2)
-                print(f"sweep: n_banks={nb} lanes={persistent.bank_geometry(cfg.num_pixels, nb)[1]} "
-                      f"{t:.3f} ms")
-        finally:
-            persistent.GPU_BANKS = chosen
-        # Balanced schedule: 2 probe spp in image order, 98 in cost order.
+        # Balanced schedule: 2 probe spp in image order, 98 in cost order
+        # (the kernel fetches the costliest pixels first).
         cfg_bal = cfg.replace(balance_probe_spp=2)
         for name, c in (("unbalanced", cfg), ("balanced", cfg_bal), ("unbalanced", cfg),
                         ("balanced", cfg_bal)):
@@ -2443,6 +2469,8 @@ def main(argv=None):
             "peak_gb": main8b["peak_gb"], "launches": main8b["launches"], "steps": FIT_STEPS,
             "loss_rel_vs_regen": main8b["loss_rel"], "bucket": main8b["bucket"],
             "live_rays_per_bounce": main8b["live"],
+            "fwd_ms_per_bounce": main8b["fwd_ms_per_bounce"],
+            "fwd_ns_per_live_ray_bounce": main8b["fwd_ns_per_live_ray_bounce"],
         },
         "fit_camera": {
             "shape": f"{cfg.width}x{cfg.height}x{cfg.spp}spp depth {cfg.max_depth}",
@@ -2453,6 +2481,8 @@ def main(argv=None):
             "camera_error": main8c["cam_err"], "launches_per_step": main8c["per_step"],
             "camera_adfd": main8c["camera_adfd"],
             "live_rays_per_bounce": main8c["live"],
+            "fwd_ms_per_bounce": main8c["fwd_ms_per_bounce"],
+            "fwd_ns_per_live_ray_bounce": main8c["fwd_ns_per_live_ray_bounce"],
         },
         "vfov_adfd": adfd8,
         "readme_fit_camera": readme8,
@@ -2510,6 +2540,7 @@ def main(argv=None):
         "plain_ms_main_shape": plain_main_ms,
         "plain_ms_main_shape_pixels": N_CHECK_PIXELS,
         "kernel_ms_at_plain_shape": kernel_small_ms,
+        **usage,
     }]}
     for name, source, replaces in GRAD_KERNELS:
         report["kernels"].append({
@@ -2569,6 +2600,11 @@ def main(argv=None):
         })
     for name, source, replaces in FUSED_KERNELS:
         res = main8c if name.endswith("_soft") else main8b
+        fwd = {}
+        if name.startswith("grad_fwd"):
+            fwd = dict(ptxas_usage(lib.log, f"grad_fwd_kernelILi{int(res is main8c)}EE"),
+                       ms_per_bounce=res["fwd_ms_per_bounce"],
+                       ns_per_live_ray_bounce=res["fwd_ns_per_live_ray_bounce"])
         report["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -2587,6 +2623,7 @@ def main(argv=None):
             "plain_ms_shape": fused_shapes[name] + ", per launch",
             "kernel_ms_at_plain_shape": fused_small_ms[name],
             "launches_over_steps": FIT_STEPS,
+            **fwd,
         })
     explicit = {"bounce_step": (main9b, f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth "
                                         f"{cfg.max_depth}, per launch (render_pixels)"),

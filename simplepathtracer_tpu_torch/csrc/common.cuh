@@ -161,7 +161,11 @@ __device__ __forceinline__ void sphere_attrs(const SphereTables& t, int bi,
 
 // Closest sphere hit: nearest root in (t_min, bt), first index on ties;
 // -1 on a miss.  r^2 is recomputed from r, so a padding slot with a NaN
-// radius rejects itself for every ray.
+// radius rejects itself for every ray.  The roots are taken only where
+// disc >= 0: elsewhere (a NaN disc too) the sqrt would be NaN and every
+// compare after it fail, so skipping them changes no result, and most
+// tests are misses (in a warp of rays from nearby pixels, misses of the
+// whole warp).
 __device__ __forceinline__ int closest_hit(const float4* __restrict__ geo,
                                            int n_spheres, float ox, float oy,
                                            float oz, float dx, float dy,
@@ -174,12 +178,14 @@ __device__ __forceinline__ int closest_hit(const float4* __restrict__ geo,
     const float tc = ocx * dx + ocy * dy + ocz * dz;
     const float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
     const float disc = g.w * g.w - (oc2 - tc * tc);
-    const float sq = sqrtf(disc);  // NaN for disc < 0: every compare fails
-    const float t_near = tc - sq;
-    const float t = t_near > t_min ? t_near : tc + sq;
-    if (t > t_min && t < bt) {
-      bt = t;
-      bi = i;
+    if (disc >= 0.0f) {
+      const float sq = sqrtf(disc);
+      const float t_near = tc - sq;
+      const float t = t_near > t_min ? t_near : tc + sq;
+      if (t > t_min && t < bt) {
+        bt = t;
+        bi = i;
+      }
     }
   }
   return bi;

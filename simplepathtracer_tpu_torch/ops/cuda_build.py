@@ -39,8 +39,13 @@ _LINK_FLAGS = _ARCH + ("-shared",)
 P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C entry points of the library and their argument types.
 _SIGNATURES = {
+    # pixel_ids, n_pix, tab, n_spheres, consts, use_plane, k0, k1,
+    # sample_offset, n_samples, max_depth, width, inv_w, inv_h, t_min, t_max,
+    # rr_start_depth, next_pos, out_rad, out_cnt, stream
     "spt_persistent_render":
-        [P, I, I, I, P, I, P, I, U, U, U, I, I, I, F, F, F, F, I, P, P, P],
+        [P, I, P, I, P, I, U, U, U, I, I, I, F, F, F, F, I, P, P, P, P],
+    # n_pix, n_spheres, blocks (int out)
+    "spt_persistent_grid": [I, I, P],
     # pixel_ids, n_pix, n_lanes, n_banks, tab, n_spheres, consts, use_plane,
     # k0, k1, sample_offset, n_samples, max_depth, width, inv_w, inv_h,
     # t_min, t_max, rr_start_depth, n_iter, mode, softness, soft_tab,
@@ -118,7 +123,8 @@ def load_library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library.
 
     Returns a ``KernelLibrary`` with the ctypes handle, the .so path, the
-    build seconds (0 when it was already built) and nvcc's output.
+    build seconds (0 when it was already built) and nvcc's output (kept
+    beside the library, so a cached build returns it too).
     """
     sources = sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
     h = hashlib.sha256(" ".join(_COMPILE_FLAGS + _LINK_FLAGS).encode())
@@ -126,8 +132,11 @@ def load_library() -> KernelLibrary:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     so_path = _BUILD / f"spt_kernels_{h.hexdigest()[:16]}.so"
+    log_path = so_path.with_suffix(".log")
     log, seconds = "", 0.0
-    if not so_path.exists():
+    if so_path.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+    else:
         nvcc = _nvcc()
         _BUILD.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
@@ -157,6 +166,7 @@ def load_library() -> KernelLibrary:
             log += proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+            log_path.write_text(log)
             os.replace(so_tmp, so_path)
         seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so_path))

@@ -18,6 +18,8 @@ The kernel is built from the sources in ``csrc/`` at first use
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -29,10 +31,8 @@ from .sampling import _f32, key_words, threefry2x32, _to_unit_float
 # block give a single bank (the JAX package's (8, 128) tile, kept so that the
 # position -> (bank, lane) map and _balanced_perm match it).
 BLOCK = 1024
-# Pixel banks per lane on the GPU, shared by the wrapper and the balancer
-# (render._balanced_perm).  One bank (one thread per pixel) was fastest on an
-# H100 at the cover frame, 1 < 2 < 4 < 8 < 16 banks: more lanes make more
-# blocks, and the card's block scheduler evens out their work (PERF.md).
+# Pixel banks per lane of the balancer's layout (render._balanced_perm); the
+# kernel fetches positions from a counter and reads no bank layout.
 GPU_BANKS = 1
 
 # Shared memory one block may use on an H100 (227 KB).
@@ -147,21 +147,22 @@ def render_block_persistent(
     plane = plane7 if plane7 is not None else torch.zeros(7, dtype=f32, device=dev)
     consts = torch.cat([sky6.to(f32), plane.to(f32), cam19.to(f32)]).contiguous()
     pix = pixel_ids.to(torch.int32).contiguous()
-    nb, n_lanes = bank_geometry(p, GPU_BANKS)
     k0, k1 = key_words(key2)
 
     out = torch.empty((p, 3), dtype=f32, device=dev)
     cnt = torch.empty((p,), dtype=f32, device=dev) if return_counts else None
+    # The kernel's pixel counter: its lanes fetch positions from it.
+    next_pos = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = load_library()
     # The launch goes to the current device: make it the tensors' device.
     with torch.cuda.device(dev):
         err = lib.lib.spt_persistent_render(
-            pix.data_ptr(), p, n_lanes, nb, tab.data_ptr(), s_pad,
+            pix.data_ptr(), p, tab.data_ptr(), s_pad,
             consts.data_ptr(), int(plane7 is not None), k0, k1,
             int(sample_offset) & 0xFFFFFFFF, int(n_samples), int(max_depth),
             int(width), _f32(1.0 / width), _f32(1.0 / height),
-            float(t_min), float(t_max), int(rr_start_depth), out.data_ptr(),
-            cnt.data_ptr() if cnt is not None else None,
+            float(t_min), float(t_max), int(rr_start_depth), next_pos.data_ptr(),
+            out.data_ptr(), cnt.data_ptr() if cnt is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -171,6 +172,18 @@ def render_block_persistent(
 
 
 render_block_persistent.launches = 0
+
+
+def grid_blocks(n_pix: int, n_spheres: int) -> int:
+    """Blocks of 128 lanes the kernel's resident grid has for ``n_pix``
+    pixels over ``n_spheres`` sphere slots (padded to a multiple of 4), on
+    the current CUDA device."""
+    s_pad = n_spheres + (-n_spheres) % 4
+    blocks = ctypes.c_int(0)
+    err = load_library().lib.spt_persistent_grid(int(n_pix), s_pad, ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"persistent kernel grid query failed: CUDA error {err}")
+    return blocks.value
 
 
 # --------------------------------------------------------------------------

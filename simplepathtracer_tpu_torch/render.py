@@ -170,6 +170,14 @@ def _uses_regen(config: RenderConfig) -> bool:
     return config.use_pallas_grad and config.grad_regen and not config.camera_grad
 
 
+def _uses_raygen(scene, config: RenderConfig) -> bool:
+    """The fused route makes a sphere scene's camera rays with the raygen
+    kernel, the camera detached, unless ``camera_grad`` asks for the
+    differentiable ``generate_rays``."""
+    return (config.use_pallas_grad and not config.use_pallas and scene.plane is None
+            and not config.camera_grad)
+
+
 def _clip(x, lo, hi):
     """jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)), whose gradient
     splits 0.5/0.5 where x equals a bound (torch.clamp passes it whole)."""
@@ -418,8 +426,7 @@ def render_pixels(scene, camera, config, key, pixel_ids, sample_ids):
     (the camera detached) unless ``camera_grad`` asks for the
     differentiable ``generate_rays``."""
     keys = ray_keys(key, pixel_ids, sample_ids)
-    if (config.use_pallas_grad and not config.use_pallas and scene.plane is None
-            and not config.camera_grad):
+    if _uses_raygen(scene, config):
         return trace_pixels_fused(camera, keys, scene, config)
     jit4 = camera_jitter(keys)
     origins, dirs = generate_rays(camera, config.width, config.height, keys.pixel, jit4)
@@ -454,10 +461,13 @@ def _balanced_perm(counts, n_banks: int = GPU_BANKS):
     """Cost-balancing pixel permutation for the persistent kernel's lanes.
 
     ``counts[q]``: measured bounce iterations of the pixel at position q
-    (from a probe pass).  The kernel gives position q to bank q // n_lanes,
-    lane q % n_lanes.  Snake assignment over the cost ranking: bank k takes
-    ranks [k * n_lanes, (k + 1) * n_lanes), laid onto lanes in alternating
-    direction, so every lane gets one pixel from each cost stratum.  The
+    (from a probe pass).  The banked layout (the JAX kernel's) gives
+    position q to bank q // n_lanes, lane q % n_lanes; the CUDA kernel
+    fetches positions in order, so with its one bank the permutation hands
+    out the costliest pixels first.  Snake assignment over the cost
+    ranking: bank k takes ranks [k * n_lanes, (k + 1) * n_lanes), laid onto
+    lanes in alternating direction, so every lane gets one pixel from each
+    cost stratum.  The
     sort is stable, as jnp.argsort is: integer counts tie constantly, and
     the permutation must not depend on how ties fall.
     """
@@ -491,7 +501,9 @@ def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_s
     samples are folded in ``spp_chunk``-sized steps to bound live memory;
     under autograd each step is recomputed in the backward
     (``torch.utils.checkpoint``), or the regen route streams its chunks.
-    Under ``camera_grad`` the camera's leaves count as differentiated too.
+    The camera's leaves count as differentiated too, except on the routes
+    that detach the camera (the regeneration kernels, the fused route's
+    raygen).
     The JAX package's ``_coherent_pixel_order`` (pixel tiles for the TPU
     kernels' block skipping) is not ported: it changes no value, and a
     warp's 32 row-adjacent rays are coherent already."""
@@ -535,8 +547,10 @@ def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_s
         rad = render_pixels(scene, camera, config, key, pids, sids)
         return torch.sum(rad.reshape(chunk, p, 3), dim=0)
 
+    # The camera's leaves count unless the route detaches the camera.
+    camera_detached = use_regen or _uses_raygen(scene, config)
     remat = n_steps > 1 and torch.is_grad_enabled() and _requires_grad(
-        scene, camera if config.camera_grad else None)
+        scene, None if camera_detached else camera)
     acc = torch.zeros((p, 3), dtype=torch.float32, device=pixel_ids.device)
     for i in range(n_steps):
         off = sample_offset + i * chunk

@@ -1,7 +1,9 @@
 """The per-bounce fused gradient kernels (``csrc/grad.cu``) against their
 plain versions on the card.  They are CUDA kernels with no CPU mode, so
 these tests skip without an NVIDIA GPU; ``chip_smoke.py`` phase 8 holds the
-same comparisons at the main path's shapes.  This file imports no JAX:
+same comparisons at the main path's shapes.  The forward's live-ray
+compaction is held on live patterns that stress it.  This file imports no
+JAX:
 
     python -m pytest --noconftest tests/test_torch_fused_cuda.py -m cuda
 
@@ -120,6 +122,69 @@ def test_fused_kernels_match_plain_on_card(name, spp, depth, rr, softness):
             assert _within_sum_bound(d, terms), b
         carry = ck
     assert torch.isfinite(carry).all() and carry[:6].abs().max() > 0
+
+
+def _alive_pattern(pattern, n):
+    """The alive plane of a compaction case: every ray, none, one ray in
+    each group of 32 (a warp's group), or every 33rd ray."""
+    alive = torch.zeros(n, device="cuda")
+    if pattern == "all":
+        alive[:] = 1.0
+    elif pattern == "one_per_group":
+        alive[17::32] = 1.0
+    elif pattern == "every33":
+        alive[::33] = 1.0
+    return alive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softness", [0.0, 0.05], ids=["hard", "soft"])
+@pytest.mark.parametrize("pattern", ["all", "dead", "one_per_group", "every33"])
+def test_fused_forward_compaction_on_card(pattern, softness):
+    """The forward queues a warp's live rays and scans them 32 at a time:
+    on live patterns that leave few, scattered or no live rays, over a
+    batch that is not a multiple of a warp's group or a block (61 x 29 x 3
+    = 5,307 rays), three chained bounces (soft: the previous-winner chain)
+    are bit-exact against the plain version, skip values included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    scene = tpt.compact_scene(tpt.cover_scene(0, device="cuda"))
+    cam = tpt.PRESETS["cover"].camera_fn("cuda")
+    w, h, spp, depth = 61, 29, 3, 3
+    p = w * h
+    pids = torch.arange(p, device="cuda").repeat(spp)
+    sids = torch.arange(spp, device="cuda").repeat_interleave(p)
+    keys = ray_keys(tpt.make_key(6), pids, sids)
+    cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, silhouette_softness=softness)
+    rays = fg.raygen(cam, keys, cfg)
+    n = rays.shape[1]
+    assert n % 32 and n % 128
+    inputs = scene_inputs(scene)
+    call = fg.fused_call(inputs[:11], inputs[11], keys.k0, keys.k1, max_depth=depth,
+                         softness=softness)
+    soft = softness > 0.0
+    pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+    alive = _alive_pattern(pattern, n)
+    state = torch.cat([rays, torch.ones((3, n), device="cuda"), alive[None]]).contiguous()
+    rad = torch.zeros((3, n), device="cuda")
+    prev = torch.full((n,), -1, dtype=torch.int32, device="cuda") if soft else None
+    variant = "soft" if soft else "hard"
+    for b in range(depth):
+        rad_p = rad.clone()
+        before = fg.grad_forward.launches[variant]
+        got = fg.grad_forward(call, state, rad, prev, pix, samp, b)
+        assert fg.grad_forward.launches[variant] == before + 1
+        want = fg.grad_fwd_reference(call, state, rad_p, prev, pix, samp, b)
+        for g, x in zip(got, want):
+            assert (g is None) == (x is None) and (g is None or torch.equal(g, x)), b
+        assert torch.equal(rad, rad_p), b
+        dead = state[9] <= 0
+        assert torch.equal(got[0][:9, dead], state[:9, dead]) and (got[2][dead] == -1).all()
+        state, prev = got[0], got[1]
+    if pattern == "dead":
+        assert not rad.any()
+    else:
+        assert (rad > 0).any() and torch.isfinite(rad).all()
 
 
 @pytest.mark.cuda

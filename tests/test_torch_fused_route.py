@@ -10,6 +10,10 @@ through the plain versions' call counters on the CPU:
 * the backward skips the buckets when no table leaf needs a gradient;
 * a chunked camera-leaf gradient is rematerialized per chunk, and equals
   the unchunked one to rounding (sums in another order: rtol 1e-6);
+* a camera leaf that requires a gradient without ``camera_grad`` makes
+  the chunks rematerialize wherever the route differentiates through the
+  camera (the eager route), and not where it detaches it (the regeneration
+  kernels, the fused route's raygen);
 * ``SIL_FRESNEL`` raises on the fused route as on the regeneration route.
 """
 
@@ -118,6 +122,36 @@ def test_camera_gradient_chunks_are_rematerialized(route, monkeypatch):
     torch.testing.assert_close(chunked[0], whole[0], rtol=1e-6, atol=0)
     for a, b in zip(chunked[1], whole[1]):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("route,remat", [("eager", True), ("regen", False), ("raygen", False)])
+def test_camera_leaf_remat_follows_the_route(route, remat, monkeypatch):
+    """A 48x24 render of 4 spp in chunks of 2 whose camera origin requires a
+    gradient, ``camera_grad`` off: the eager route's chunks depend on the
+    camera, so each is rematerialized, as ``jax.checkpoint`` would; the
+    regeneration and raygen routes detach the camera, so nothing is."""
+    flags = {"eager": {}, "regen": dict(use_pallas_grad=True, grad_regen=True,
+                                         grad_regen_stream=False),
+             "raygen": dict(use_pallas_grad=True)}[route]
+    scene = tpt.three_sphere_scene(device="cpu")
+    cam = tpt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=60, device="cpu")
+    cam = cam.replace(origin=cam.origin.clone().requires_grad_(True))
+    cfg = tpt.RenderConfig(width=48, height=24, spp=4, spp_chunk=2, max_depth=2, **flags)
+    steps = []
+
+    def counting(fn, *args, **kw):
+        steps.append(args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, **kw)
+
+    monkeypatch.setattr(port_render, "checkpoint", counting)
+    rad = port_render.render_pixel_block(scene, cam, cfg, tpt.make_key(1),
+                                         torch.arange(cfg.num_pixels), 0, cfg.spp)
+    assert len(steps) == (2 if remat else 0)
+    assert torch.isfinite(rad).all() and rad.max() > 0
+    assert rad.requires_grad == remat
+    if remat:
+        (g,) = torch.autograd.grad(rad.sum(), [cam.origin])
+        assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def test_sil_fresnel_raises_on_the_fused_route(monkeypatch):

@@ -4,29 +4,37 @@ JAX package's persistent kernel (interpret mode), sums and counts.
 On the CPU ``render_block_persistent`` takes its plain version, written in
 the kernel's formulation (direct |oc|^2), so it is compared with the JAX
 Pallas kernel, which uses the same formulation.  The CUDA kernel itself is
-held against the plain version on the card (test_kernel_matches_plain_on_card
-here, and chip_smoke.py).
+held against the plain version on the card by the ``cuda``-marked tests
+here (bit for bit, and run to run: its lanes fetch pixels from a counter)
+and by chip_smoke.py.  They need no JAX:
+
+    python -m pytest --noconftest tests/test_torch_persistent.py -m cuda
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import simplepathtracer_tpu as spt
 import simplepathtracer_tpu_torch as tpt
-from simplepathtracer_tpu.ops.pallas_common import banked_lane_layout
-from simplepathtracer_tpu.ops.pallas_persistent import DEFAULT_BANKS
-from simplepathtracer_tpu.render import _balanced_perm as j_balanced_perm
-from simplepathtracer_tpu.render import _render_block_pallas as j_block
-from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene
 from simplepathtracer_tpu_torch.ops import persistent
 from simplepathtracer_tpu_torch.render import (
     _balanced_perm,
     _persistent_args,
     _render_block_pallas,
 )
+
+try:  # the card's machine has no JAX; the cuda-marked tests need none
+    import jax
+    import jax.numpy as jnp
+
+    import simplepathtracer_tpu as spt
+    from simplepathtracer_tpu.ops.pallas_common import banked_lane_layout
+    from simplepathtracer_tpu.ops.pallas_persistent import DEFAULT_BANKS
+    from simplepathtracer_tpu.render import _balanced_perm as j_balanced_perm
+    from simplepathtracer_tpu.render import _render_block_pallas as j_block
+    from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene
+except ImportError:
+    pass
 
 
 def _gamma(x, spp):
@@ -152,3 +160,42 @@ def test_kernel_matches_plain_on_card():
     d = np.abs(_gamma(a.cpu(), 8) - _gamma(b.cpu(), 8))
     assert d.mean() < 1e-4 and (d > 1e-4).mean() < 5e-3
     assert (ca != cb).float().mean().item() < 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,w,h,spp,rr,perm",
+    [("plane", 47, 23, 7, 2, False), ("plane", 47, 23, 1, 0, False),
+     ("cover", 53, 29, 7, 0, False), ("cover", 53, 29, 1, 3, True)],
+    ids=["plane-7spp-rr", "plane-1spp", "cover-7spp", "cover-1spp-rr-perm"],
+)
+def test_kernel_is_bit_exact_on_card(name, w, h, spp, rr, perm):
+    """The kernel's lanes fetch pixels from a counter and regenerate in one
+    flat loop, so which lane sums a pixel changes from run to run but no
+    value does: over P not a multiple of the grid's lanes (a permuted subset
+    in the last case), sums and counts equal the plain version's bit for
+    bit, and two launches in a row give identical outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    if name == "plane":
+        scene = tpt.with_ground_plane(tpt.three_sphere_scene(device="cuda"))
+        cam = tpt.make_camera(**_TRIO_CAM, device="cuda")
+    else:
+        scene = tpt.compact_scene(tpt.cover_scene(0, device="cuda"))
+        cam = tpt.PRESETS["cover"].camera_fn("cuda")
+    cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=10, rr_start_depth=rr,
+                           use_pallas=True)
+    tables, sky6, cam19 = _persistent_args(scene, cam, cfg)
+    args = (tables, sky6, cam19, tpt.make_key(3), 5, spp, 10, w, h)
+    kw = dict(rr_start_depth=rr, return_counts=True, plane7=scene.plane)
+    gen = torch.Generator().manual_seed(4)
+    pix = (torch.randperm(w * h, generator=gen)[: w * h - 101] if perm
+           else torch.arange(w * h)).to("cuda")
+    before = persistent.render_block_persistent.launches
+    a, ca = persistent.render_block_persistent(pix, *args, **kw)
+    a2, ca2 = persistent.render_block_persistent(pix, *args, **kw)
+    assert persistent.render_block_persistent.launches == before + 2
+    b, cb = persistent.render_block_persistent_reference(pix, *args, **kw)
+    assert torch.equal(a, b) and torch.equal(ca, cb)
+    assert torch.equal(a, a2) and torch.equal(ca, ca2)
+    assert (ca >= spp).all() and (a > 0).any()
