@@ -57,6 +57,13 @@ plain versions' time would grow past the script's budget.  Every phase
 raises on failure.  The last lines are one JSON object with the kernels'
 numbers and one with the device; without CUDA the script exits non-zero
 and prints neither.  Imports nothing of JAX.
+
+It also prints the registers, spill and stack of every regen forward and
+fused backward instantiation, the regen forward's live-lane share (the
+fixed map's from the lanes' counts, the lane fetch's from the kernel's
+counters) and resident grid, the fused backward per bounce with ns per
+live ray-bounce, and the step times of the hard, default soft and camera
+fits.
 """
 
 from __future__ import annotations
@@ -256,6 +263,21 @@ def ptxas_usage(log, entry):
             out["registers"] = int(words[words.index("registers") - 1])
             seen = False
     return out
+
+
+def lane_shares(cnt, counters):
+    """How a regen forward launch shared out its lanes' iterations: the
+    fixed map's live-lane share (lanes 32 w .. 32 w + 31 in warp w, each
+    warp running until its longest lane ends) and the lane fetch's
+    (lane-iterations over the thread-iterations the kernel counted), with
+    the resident grid's blocks (the ``counters`` of ``regen_forward``)."""
+    c = cnt.double()
+    pad = (-c.numel()) % 32
+    warps = torch.cat([c, c.new_zeros(pad)]).view(-1, 32)
+    total = c.sum().item()
+    return dict(fixed_map=total / (32.0 * warps.amax(dim=1).sum().item()),
+                fetch=total / counters[1].item(), lane_iterations=total,
+                thread_iterations=counters[1].item(), grid_blocks=counters[2].item())
 
 
 _LAP = [0.0]
@@ -845,7 +867,13 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     del resf_f, resi_f, idx_f, res_fp
 
     ms[kn["regen_fwd"]] = cuda_ms(lambda: gr.regen_forward(call, 0, False), reps=2)
-    rad, cnt, packed = gr.regen_forward(call, 0, False)
+    counters = torch.zeros((3,), dtype=torch.int64, device=cnt_f.device)
+    rad, cnt, packed = gr.regen_forward(call, 0, False, counters)
+    res["lane_share"] = sh = lane_shares(cnt, counters)
+    print(f"{tag} regen fwd lanes: live-lane share {sh['fixed_map']:.4f} on the fixed map (one "
+          f"thread per lane), {sh['fetch']:.4f} on the lane fetch (lane-iterations "
+          f"{sh['lane_iterations']:.0f} / thread-iterations {sh['thread_iterations']}); resident "
+          f"grid {sh['grid_blocks']} blocks x 128 threads for {n} lanes")
     rad_p, cnt_p, packed_p = gr.regen_fwd_reference(sub, 0, False)
     ok = (torch.equal(rad[cols], rad_p) and torch.equal(cnt[cols], cnt_p)
           and torch.equal(packed[..., cols], packed_p)
@@ -856,6 +884,8 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     if not ok:
         raise RuntimeError("full width: regen forward kernel disagrees with its plain version")
     del rad_f, cnt_f
+    res["full_ms"] = cuda_ms(lambda: gr.regen_forward(call, 0, True), reps=1)
+    print(f"{tag} regen fwd (full residuals) {res['full_ms']:.3f} ms")
     iters = cnt.double().sum().item()
     res.update(iters_chunk=iters, n_iter=b, n_lanes=n)
     # Sphere tests; the packed words and sums are a few hundred MB.
@@ -1481,11 +1511,13 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
     carry_p = carry[:, rows]
     s = call.n_spheres
     bucket_ms, bucket_bound, bucket_lib_ms, bucket_ratio, bucket_rows_n = 0.0, [0.0, 0.0], 0.0, 0.0, 0
+    bwd_ms = [0.0] * depth
     for b in range(depth - 1, -1, -1):
         st, idx, bidx = saved[b]
-        ms["grad_bwd" + sfx] += cuda_ms(
+        bwd_ms[b] = cuda_ms(
             lambda: fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad, want_attr),
-            reps=2) / depth
+            reps=2)
+        ms["grad_bwd" + sfx] += bwd_ms[b] / depth
         ck, ak, _ = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad, want_attr)
         bound["grad_bwd" + sfx][0] += (live[b] * (BWD_OPS_PER_ITER_SOFT if soft else BWD_OPS_PER_ITER)
                                        / PEAK_FP32 / depth)
@@ -1517,8 +1549,14 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
              if want_attr else ""))
     if not (ok and bucket_ratio <= 1.0 and torch.isfinite(carry).all()):
         raise RuntimeError("full width: a fused backward kernel or bucket disagrees")
+    bwd_ns = [t * 1e6 / max(1, n_l) for t, n_l in zip(bwd_ms, live)]
+    bwd_later = sum(bwd_ms[1:]) * 1e6 / max(1, sum(live[1:]))
+    print(f"kernel grad_bwd{sfx} per bounce: ms {[round(t, 3) for t in bwd_ms]}; ns per live "
+          f"ray-bounce {[round(t, 3) for t in bwd_ns]}; bounce 0 {bwd_ns[0]:.3f} ns, bounces "
+          f"1-{depth - 1} {bwd_later:.3f} ns")
     res = {"ms": ms, "errs": errs, "live": live, "n_rays": n, "fwd_ms_per_bounce": fwd_ms,
-           "fwd_ns_per_live_ray_bounce": ns_live,
+           "fwd_ns_per_live_ray_bounce": ns_live, "bwd_ms_per_bounce": bwd_ms,
+           "bwd_ns_per_live_ray_bounce": bwd_ns,
            "bound_ms": {k: max(v) * 1e3 for k, v in bound.items()},
            "bound_by": {k: "operations" if v[0] >= v[1] else "bytes" for k, v in bound.items()}}
     if want_attr:
@@ -2255,6 +2293,13 @@ def main(argv=None):
         if "registers" in line or "spill" in line or line.startswith("---") or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
 
+    for v, vname in enumerate(("hard", "soft", "soft_plane")):
+        for mname, entry in (("idx", f"regen_idx_kernelILi{v}EE"),
+                             ("full", f"regen_kernelILi0ELi{v}EE")):
+            print(f"regen forward {vname} {mname}: {ptxas_usage(lib.log, entry)}")
+    for v, vname in enumerate(("hard", "soft")):
+        print(f"fused backward {vname}: {ptxas_usage(lib.log, f'grad_bwd_kernelILi{v}EE')}")
+
     kernel = persistent.render_block_persistent
     plain = persistent.render_block_persistent_reference
 
@@ -2471,6 +2516,8 @@ def main(argv=None):
             "live_rays_per_bounce": main8b["live"],
             "fwd_ms_per_bounce": main8b["fwd_ms_per_bounce"],
             "fwd_ns_per_live_ray_bounce": main8b["fwd_ns_per_live_ray_bounce"],
+            "bwd_ms_per_bounce": main8b["bwd_ms_per_bounce"],
+            "bwd_ns_per_live_ray_bounce": main8b["bwd_ns_per_live_ray_bounce"],
         },
         "fit_camera": {
             "shape": f"{cfg.width}x{cfg.height}x{cfg.spp}spp depth {cfg.max_depth}",
@@ -2483,6 +2530,8 @@ def main(argv=None):
             "live_rays_per_bounce": main8c["live"],
             "fwd_ms_per_bounce": main8c["fwd_ms_per_bounce"],
             "fwd_ns_per_live_ray_bounce": main8c["fwd_ns_per_live_ray_bounce"],
+            "bwd_ms_per_bounce": main8c["bwd_ms_per_bounce"],
+            "bwd_ns_per_live_ray_bounce": main8c["bwd_ns_per_live_ray_bounce"],
         },
         "vfov_adfd": adfd8,
         "readme_fit_camera": readme8,
@@ -2542,6 +2591,15 @@ def main(argv=None):
         "kernel_ms_at_plain_shape": kernel_small_ms,
         **usage,
     }]}
+    def regen_fwd_extra(name, res, v):
+        """The regen forward's registers (both recording modes), lane
+        shares and full-residual time; nothing for the other kernels."""
+        if not name.startswith("regen_fwd"):
+            return {}
+        return {"ptxas_idx": ptxas_usage(lib.log, f"regen_idx_kernelILi{v}EE"),
+                "ptxas_full": ptxas_usage(lib.log, f"regen_kernelILi0ELi{v}EE"),
+                "lane_share": res["lane_share"], "full_ms": res["full_ms"]}
+
     for name, source, replaces in GRAD_KERNELS:
         report["kernels"].append({
             "name": name,
@@ -2559,6 +2617,7 @@ def main(argv=None):
             "plain_ms_shape": grad_shapes[name],
             "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
             "launches_over_fit_steps": FIT_STEPS,
+            **regen_fwd_extra(name, main6, 0),
         })
     for name, source, replaces in SOFT_KERNELS:
         report["kernels"].append({
@@ -2577,6 +2636,7 @@ def main(argv=None):
             "plain_ms_shape": grad_shapes[name],
             "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
             "launches_over_fit_steps": FIT_STEPS,
+            **regen_fwd_extra(name, main7, 1),
         })
     plane_k, plane_fit = main7["plane_kernels"], main7["plane_fit"]
     for name, source, replaces in SOFT_PLANE_KERNELS:
@@ -2597,14 +2657,16 @@ def main(argv=None):
             "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
             "launches_over_fit_steps": FIT_STEPS,
             "launches_over_fits": [f["spp_chunk"] for f in plane_fit["fits"]],
+            **regen_fwd_extra(name, plane_k, 2),
         })
     for name, source, replaces in FUSED_KERNELS:
         res = main8c if name.endswith("_soft") else main8b
         fwd = {}
-        if name.startswith("grad_fwd"):
-            fwd = dict(ptxas_usage(lib.log, f"grad_fwd_kernelILi{int(res is main8c)}EE"),
-                       ms_per_bounce=res["fwd_ms_per_bounce"],
-                       ns_per_live_ray_bounce=res["fwd_ns_per_live_ray_bounce"])
+        for pre in ("grad_fwd", "grad_bwd"):
+            if name.startswith(pre):
+                fwd = dict(ptxas_usage(lib.log, f"{pre}_kernelILi{int(res is main8c)}EE"),
+                           ms_per_bounce=res[pre[5:] + "_ms_per_bounce"],
+                           ns_per_live_ray_bounce=res[pre[5:] + "_ns_per_live_ray_bounce"])
         report["kernels"].append({
             "name": name,
             "route": "cuda",
@@ -2652,6 +2714,9 @@ def main(argv=None):
         if name == "closest_hit_attrs":
             row["launches_over_fit_steps"] = FIT_STEPS
         report["kernels"].append(row)
+    print(f"step times (s): hard fit {main6['step_s']:.4f}, default soft fit "
+          f"{main7['step_s']:.4f}, fit_camera {main8c['step_s']:.4f}, fused scene-leaf "
+          f"{main8b['step_s']:.4f}")
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (from the card's first use; "
           f"per phase {phase_s}); wall {time.perf_counter() - _T_IMPORT:.1f} s")
     print(json.dumps(report))

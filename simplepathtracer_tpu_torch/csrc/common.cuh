@@ -221,6 +221,14 @@ __device__ __forceinline__ float4* load_soft_table(float4* dst,
 // beats the best accepted t before it and whose raw root lies above t_min
 // - 30 sigma_v,i (-1 if none).  Padding slots (NaN radius) fail every
 // test: disc and the score are NaN.
+//
+// Skip: the winner update needs disc > lgt * scale_i (acceptance) and the
+// blocker update disc / r_i^2 > qs, so a sphere that passes neither changes
+// nothing and its root, t and thresholds are not computed (a NaN disc fails
+// both, as it fails every test after them).  Where disc <= 1e-12 (a NaN
+// disc too) the root sqrt(max(disc, 1e-12)) is the constant sqrt(1e-12).
+// The order of the spheres, the first-on-ties rules and qs's update are
+// those of the full test.
 __device__ __forceinline__ void closest_hit_soft(
     const float4* __restrict__ geo, const float4* __restrict__ soft,
     int n_spheres, float ox, float oy, float oz, float dx, float dy, float dz,
@@ -230,6 +238,7 @@ __device__ __forceinline__ void closest_hit_soft(
   bi = -1;
   qi = -1;
   float qs = -INFINITY;
+  const float sq_min = sqrtf(1e-12f);
 #pragma unroll 2
   for (int i = 0; i < n_spheres; ++i) {
     const float4 g = geo[i];
@@ -238,17 +247,20 @@ __device__ __forceinline__ void closest_hit_soft(
     const float tc = ocx * dx + ocy * dy + ocz * dz;
     const float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
     const float disc = g.w * g.w - (oc2 - tc * tc);
-    const float sq = sqrtf(fmaxf(disc, 1e-12f));
+    const bool in_band = disc > lgt * st.x;
+    const float score = disc * st.y;
+    if (!in_band && !(score > qs)) continue;
+    // sqrt(max(disc, 1e-12)): the clamped root is a constant.
+    float sq = sq_min;
+    if (disc > 1e-12f) sq = sqrtf(disc);
     const float t_near = tc - sq;
     const float t_raw = t_near > t_min ? t_near : tc + sq;
     const float t = fmaxf(t_raw, t_min);
     const bool is_prev = prev == i;
     const float thr_v = is_prev ? 0.0f : lgtv * st.z;
     const float gate = is_prev ? 0.0f : st.w;
-    const bool accept =
-        disc > lgt * st.x && t_raw > t_min + thr_v && t_raw < t_max;
+    const bool accept = in_band && t_raw > t_min + thr_v && t_raw < t_max;
     const bool in_front = t < bt;
-    const float score = disc * st.y;
     if (!accept && t_raw > t_min + gate && in_front && score > qs) {
       qi = i;
       qs = score;

@@ -33,17 +33,20 @@
 // the sphere table into shared memory once.  A dead ray (alive 0) needs no
 // scan: the forward copies its entry state and writes the JAX kernels'
 // skip values (idx and bidx -1), the backward passes its carried
-// cotangents through and writes zero attribute cotangents.  The backward
-// runs one thread per ray in a grid-stride loop.  The forward compacts the
-// live rays first, because after bounce 0 they are scattered over the
+// cotangents through and writes zero attribute cotangents.  Both compact
+// the live rays first, because after bounce 0 they are scattered over the
 // batch (cover at 8 spp: 7.68 M live at bounce 0, 0.115 M at bounce 9),
-// and the scan's trip count is fixed: a warp with 3 live lanes costs as
-// much as one with 32.  Each warp walks groups of 32 consecutive rays
+// and a warp runs the scan (forward) or the adjoint (backward) as long as
+// its slowest lane: a warp with 3 live lanes costs as much as one with 32.
+// Each warp walks groups of 32 consecutive rays
 // (group w, w + warps, ...): a lane reads its ray's alive flag, a dead
-// ray gets its skip values at once (coalesced), and the live rays' indices
-// go to the warp's ring in shared memory (ballot and popc, in ray order).
-// Whenever 32 are queued the warp runs them, one per lane, and after its
-// last group the rest: every scan but a warp's last runs on 32 live rays.
+// ray gets its skip values (backward: its cotangent copy) at once
+// (coalesced), and the live rays' indices go to the warp's ring in shared
+// memory (ballot and popc, in ray order; the backward queues each live
+// ray's 26 inputs, loaded there by the lane that classified it, so they are
+// read coalesced with their group's and not gathered again).  Whenever 32
+// are queued the warp runs them, one per lane, and after its last group the
+// rest: every scan or adjoint but a warp's last runs on 32 live rays.
 // Each live ray computes exactly what it computed with one thread per ray.
 // The JAX forward also stores the winner's 9 attributes and material per
 // ray; the backward here instead reads them by index from the
@@ -78,6 +81,14 @@ constexpr int kVariants = 2;  // kHard, kSoft
 constexpr int kAlive = 9;
 // Carried cotangent planes: origin, direction, throughput.
 constexpr int kCarry = 9;
+// The backward's ring entries: float fields (entry state 0-8, carried
+// cotangents 9-17, radiance cotangent 18-20) and int fields (the ray, its
+// winner and blocker, pixel, sample).
+constexpr int kRingState = 0, kRingCt = 9, kRingCtRad = 18, kRingF = 21;
+constexpr int kRingRay = 0, kRingIdx = 1, kRingBidx = 2, kRingPix = 3,
+              kRingSamp = 4, kRingI = 5;
+// Shared memory of the backward's rings (every warp's).
+constexpr size_t kRingBytes = (kThreads / 32) * (kRingF + kRingI) * kQueue * 4;
 
 // consts: sky lo/hi 0:6, soft constants 6:9 (SoftK; zeros when hard).
 struct FusedConsts {
@@ -254,6 +265,9 @@ __device__ __forceinline__ void block_sum_atomic(float (&v)[K], float* out) {
   }
 }
 
+// The backward's registers stay uncapped (146 hard, 168 soft, no spill): a
+// bound of 3 or 4 blocks per SM (168 and 128 registers, the latter
+// spilling) ran no faster on an H100.
 template <int V>
 __global__ void __launch_bounds__(kThreads) grad_bwd_kernel(
     int n, const float* __restrict__ tab, int n_spheres,
@@ -276,34 +290,38 @@ __global__ void __launch_bounds__(kThreads) grad_bwd_kernel(
   const bool do_rr = static_cast<int>(bounce) >= rr_start_depth;
   const float no_plane[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float sky_acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    if (!(state[kAlive * N + i] > 0.0f)) {
-      // Dead ray: the bounce was the identity on (o, d, tp).
-#pragma unroll
-      for (int c = 0; c < kCarry; ++c) ct_out[c * N + i] = ct_in[c * N + i];
-      if (ct_attr != nullptr) {
-#pragma unroll
-        for (int j = 0; j < kCt; ++j) ct_attr[j * N + i] = 0.0f;
-      }
-      continue;
-    }
+  // Each warp's ring of queued live rays, after the tables (2.5 float4 per
+  // slot; n_spheres is a multiple of 4): the inputs each ray's adjoint
+  // reads, loaded by the lane that classified it (so the loads of a group
+  // of 32 consecutive rays stay coalesced), by field.
+  const int warp = threadIdx.x >> 5;
+  float* const rings = reinterpret_cast<float*>(smem + 2 * n_spheres + n_spheres / 2);
+  float(*rf)[kQueue] = reinterpret_cast<float(*)[kQueue]>(rings) + warp * kRingF;
+  int(*ri)[kQueue] = reinterpret_cast<int(*)[kQueue]>(
+                         rings + (kThreads / 32) * kRingF * kQueue) + warp * kRingI;
+
+  // The adjoint of the live ray queued at ring slot q: the bounce rebuilt
+  // from its entry state and recorded indices, bounce_adjoint, the stores,
+  // the sky sum.
+  auto run = [&](int q) {
+    const int i = ri[kRingRay][q];
     Bounce f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      f.o[c] = state[c * N + i];
-      f.d[c] = state[(3 + c) * N + i];
-      f.tp[c] = state[(6 + c) * N + i];
+      f.o[c] = rf[kRingState + c][q];
+      f.d[c] = rf[kRingState + 3 + c][q];
+      f.tp[c] = rf[kRingState + 6 + c][q];
     }
-    load_winner(tabs, idx[i], f);
+    load_winner(tabs, ri[kRingIdx][q], f);
     f.do_rr = do_rr;
-    const uint32_t c1b = static_cast<uint32_t>(samp[i]) << 8;
-    bounce_uniforms(k0, k1, static_cast<uint32_t>(pix[i]), c1b, bounce, f.u);
+    const uint32_t c1b = static_cast<uint32_t>(ri[kRingSamp][q]) << 8;
+    bounce_uniforms(k0, k1, static_cast<uint32_t>(ri[kRingPix][q]), c1b,
+                    bounce, f.u);
     bounce_forward<V>(f, k.sky, t_min, t_max, rr_on, k.soft.sil_c);
     Soft sf;
     SoftCt sa;
     if constexpr (kSoftV) {
-      const int qi = bidx[i];
+      const int qi = ri[kRingBidx][q];
       float blk[4];
       blocker_attrs(tabs, qi, blk);
       sf.bval = qi >= 0;
@@ -315,10 +333,10 @@ __global__ void __launch_bounds__(kThreads) grad_bwd_kernel(
     float co[3], cd[3], ctp[3], ctr[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      co[c] = ct_in[c * N + i];
-      cd[c] = ct_in[(3 + c) * N + i];
-      ctp[c] = ct_in[(6 + c) * N + i];
-      ctr[c] = ct_rad[c * N + i];
+      co[c] = rf[kRingCt + c][q];
+      cd[c] = rf[kRingCt + 3 + c][q];
+      ctp[c] = rf[kRingCt + 6 + c][q];
+      ctr[c] = rf[kRingCtRad + c][q];
     }
     float g_o[3], g_d[3], g_tp[3], g_a9[9], g_sky[6];
     bounce_adjoint<V>(f, rr_on, co, cd, ctp, ctr, g_o, g_d, g_tp, g_a9, g_sky,
@@ -340,6 +358,59 @@ __global__ void __launch_bounds__(kThreads) grad_bwd_kernel(
     }
 #pragma unroll
     for (int c = 0; c < 6; ++c) sky_acc[c] = sky_acc[c] + g_sky[c];
+  };
+
+  // As grad_fwd_kernel: warp w classifies the groups of 32 consecutive rays
+  // w, w + n_warps, ..., passes the dead rays' cotangents through at once,
+  // queues the live rays' inputs and runs their adjoints 32 at a time.
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const int n_warps = gridDim.x * (kThreads / 32);
+  const int n_groups = (n + 31) / 32;
+  int head = 0, count = 0;  // the ring's queued entries (warp-uniform)
+  for (int g = blockIdx.x * (kThreads / 32) + warp;; g += n_warps) {
+    const bool more = g < n_groups;
+    if (more) {
+      const int i = g * 32 + lane;
+      const bool in = i < n;
+      const bool live = in && state[kAlive * N + i] > 0.0f;
+      if (in && !live) {
+        // Dead ray: the bounce was the identity on (o, d, tp).
+#pragma unroll
+        for (int c = 0; c < kCarry; ++c) ct_out[c * N + i] = ct_in[c * N + i];
+        if (ct_attr != nullptr) {
+#pragma unroll
+          for (int j = 0; j < kCt; ++j) ct_attr[j * N + i] = 0.0f;
+        }
+      }
+      // Queue the live rays in ray order.
+      const unsigned m = __ballot_sync(0xffffffffu, live);
+      if (live) {
+        const int q = (head + count + __popc(m & below)) & (kQueue - 1);
+        ri[kRingRay][q] = i;
+#pragma unroll
+        for (int c = 0; c < 9; ++c) {
+          rf[kRingState + c][q] = state[c * N + i];
+          rf[kRingCt + c][q] = ct_in[c * N + i];
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) rf[kRingCtRad + c][q] = ct_rad[c * N + i];
+        ri[kRingIdx][q] = idx[i];
+        if constexpr (kSoftV) ri[kRingBidx][q] = bidx[i];
+        ri[kRingPix][q] = pix[i];
+        ri[kRingSamp][q] = samp[i];
+      }
+      count += __popc(m);
+      __syncwarp();
+    }
+    if (count >= 32 || (!more && count > 0)) {
+      const int take = count < 32 ? count : 32;
+      if (lane < take) run((head + lane) & (kQueue - 1));
+      head = (head + take) & (kQueue - 1);
+      count -= take;
+      __syncwarp();  // every lane has read its entry before the ring refills
+    }
+    if (!more) break;
   }
   block_sum_atomic<6>(sky_acc, sky_out);
 }
@@ -403,7 +474,7 @@ cudaError_t launch_bwd(int n, const void* tab, int n_spheres,
                        const void* bidx, const void* pix, const void* samp,
                        const void* ct_in, const void* ct_rad, void* ct_out,
                        void* ct_attr, void* sky_out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n_spheres) * kSmemPerSphere;
+  const size_t smem = static_cast<size_t>(n_spheres) * kSmemPerSphere + kRingBytes;
   int blocks = 0;
   cudaError_t err = allow_smem(grad_bwd_kernel<V>, smem);
   if (err == cudaSuccess)

@@ -4,7 +4,7 @@
 //
 // Replace the TPU kernels of the JAX package's ops/pallas_grad_regen.py:
 //   regen_kernel<kModeFull, V>   _regen_fwd_kernel, emit_full=True
-//   regen_kernel<kModeIdx, V>    _regen_fwd_kernel, emit_idx_only=True
+//   regen_idx_kernel<V>          _regen_fwd_kernel, emit_idx_only=True
 //   regen_kernel<kModeRefwd, V>  _regen_refwd_kernel
 //   regen_bwd_kernel<V>          _regen_bwd_kernel
 // V = kHard, kSoft (soft silhouettes) or kSoftPlane (soft with a ground
@@ -42,15 +42,25 @@
 // kernels compute only what changes values (the capped-sqrt root and its
 // clamp to t_min); the backward computes den and its adjoint.
 //
-// Design.  One thread per lane; ray state in registers.  Planes are
-// [n_iter, n_lanes] (iteration-major), so a warp's stores coalesce.  A
-// lane's live iterations are 0 .. count - 1 (it regenerates at once until
-// its banks are done), so the forward breaks out of its loop there and
-// marks the rest dead (alive 0, idx and bidx -1, packed words 0); the
-// backward skips dead iterations and writes their cotangents as 0.  Sphere
-// tables sit in shared memory (common.cuh); the re-forward reads its
-// winner and blocker by index there instead of the TPU's one-hot matrix
-// product.  Per-lane partials are written once and summed by the host, so
+// Design.  A lane's ray state lives in registers, and each iteration of a
+// lane is one step (regen_step), the same arithmetic in every mode.  Planes
+// are [n_iter, n_lanes] (iteration-major).  A lane's live iterations are 0
+// .. count - 1 (it regenerates at once until its banks are done); the
+// iterations after read as dead (alive 0, idx and bidx -1, packed words 0).
+// The idx-only recording forward (regen_idx_kernel, the streamed main
+// path's) runs a resident grid whose threads fetch lanes from a device
+// counter, as persistent.cu fetches pixels: a thread that ends its lane
+// takes the next inside the same loop, so a warp runs until the card has
+// no lane left, not until its longest lane ends, and the grid has no last
+// wave; which thread runs a lane changes from run to run, no value does.
+// Its words after a lane's end are zeroed by the wrapper before the
+// launch.  The full-residual forward and the re-forward (regen_kernel) keep
+// one thread per lane, so their 25-30 plane stores per iteration coalesce
+// (on lanes that drift apart they did not, and the hard full forward took
+// 1.7x as long), and write the dead iterations themselves.  The backward
+// skips dead iterations and writes their cotangents as 0.  Sphere tables
+// sit in shared memory (common.cuh); the re-forward reads its winner and
+// blocker by index there instead of the TPU's one-hot matrix product.  Per-lane partials are written once and summed by the host, so
 // every result is deterministic.
 //
 // Bound.  The recording forward is bound by the sphere scan's FP32 work,
@@ -72,6 +82,12 @@ namespace spt {
 namespace {
 
 constexpr int kThreads = 128;
+// Blocks per SM the launch bounds of the forward kernels ask for: 7 x 128
+// threads cap them at 72 registers (the soft scan needs 70 without a
+// spill; at 8 blocks, 64 registers, it spilled and ran 6% slower on an
+// H100; unbounded, the re-forward took 94 and ran at 5 blocks per SM).
+constexpr int kRegenBlocksPerSm = 7;
+constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kModeFull = 0;
 constexpr int kModeIdx = 1;
 constexpr int kModeRefwd = 2;
@@ -83,6 +99,9 @@ constexpr int kFRegen = 10;
 constexpr int kFAttr = 11;
 constexpr int kFBlk = 20;
 constexpr int kIKb = 0, kIS = 1, kIB = 2, kIIdx = 3, kIMat = 4, kIBlk = 5;
+// The recording forward's counters (u64): 0 the next lane to fetch, 1
+// thread-iterations (32 per loop trip of a warp), 2 the grid's blocks.
+constexpr int kCntNext = 0, kCntThreadIters = 1, kCntBlocks = 2;
 
 struct Consts {
   float sky[6], pl[7], cam[19];
@@ -112,225 +131,381 @@ __device__ __forceinline__ uint32_t lane_pixel(const int* __restrict__ ids,
   return static_cast<uint32_t>(ids[pos]);
 }
 
-template <int MODE, int V>
-__global__ void __launch_bounds__(kThreads) regen_kernel(
-    const int* __restrict__ pixel_ids, int n_pix, int n_lanes, int n_banks,
-    const float* __restrict__ tab, int n_spheres,
-    const float* __restrict__ consts, int use_plane, uint32_t k0, uint32_t k1,
-    uint32_t sample_offset, int n_samples, int max_depth, int width,
-    float inv_w, float inv_h, float t_min, float t_max, int rr_start_depth,
-    int n_iter, const float* __restrict__ soft_tab,
-    const int* __restrict__ idx_in, float* __restrict__ out_rad,
-    float* __restrict__ out_cnt, float* __restrict__ resf,
-    int* __restrict__ resi, int* __restrict__ packed) {
-  constexpr bool kSoftV = V != kHard;
-  extern __shared__ float4 smem[];
-  const SphereTables tabs = load_sphere_tables(smem, tab, n_spheres);
-  const float4* soft = nullptr;
-  if constexpr (kSoftV) {
+// What a launch of regen_idx_kernel / regen_kernel reads and writes
+// (spt_regen_forward's arguments; the kernels take them one by one).
+struct RegenArgs {
+  const int* pixel_ids;
+  int n_pix, n_lanes, n_banks;
+  const float* tab;
+  int n_spheres;
+  const float* consts;
+  int use_plane;
+  uint32_t k0, k1, sample_offset;
+  int n_samples, max_depth, width;
+  float inv_w, inv_h, t_min, t_max;
+  int rr_start_depth, n_iter;
+  const float* soft_tab;
+  const int* idx_in;
+  float* out_rad;
+  float* out_cnt;
+  float* resf;
+  int* resi;
+  int* packed;
+  unsigned long long* counters;
+};
+
+// One lane's walk between iterations.
+struct LaneState {
+  int kb, s, b, it;
+  int prev;  // soft: the chain's previous sphere winner
+  int word, bword;
+  bool alive;
+  uint32_t pix;
+  float o[3], d[3], tp[3], acc[3];
+};
+
+__device__ __forceinline__ void lane_start(LaneState& w) {
+  w.kb = w.s = w.b = w.it = 0;
+  w.prev = -1;
+  w.word = w.bword = 0;
+  w.alive = false;
+  w.pix = 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    w.o[c] = 0.0f;
+    w.d[c] = c == 2 ? 1.0f : 0.0f;
+    w.tp[c] = 1.0f;
+    w.acc[c] = 0.0f;
+  }
+}
+
+// Whether the lane's walk is over: its budget is spent, or its last bank's
+// last sample ended.
+__device__ __forceinline__ bool lane_done(const RegenArgs& a,
+                                          const LaneState& w) {
+  return w.it >= a.n_iter || (!w.alive && w.kb >= a.n_banks);
+}
+
+// Shared-memory tables of a block: the spheres and the soft scan's.
+struct BlockTables {
+  SphereTables tabs;
+  const float4* soft;
+};
+
+template <int V>
+__device__ __forceinline__ BlockTables load_block(const RegenArgs& a,
+                                                  float4* smem) {
+  BlockTables t;
+  t.tabs = load_sphere_tables(smem, a.tab, a.n_spheres);
+  t.soft = nullptr;
+  if constexpr (V != kHard) {
     // After geo, att (n float4 each) and att2 (n float2; n is a multiple
     // of 4).
-    soft = load_soft_table(smem + 2 * n_spheres + n_spheres / 2, soft_tab,
-                           n_spheres);
+    t.soft = load_soft_table(smem + 2 * a.n_spheres + a.n_spheres / 2,
+                             a.soft_tab, a.n_spheres);
   }
+  return t;
+}
+
+// The forward kernels' parameters, restrict-qualified so the compiler knows
+// that the planes they write alias nothing they read (the same pointers as
+// fields of one struct parameter lose that: the full-residual forward ran
+// 10% slower on an H100), and the RegenArgs each kernel builds from them.
+#define SPT_REGEN_PARAMS                                                      \
+  const int* __restrict__ pixel_ids, int n_pix, int n_lanes, int n_banks,     \
+      const float* __restrict__ tab, int n_spheres,                           \
+      const float* __restrict__ consts, int use_plane, uint32_t k0,           \
+      uint32_t k1, uint32_t sample_offset, int n_samples, int max_depth,      \
+      int width, float inv_w, float inv_h, float t_min, float t_max,          \
+      int rr_start_depth, int n_iter, const float* __restrict__ soft_tab,     \
+      const int* __restrict__ idx_in, float* __restrict__ out_rad,            \
+      float* __restrict__ out_cnt, float* __restrict__ resf,                  \
+      int* __restrict__ resi, int* __restrict__ packed,                       \
+      unsigned long long* __restrict__ counters
+#define SPT_REGEN_FIELDS                                                      \
+  pixel_ids, n_pix, n_lanes, n_banks, tab, n_spheres, consts, use_plane, k0,  \
+      k1, sample_offset, n_samples, max_depth, width, inv_w, inv_h, t_min,    \
+      t_max, rr_start_depth, n_iter, soft_tab, idx_in, out_rad, out_cnt,      \
+      resf, resi, packed, counters
+
+// Iteration w.it of lane ``lane`` (whose walk is not over): one bounce,
+// regenerating a camera ray first if no path is in flight, with its
+// records; then w.it + 1.
+template <int MODE, int V>
+__device__ __forceinline__ void regen_step(const RegenArgs& a,
+                                           const BlockTables& bt_,
+                                           const Consts& k, int lane,
+                                           LaneState& w) {
+  constexpr bool kSoftV = V != kHard;
+  const SphereTables& tabs = bt_.tabs;
+  const size_t L = static_cast<size_t>(a.n_lanes);
+  const size_t plane_stride = static_cast<size_t>(a.n_iter) * L;
+  // Packed words: winners, then (soft) blockers, [n_iter / 3, n_lanes] each.
+  const size_t word_stride = static_cast<size_t>(a.n_iter / 3) * L;
+  const int it = w.it;
+  auto fp = [&](int plane) -> float& {
+    return a.resf[plane * plane_stride + static_cast<size_t>(it) * L + lane];
+  };
+  auto ip = [&](int plane) -> int& {
+    return a.resi[plane * plane_stride + static_cast<size_t>(it) * L + lane];
+  };
+  const bool rr_on = a.rr_start_depth != 0;
+  const bool regen = !w.alive;
+  const uint32_t c1b = (a.sample_offset + static_cast<uint32_t>(w.s)) << 8;
+  if (regen) {
+    // Next sample (or the next bank's pixel): a fresh camera ray.
+    w.pix = lane_pixel(a.pixel_ids, a.n_pix, a.n_lanes, w.kb, lane);
+    const float xf = static_cast<float>(w.pix % static_cast<uint32_t>(a.width));
+    const float yf = static_cast<float>(w.pix / static_cast<uint32_t>(a.width));
+    camera_ray(k.cam, a.k0, a.k1, w.pix, c1b, xf, yf, a.inv_w, a.inv_h,
+               w.o[0], w.o[1], w.o[2], w.d[0], w.d[1], w.d[2]);
+    w.tp[0] = w.tp[1] = w.tp[2] = 1.0f;
+    w.b = 0;
+    w.prev = -1;
+    w.alive = true;
+  }
+  if (MODE != kModeIdx) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      fp(c) = w.o[c];
+      fp(3 + c) = w.d[c];
+      fp(6 + c) = w.tp[c];
+    }
+    fp(kFAlive) = 1.0f;
+    fp(kFRegen) = regen ? 1.0f : 0.0f;
+    ip(kIKb) = w.kb;
+    ip(kIS) = w.s;
+    ip(kIB) = w.b;
+  }
+  Bounce f;
+  // Soft: the acceptance coin u[7] is read by the scan.
+  if constexpr (kSoftV)
+    bounce_uniforms(a.k0, a.k1, w.pix, c1b, static_cast<uint32_t>(w.b), f.u);
+  const int field = it % 3;
+  int bi, qi = -1;
+  if (MODE == kModeRefwd) {
+    // The recorded winner (and blocker) instead of the scan.
+    const size_t wp = static_cast<size_t>(it / 3) * L + lane;
+    if (field == 0) {
+      w.word = a.idx_in[wp];
+      if constexpr (kSoftV) w.bword = a.idx_in[word_stride + wp];
+    }
+    bi = ((w.word >> (kIdxBits * field)) & kIdxMask) - 1;
+    if constexpr (kSoftV) qi = ((w.bword >> (kIdxBits * field)) & kIdxMask) - 1;
+  } else if constexpr (kSoftV) {
+    // Acceptance coin u[7]; crossing (ux) and validity (uv) coins in
+    // slot 128 + b.
+    float ux, uv;
+    uniforms(a.k0, a.k1, w.pix, c1b | (128u + static_cast<uint32_t>(w.b)), ux,
+             uv);
+    float bt;
+    closest_hit_soft(tabs.geo, bt_.soft, a.n_spheres, w.o[0], w.o[1], w.o[2],
+                     w.d[0], w.d[1], w.d[2], a.t_min, a.t_max,
+                     silhouette_logit(f.u[7]), silhouette_logit(uv), w.prev,
+                     bt, bi, qi);
+    if constexpr (V == kSoftPlane) {
+      // Plane-vs-sphere crossing coin: the sphere beats the plane iff
+      // t_s < t_p + logit(ux) * sigma_x(r_s); a plane win over a sphere
+      // less than 30 sigma_x behind stashes that sphere as the blocker.
+      const float denom =
+          w.d[0] * k.pl[0] + w.d[1] * k.pl[1] + w.d[2] * k.pl[2];
+      const float num = -(w.o[0] * k.pl[0] + w.o[1] * k.pl[1] +
+                          w.o[2] * k.pl[2] + k.pl[3]);
+      const bool live = fabsf(denom) > 1e-8f;
+      const float tpl = num / (live ? denom : 1.0f);
+      const float pre_r = bi >= 0 ? tabs.geo[bi].w : 1.0f;
+      const float sigx = crossing_scale(pre_r, k.soft);
+      const float thr_x = silhouette_logit(ux) * sigx;
+      const bool wins = live && tpl > a.t_min && tpl < a.t_max &&
+                        !(bi >= 0 && bt < tpl + thr_x);
+      const bool steal = wins && bi >= 0 && bt - tpl < 30.0f * sigx;
+      if (steal) qi = bi;
+      if (wins) bi = steal ? kPlaneCrossIdx : kPlaneIdx;
+    }
+  } else {
+    float bt = a.t_max;
+    bi = closest_hit(tabs.geo, a.n_spheres, w.o[0], w.o[1], w.o[2], w.d[0],
+                     w.d[1], w.d[2], a.t_min, bt);
+    float tpl, sgn;
+    if (a.use_plane && plane_wins(k.pl, w.o[0], w.o[1], w.o[2], w.d[0],
+                                  w.d[1], w.d[2], a.t_min, bt, tpl, sgn))
+      bi = kPlaneIdx;
+  }
+  float wa[9];
+  winner_attrs(tabs, k.pl, bi, wa, f.mat);
+  float blk[4];
+  if constexpr (kSoftV) blocker_attrs(tabs, qi, blk);
+  if (MODE == kModeIdx) {
+    const int v = bi + 1;
+    w.word = field == 0 ? v : w.word + v * (1 << (kIdxBits * field));
+    if constexpr (kSoftV) {
+      const int bv = qi + 1;
+      w.bword = field == 0 ? bv : w.bword + bv * (1 << (kIdxBits * field));
+    }
+    if (field == 2) {
+      const size_t wpos = static_cast<size_t>(it / 3) * L + lane;
+      a.packed[wpos] = w.word;
+      if constexpr (kSoftV) a.packed[word_stride + wpos] = w.bword;
+    }
+  } else {
+    ip(kIIdx) = bi;
+    ip(kIMat) = f.mat;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) fp(kFAttr + j) = wa[j];
+    if constexpr (kSoftV) {
+      ip(kIBlk) = qi;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fp(kFBlk + j) = blk[j];
+    }
+  }
+
+  // The bounce (soft: its values; the detached ratio is 1).
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    f.o[c] = w.o[c];
+    f.d[c] = w.d[c];
+    f.tp[c] = w.tp[c];
+    f.c[c] = wa[c];
+    f.alb[c] = wa[4 + c];
+  }
+  f.r = wa[3];
+  f.fz = wa[7];
+  f.io = wa[8];
+  f.hit = bi >= 0;
+  if constexpr (kSoftV) {
+    f.pm = V == kSoftPlane && is_plane_code(bi);
+  } else {
+    f.pm = a.use_plane && bi == kPlaneIdx;
+  }
+  f.do_rr = w.b >= a.rr_start_depth;
+  if constexpr (!kSoftV)
+    bounce_uniforms(a.k0, a.k1, w.pix, c1b, static_cast<uint32_t>(w.b), f.u);
+  bounce_forward<V>(f, k.sky, a.t_min, a.t_max, rr_on, k.soft.sil_c);
+  const bool surv = f.surv && w.b + 1 < a.max_depth;
+  if (!f.hit) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) w.acc[c] = w.acc[c] + f.rad[c];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    w.o[c] = f.no[c];
+    w.d[c] = f.nd[c];
+    w.tp[c] = f.ntp[c];
+  }
+  if constexpr (kSoftV) w.prev = f.hit && !f.pm ? bi : -1;
+  if (surv) {
+    ++w.b;
+  } else if (++w.s >= a.n_samples) {
+    // The bank's last sample ended: its pixel's sum is complete.
+    const long long pos = static_cast<long long>(w.kb) * a.n_lanes + lane;
+    if (MODE != kModeRefwd && pos < a.n_pix) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) a.out_rad[3 * pos + c] = w.acc[c];
+    }
+    w.acc[0] = w.acc[1] = w.acc[2] = 0.0f;
+    w.s = 0;
+    ++w.kb;
+  }
+  w.alive = surv;
+  w.it = it + 1;
+}
+
+// The idx-only recording forward on a resident grid whose threads fetch
+// lanes: a thread whose lane's walk is over writes the lane's count and its
+// last, partly filled words, and takes the next lane index from
+// counters[kCntNext], one atomicAdd per warp for the threads that need one,
+// inside the same loop, so no thread of a warp waits for another's lane to
+// end.  A lane's records are those of the fixed map; its words after the
+// walk's end are not written here: the wrapper zeroes them first.
+template <int V>
+__global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
+    regen_idx_kernel(SPT_REGEN_PARAMS) {
+  const RegenArgs a = {SPT_REGEN_FIELDS};
+  extern __shared__ float4 smem[];
+  // The constants in shared memory: registers are this kernel's limit.
+  __shared__ Consts k;
+  const BlockTables bt = load_block<V>(a, smem);
+  if (threadIdx.x == 0) load_consts(consts, k);
+  __syncthreads();
+  const size_t L = static_cast<size_t>(a.n_lanes);
+  const int wl = threadIdx.x & 31;
+  const unsigned below = (1u << wl) - 1u;
+  int lane = 0;
+  bool has_lane = false;  // lane's walk is in progress
+  bool done = false;      // no lane left for the thread
+  unsigned long long trips = 0;
+  LaneState w;
+  for (;;) {
+    if (has_lane && lane_done(a, w)) {
+      a.out_cnt[lane] = static_cast<float>(w.it);
+      if (w.it % 3 != 0) {
+        const size_t wpos = static_cast<size_t>(w.it / 3) * L + lane;
+        a.packed[wpos] = w.word;
+        if constexpr (V != kHard)
+          a.packed[static_cast<size_t>(a.n_iter / 3) * L + wpos] = w.bword;
+      }
+      has_lane = false;
+    }
+    const bool fetch = !done && !has_lane;
+    const unsigned m = __ballot_sync(kFullWarp, fetch);
+    if (m != 0u) {
+      const int leader = __ffs(m) - 1;
+      unsigned long long base = 0;
+      if (wl == leader)
+        base = atomicAdd(a.counters + kCntNext,
+                         static_cast<unsigned long long>(__popc(m)));
+      base = __shfl_sync(kFullWarp, base, leader);
+      if (fetch) {
+        const unsigned long long next = base + __popc(m & below);
+        has_lane = next < static_cast<unsigned long long>(a.n_lanes);
+        done = !has_lane;
+        if (has_lane) {
+          lane = static_cast<int>(next);
+          lane_start(w);
+        }
+      }
+    }
+    if (__all_sync(kFullWarp, done)) break;
+    ++trips;
+    if (has_lane) regen_step<kModeIdx, V>(a, bt, k, lane, w);
+  }
+  if (wl == 0) atomicAdd(a.counters + kCntThreadIters, 32ull * trips);
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.counters[kCntBlocks] = gridDim.x;
+}
+
+// The full-residual forward and the re-forward (MODE kModeFull or
+// kModeRefwd): one thread per lane, so the 25-30 plane stores of an
+// iteration coalesce, and the lane's iterations after its walk's end
+// written dead (alive 0, idx and bidx -1).
+template <int MODE, int V>
+__global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
+    regen_kernel(SPT_REGEN_PARAMS) {
+  const RegenArgs a = {SPT_REGEN_FIELDS};
+  extern __shared__ float4 smem[];
+  const BlockTables bt = load_block<V>(a, smem);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_lanes) return;
   Consts k;
   load_consts(consts, k);
+  LaneState w;
+  lane_start(w);
+  for (; w.it < n_iter;) {
+    if (!w.alive && w.kb >= n_banks) break;
+    regen_step<MODE, V>(a, bt, k, lane, w);
+  }
+  int it = w.it;
+  if (MODE != kModeRefwd) out_cnt[lane] = static_cast<float>(it);
+  // The dead iterations.  (This kernel with the constants in shared
+  // memory, one struct parameter and a 64-bit element index stepped by
+  // n_lanes here ran the re-forward 15% slower on an H100.)
   const size_t L = static_cast<size_t>(n_lanes);
   const size_t plane_stride = static_cast<size_t>(n_iter) * L;
-  // Packed words: winners, then (soft) blockers, [n_iter / 3, n_lanes] each.
-  const size_t word_stride = static_cast<size_t>(n_iter / 3) * L;
-  auto fp = [&](int plane, int it) -> float& {
-    return resf[plane * plane_stride + static_cast<size_t>(it) * L + lane];
-  };
-  auto ip = [&](int plane, int it) -> int& {
-    return resi[plane * plane_stride + static_cast<size_t>(it) * L + lane];
-  };
-  const bool rr_on = rr_start_depth != 0;
-
-  int kb = 0, s = 0, b = 0;
-  bool alive = false;
-  float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
-  float tp[3] = {1.0f, 1.0f, 1.0f}, acc[3] = {0.0f, 0.0f, 0.0f};
-  uint32_t pix = 0;
-  int word = 0, bword = 0;
-  int prev = -1;  // soft: the chain's previous sphere winner
-  int it = 0;
   for (; it < n_iter; ++it) {
-    const bool regen = !alive && kb < n_banks;
-    if (!alive && !regen) break;  // every bank done: the rest is dead
-    const uint32_t c1b = (sample_offset + static_cast<uint32_t>(s)) << 8;
-    if (regen) {
-      // Next sample (or the next bank's pixel): a fresh camera ray.
-      pix = lane_pixel(pixel_ids, n_pix, n_lanes, kb, lane);
-      const float xf = static_cast<float>(pix % static_cast<uint32_t>(width));
-      const float yf = static_cast<float>(pix / static_cast<uint32_t>(width));
-      camera_ray(k.cam, k0, k1, pix, c1b, xf, yf, inv_w, inv_h, o[0], o[1],
-                 o[2], d[0], d[1], d[2]);
-      tp[0] = tp[1] = tp[2] = 1.0f;
-      b = 0;
-      prev = -1;
-      alive = true;
-    }
-    if (MODE != kModeIdx) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        fp(c, it) = o[c];
-        fp(3 + c, it) = d[c];
-        fp(6 + c, it) = tp[c];
-      }
-      fp(kFAlive, it) = 1.0f;
-      fp(kFRegen, it) = regen ? 1.0f : 0.0f;
-      ip(kIKb, it) = kb;
-      ip(kIS, it) = s;
-      ip(kIB, it) = b;
-    }
-    Bounce f;
-    // Soft: the acceptance coin u[7] is read by the scan.
-    if constexpr (kSoftV) bounce_uniforms(k0, k1, pix, c1b, static_cast<uint32_t>(b), f.u);
-    const int field = it % 3;
-    int bi, qi = -1;
-    if (MODE == kModeRefwd) {
-      // The recorded winner (and blocker) instead of the scan.
-      const size_t w = static_cast<size_t>(it / 3) * L + lane;
-      if (field == 0) {
-        word = idx_in[w];
-        if constexpr (kSoftV) bword = idx_in[word_stride + w];
-      }
-      bi = ((word >> (kIdxBits * field)) & kIdxMask) - 1;
-      if constexpr (kSoftV) qi = ((bword >> (kIdxBits * field)) & kIdxMask) - 1;
-    } else if constexpr (kSoftV) {
-      // Acceptance coin u[7]; crossing (ux) and validity (uv) coins in
-      // slot 128 + b.
-      float ux, uv;
-      uniforms(k0, k1, pix, c1b | (128u + static_cast<uint32_t>(b)), ux, uv);
-      float bt;
-      closest_hit_soft(tabs.geo, soft, n_spheres, o[0], o[1], o[2], d[0],
-                       d[1], d[2], t_min, t_max, silhouette_logit(f.u[7]),
-                       silhouette_logit(uv), prev, bt, bi, qi);
-      if constexpr (V == kSoftPlane) {
-        // Plane-vs-sphere crossing coin: the sphere beats the plane iff
-        // t_s < t_p + logit(ux) * sigma_x(r_s); a plane win over a sphere
-        // less than 30 sigma_x behind stashes that sphere as the blocker.
-        const float denom = d[0] * k.pl[0] + d[1] * k.pl[1] + d[2] * k.pl[2];
-        const float num = -(o[0] * k.pl[0] + o[1] * k.pl[1] + o[2] * k.pl[2] + k.pl[3]);
-        const bool live = fabsf(denom) > 1e-8f;
-        const float tpl = num / (live ? denom : 1.0f);
-        const float pre_r = bi >= 0 ? tabs.geo[bi].w : 1.0f;
-        const float sigx = crossing_scale(pre_r, k.soft);
-        const float thr_x = silhouette_logit(ux) * sigx;
-        const bool wins = live && tpl > t_min && tpl < t_max &&
-                          !(bi >= 0 && bt < tpl + thr_x);
-        const bool steal = wins && bi >= 0 && bt - tpl < 30.0f * sigx;
-        if (steal) qi = bi;
-        if (wins) bi = steal ? kPlaneCrossIdx : kPlaneIdx;
-      }
-    } else {
-      float bt = t_max;
-      bi = closest_hit(tabs.geo, n_spheres, o[0], o[1], o[2], d[0], d[1],
-                       d[2], t_min, bt);
-      float tpl, sgn;
-      if (use_plane && plane_wins(k.pl, o[0], o[1], o[2], d[0], d[1], d[2],
-                                  t_min, bt, tpl, sgn))
-        bi = kPlaneIdx;
-    }
-    float w[9];
-    winner_attrs(tabs, k.pl, bi, w, f.mat);
-    float blk[4];
-    if constexpr (kSoftV) blocker_attrs(tabs, qi, blk);
-    if (MODE == kModeIdx) {
-      const int v = bi + 1;
-      word = field == 0 ? v : word + v * (1 << (kIdxBits * field));
-      if constexpr (kSoftV) {
-        const int bv = qi + 1;
-        bword = field == 0 ? bv : bword + bv * (1 << (kIdxBits * field));
-      }
-      if (field == 2) {
-        const size_t wpos = static_cast<size_t>(it / 3) * L + lane;
-        packed[wpos] = word;
-        if constexpr (kSoftV) packed[word_stride + wpos] = bword;
-      }
-    } else {
-      ip(kIIdx, it) = bi;
-      ip(kIMat, it) = f.mat;
-#pragma unroll
-      for (int j = 0; j < 9; ++j) fp(kFAttr + j, it) = w[j];
-      if constexpr (kSoftV) {
-        ip(kIBlk, it) = qi;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) fp(kFBlk + j, it) = blk[j];
-      }
-    }
-
-    // The bounce (soft: its values; the detached ratio is 1).
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      f.o[c] = o[c];
-      f.d[c] = d[c];
-      f.tp[c] = tp[c];
-      f.c[c] = w[c];
-      f.alb[c] = w[4 + c];
-    }
-    f.r = w[3];
-    f.fz = w[7];
-    f.io = w[8];
-    f.hit = bi >= 0;
-    if constexpr (kSoftV) {
-      f.pm = V == kSoftPlane && is_plane_code(bi);
-    } else {
-      f.pm = use_plane && bi == kPlaneIdx;
-    }
-    f.do_rr = b >= rr_start_depth;
-    if constexpr (!kSoftV) bounce_uniforms(k0, k1, pix, c1b, static_cast<uint32_t>(b), f.u);
-    bounce_forward<V>(f, k.sky, t_min, t_max, rr_on, k.soft.sil_c);
-    const bool surv = f.surv && b + 1 < max_depth;
-    if (!f.hit) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) acc[c] = acc[c] + f.rad[c];
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      o[c] = f.no[c];
-      d[c] = f.nd[c];
-      tp[c] = f.ntp[c];
-    }
-    if constexpr (kSoftV) prev = f.hit && !f.pm ? bi : -1;
-    if (surv) {
-      ++b;
-    } else if (++s >= n_samples) {
-      // The bank's last sample ended: its pixel's sum is complete.
-      const long long pos = static_cast<long long>(kb) * n_lanes + lane;
-      if (MODE != kModeRefwd && pos < n_pix) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) out_rad[3 * pos + c] = acc[c];
-      }
-      acc[0] = acc[1] = acc[2] = 0.0f;
-      s = 0;
-      ++kb;
-    }
-    alive = surv;
-  }
-  if (MODE != kModeRefwd) out_cnt[lane] = static_cast<float>(it);
-  // Iterations after the lane's end read as dead.
-  for (; it < n_iter; ++it) {
-    if (MODE == kModeIdx) {
-      const int field = it % 3;
-      if (field == 0) {
-        word = 0;
-        if constexpr (kSoftV) bword = 0;
-      }
-      if (field == 2) {
-        const size_t wpos = static_cast<size_t>(it / 3) * L + lane;
-        packed[wpos] = word;
-        if constexpr (kSoftV) packed[word_stride + wpos] = bword;
-      }
-    } else {
-      fp(kFAlive, it) = 0.0f;
-      ip(kIIdx, it) = -1;
-      if constexpr (kSoftV) ip(kIBlk, it) = -1;
-    }
+    const size_t e = static_cast<size_t>(it) * L + lane;
+    resf[kFAlive * plane_stride + e] = 0.0f;
+    resi[kIIdx * plane_stride + e] = -1;
+    if constexpr (V != kHard) resi[kIBlk * plane_stride + e] = -1;
   }
 }
 
@@ -448,63 +623,54 @@ __global__ void __launch_bounds__(kThreads) regen_bwd_kernel(
   for (int j = 0; j < 4; ++j) partials[(6 + j) * L + lane] = pl_part[j];
 }
 
+// Shared memory of a forward launch: the sphere tables (soft: and the soft
+// scan's table).
+template <int V>
+size_t regen_smem(int n_spheres) {
+  return static_cast<size_t>(n_spheres) *
+         (kSmemPerSphere + (V != kHard ? sizeof(float4) : 0));
+}
+
+// Launch a forward kernel with a's fields as its parameters.
+template <typename Kernel>
+void launch_fields(Kernel kernel, int blocks, size_t smem, cudaStream_t stream,
+                   const RegenArgs& a) {
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      a.pixel_ids, a.n_pix, a.n_lanes, a.n_banks, a.tab, a.n_spheres,
+      a.consts, a.use_plane, a.k0, a.k1, a.sample_offset, a.n_samples,
+      a.max_depth, a.width, a.inv_w, a.inv_h, a.t_min, a.t_max,
+      a.rr_start_depth, a.n_iter, a.soft_tab, a.idx_in, a.out_rad, a.out_cnt,
+      a.resf, a.resi, a.packed, a.counters);
+}
+
 template <int MODE, int V>
-cudaError_t launch_regen(const void* pixel_ids, int n_pix, int n_lanes,
-                         int n_banks, const void* tab, int n_spheres,
-                         const void* consts, int use_plane, uint32_t k0,
-                         uint32_t k1, uint32_t sample_offset, int n_samples,
-                         int max_depth, int width, float inv_w, float inv_h,
-                         float t_min, float t_max, int rr_start_depth,
-                         int n_iter, const void* soft_tab, const void* idx_in,
-                         void* out_rad, void* out_cnt, void* resf, void* resi,
-                         void* packed, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n_spheres) *
-                      (kSmemPerSphere + (V != kHard ? sizeof(float4) : 0));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        regen_kernel<MODE, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+cudaError_t launch_regen(const RegenArgs& a, cudaStream_t stream) {
+  const size_t smem = regen_smem<V>(a.n_spheres);
+  if constexpr (MODE == kModeIdx) {
+    int blocks = 0;
+    cudaError_t err = allow_smem(regen_idx_kernel<V>, smem);
+    if (err == cudaSuccess)
+      err = grid_for(regen_idx_kernel<V>, kThreads, a.n_lanes, smem, blocks);
     if (err != cudaSuccess) return err;
+    launch_fields(regen_idx_kernel<V>, blocks, smem, stream, a);
+  } else {
+    const cudaError_t err = allow_smem(regen_kernel<MODE, V>, smem);
+    if (err != cudaSuccess) return err;
+    launch_fields(regen_kernel<MODE, V>, (a.n_lanes + kThreads - 1) / kThreads,
+                  smem, stream, a);
   }
-  const int blocks = (n_lanes + kThreads - 1) / kThreads;
-  regen_kernel<MODE, V><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const int*>(pixel_ids), n_pix, n_lanes, n_banks,
-      static_cast<const float*>(tab), n_spheres,
-      static_cast<const float*>(consts), use_plane, k0, k1, sample_offset,
-      n_samples, max_depth, width, inv_w, inv_h, t_min, t_max, rr_start_depth,
-      n_iter, static_cast<const float*>(soft_tab),
-      static_cast<const int*>(idx_in), static_cast<float*>(out_rad),
-      static_cast<float*>(out_cnt), static_cast<float*>(resf),
-      static_cast<int*>(resi), static_cast<int*>(packed));
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch_regen_variant(int variant, const void* pixel_ids,
-                                 int n_pix, int n_lanes, int n_banks,
-                                 const void* tab, int n_spheres,
-                                 const void* consts, int use_plane,
-                                 uint32_t k0, uint32_t k1,
-                                 uint32_t sample_offset, int n_samples,
-                                 int max_depth, int width, float inv_w,
-                                 float inv_h, float t_min, float t_max,
-                                 int rr_start_depth, int n_iter,
-                                 const void* soft_tab, const void* idx_in,
-                                 void* out_rad, void* out_cnt, void* resf,
-                                 void* resi, void* packed,
+cudaError_t launch_regen_variant(int variant, const RegenArgs& a,
                                  cudaStream_t stream) {
-#define SPT_ARGS                                                           \
-  pixel_ids, n_pix, n_lanes, n_banks, tab, n_spheres, consts, use_plane, k0, \
-      k1, sample_offset, n_samples, max_depth, width, inv_w, inv_h, t_min,   \
-      t_max, rr_start_depth, n_iter, soft_tab, idx_in, out_rad, out_cnt,     \
-      resf, resi, packed, stream
   switch (variant) {
-    case kHard: return launch_regen<MODE, kHard>(SPT_ARGS);
-    case kSoft: return launch_regen<MODE, kSoft>(SPT_ARGS);
-    case kSoftPlane: return launch_regen<MODE, kSoftPlane>(SPT_ARGS);
+    case kHard: return launch_regen<MODE, kHard>(a, stream);
+    case kSoft: return launch_regen<MODE, kSoft>(a, stream);
+    case kSoftPlane: return launch_regen<MODE, kSoftPlane>(a, stream);
     default: return cudaErrorInvalidValue;
   }
-#undef SPT_ARGS
 }
 
 // The kernel variant: hard, soft, or soft with a ground plane.
@@ -519,7 +685,11 @@ int variant_of(float softness, int use_plane) {
 // Recording forward (mode 0: the residual planes, 1: packed indices) or
 // re-forward from packed indices (mode 2), on the caller's stream.
 // softness > 0 selects the soft-silhouette variant (soft_tab: the scan's
-// [n_spheres, 4] table).  Returns cudaGetLastError() (0 = launched).
+// [n_spheres, 4] table).  Mode 1 fetches lanes: counters is u64[3],
+// zeroed by the caller (the next lane; then the kernel adds its
+// thread-iterations and writes its grid's blocks), and it writes no word
+// after a lane's end (the caller zeroes the words first).
+// Returns cudaGetLastError() (0 = launched).
 extern "C" int spt_regen_forward(
     const void* pixel_ids, int n_pix, int n_lanes, int n_banks,
     const void* tab, int n_spheres, const void* consts, int use_plane,
@@ -527,22 +697,27 @@ extern "C" int spt_regen_forward(
     int n_samples, int max_depth, int width, float inv_w, float inv_h,
     float t_min, float t_max, int rr_start_depth, int n_iter, int mode,
     float softness, const void* soft_tab, const void* idx_in, void* out_rad,
-    void* out_cnt, void* resf, void* resi, void* packed, void* stream) {
+    void* out_cnt, void* resf, void* resi, void* packed, void* counters,
+    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int variant = spt::variant_of(softness, use_plane);
-#define SPT_ARGS                                                           \
-  variant, pixel_ids, n_pix, n_lanes, n_banks, tab, n_spheres, consts,     \
-      use_plane, k0, k1, sample_offset, n_samples, max_depth, width, inv_w, \
-      inv_h, t_min, t_max, rr_start_depth, n_iter, soft_tab, idx_in,        \
-      out_rad, out_cnt, resf, resi, packed, st
+  const spt::RegenArgs a = {
+      static_cast<const int*>(pixel_ids), n_pix, n_lanes, n_banks,
+      static_cast<const float*>(tab), n_spheres,
+      static_cast<const float*>(consts), use_plane, k0, k1, sample_offset,
+      n_samples, max_depth, width, inv_w, inv_h, t_min, t_max,
+      rr_start_depth, n_iter, static_cast<const float*>(soft_tab),
+      static_cast<const int*>(idx_in), static_cast<float*>(out_rad),
+      static_cast<float*>(out_cnt), static_cast<float*>(resf),
+      static_cast<int*>(resi), static_cast<int*>(packed),
+      static_cast<unsigned long long*>(counters)};
   cudaError_t err;
   switch (mode) {
-    case spt::kModeFull: err = spt::launch_regen_variant<spt::kModeFull>(SPT_ARGS); break;
-    case spt::kModeIdx: err = spt::launch_regen_variant<spt::kModeIdx>(SPT_ARGS); break;
-    case spt::kModeRefwd: err = spt::launch_regen_variant<spt::kModeRefwd>(SPT_ARGS); break;
+    case spt::kModeFull: err = spt::launch_regen_variant<spt::kModeFull>(variant, a, st); break;
+    case spt::kModeIdx: err = spt::launch_regen_variant<spt::kModeIdx>(variant, a, st); break;
+    case spt::kModeRefwd: err = spt::launch_regen_variant<spt::kModeRefwd>(variant, a, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef SPT_ARGS
   return static_cast<int>(err);
 }
 

@@ -49,10 +49,10 @@ _SIGNATURES = {
     # pixel_ids, n_pix, n_lanes, n_banks, tab, n_spheres, consts, use_plane,
     # k0, k1, sample_offset, n_samples, max_depth, width, inv_w, inv_h,
     # t_min, t_max, rr_start_depth, n_iter, mode, softness, soft_tab,
-    # idx_in, out_rad, out_cnt, resf, resi, packed, stream
+    # idx_in, out_rad, out_cnt, resf, resi, packed, counters, stream
     "spt_regen_forward":
         [P, I, I, I, P, I, P, I, U, U, U, I, I, I, F, F, F, F, I, I, I, F, P,
-         P, P, P, P, P, P, P],
+         P, P, P, P, P, P, P, P],
     # pixel_ids, n_pix, n_lanes, n_banks, consts, use_plane, k0, k1,
     # sample_offset, n_iter, t_min, t_max, rr_start_depth, softness, resf,
     # resi, ct_rad, ct_planes, partials, stream

@@ -59,6 +59,9 @@ from .persistent import _MAX_SMEM, _SMEM_PER_SPHERE, _f32, camera_constants, cam
 
 # State planes per ray: origin 0:3, direction 3:6, throughput 6:9, alive 9.
 STATE_PLANES = 10
+# Shared memory of the backward's live-ray rings besides the table
+# (csrc/grad.cu kRingBytes: 4 warps x 26 fields x 64 entries x 4 B).
+_BWD_RING_BYTES = 4 * 26 * 64 * 4
 # Carried cotangent planes: origin, direction, throughput.
 CARRY_PLANES = 9
 _VARIANTS = {"hard": 0, "soft": 1}
@@ -201,6 +204,9 @@ def grad_backward(call: FusedCall, state, idx, bidx, pix, samp, bounce: int,
     ):
         raise ValueError("state [10, N], ct_carry [9, N], ct_rad [3, N], idx [N], "
                          "bidx [N] exactly when soft")
+    if call.tab.shape[0] * _SMEM_PER_SPHERE + _BWD_RING_BYTES > _MAX_SMEM:
+        raise ValueError(f"a [{call.tab.shape[0]}, 10] table and the backward's rings do "
+                         "not fit a block's shared memory")
     dev = state.device
     f32 = torch.float32
     ct_out = torch.empty_like(ct_carry)

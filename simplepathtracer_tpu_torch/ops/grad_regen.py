@@ -294,7 +294,7 @@ def _ptr(t):
 
 
 def _launch_forward(call, sample_offset, mode, idx_in, rad, cnt, resf, resi,
-                    packed):
+                    packed, counters=None):
     lib = load_library()
     dev = call.pixel_ids.device
     with torch.cuda.device(dev):
@@ -307,7 +307,7 @@ def _launch_forward(call, sample_offset, mode, idx_in, rad, cnt, resf, resi,
             call.t_min, call.t_max, call.rr_start_depth, call.n_iter,
             _MODES[mode], call.softness, _ptr(call.soft_tab), _ptr(idx_in),
             _ptr(rad), _ptr(cnt), _ptr(resf), _ptr(resi), _ptr(packed),
-            torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(counters), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"regen {mode} kernel launch failed: CUDA error {err}")
@@ -320,17 +320,31 @@ def _packed_shape(call: RegenCall):
     return (2, *shape) if call.softness > 0.0 else shape
 
 
-def regen_forward(call: RegenCall, sample_offset, emit_full: bool):
+def regen_forward(call: RegenCall, sample_offset, emit_full: bool, counters=None):
     """Recording forward over ``call.n_samples`` samples from
     ``sample_offset``.  Returns (radiance sums [P, 3], live iterations per
     lane [n_lanes] f32, residuals): ``(resf [20, n_iter, n_lanes] f32,
     resi [5, n_iter, n_lanes] int32)`` with ``emit_full`` (soft: 24 and 6
     planes, the blocker's appended), else the packed winner words
-    (``_packed_shape``)."""
+    (``_packed_shape``).
+
+    Without ``emit_full`` the kernel's threads fetch lanes from a counter
+    and write no word after a lane's end, so the words are zeroed here
+    first.  ``counters``, an int64 [3] tensor on the card that the caller
+    may pass for an idx-only launch, is zeroed and receives that launch's
+    counters: lanes fetched (n_lanes plus one per thread that found none),
+    thread-iterations (32 per loop trip of a warp; against the sum of the
+    counts it gives the share of thread slots that ran a lane) and the
+    resident grid's blocks.  Without it the wrapper allocates its own."""
     dev = _device(call)
     if dev.type == "cpu":
         return regen_fwd_reference(call, sample_offset, emit_full)
-    _check_cuda(call)
+    if counters is None:
+        _check_cuda(call)
+    elif emit_full or counters.shape != (3,) or counters.dtype != torch.int64:
+        raise ValueError("counters: int64 [3], for an idx-only launch")
+    else:
+        _check_cuda(call, counters)
     p, b, n = call.pixel_ids.shape[0], call.n_iter, call.n_lanes
     nf, ni, _ = _n_planes(call)
     rad = torch.zeros((p, 3), dtype=torch.float32, device=dev)
@@ -340,9 +354,13 @@ def regen_forward(call: RegenCall, sample_offset, emit_full: bool):
         resf = torch.empty((nf, b, n), dtype=torch.float32, device=dev)
         resi = torch.empty((ni, b, n), dtype=torch.int32, device=dev)
     else:
-        packed = torch.empty(_packed_shape(call), dtype=torch.int32, device=dev)
+        packed = torch.zeros(_packed_shape(call), dtype=torch.int32, device=dev)
+        if counters is None:
+            counters = torch.zeros((3,), dtype=torch.int64, device=dev)
+        else:
+            counters.zero_()
     _launch_forward(call, sample_offset, "full" if emit_full else "idx", None,
-                    rad, cnt, resf, resi, packed)
+                    rad, cnt, resf, resi, packed, counters)
     regen_forward.launches[variant(call)] += 1
     return rad, cnt, ((resf, resi) if emit_full else packed)
 

@@ -1,8 +1,8 @@
 """The per-bounce fused gradient kernels (``csrc/grad.cu``) against their
 plain versions on the card.  They are CUDA kernels with no CPU mode, so
 these tests skip without an NVIDIA GPU; ``chip_smoke.py`` phase 8 holds the
-same comparisons at the main path's shapes.  The forward's live-ray
-compaction is held on live patterns that stress it.  This file imports no
+same comparisons at the main path's shapes.  The forward's and the
+backward's live-ray compaction are held on live patterns that stress it.  This file imports no
 JAX:
 
     python -m pytest --noconftest tests/test_torch_fused_cuda.py -m cuda
@@ -185,6 +185,69 @@ def test_fused_forward_compaction_on_card(pattern, softness):
         assert not rad.any()
     else:
         assert (rad > 0).any() and torch.isfinite(rad).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softness", [0.0, 0.05], ids=["hard", "soft"])
+@pytest.mark.parametrize("pattern", ["all", "dead", "one_per_group", "every33"])
+def test_fused_backward_compaction_on_card(pattern, softness):
+    """The backward passes a warp's dead rays through at once and runs the
+    live rays' adjoints 32 at a time: on the forward's live patterns (5,307
+    rays, three chained bounces traced by the kernel), every bounce's
+    carried and attribute cotangents are bit-exact against the plain
+    version, the dead rays' copies (ct_out = ct_in, attribute cotangents 0)
+    included, with and without the attribute planes; the sky sums lie
+    inside the float64 bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    scene = tpt.compact_scene(tpt.cover_scene(0, device="cuda"))
+    cam = tpt.PRESETS["cover"].camera_fn("cuda")
+    w, h, spp, depth = 61, 29, 3, 3
+    p = w * h
+    pids = torch.arange(p, device="cuda").repeat(spp)
+    sids = torch.arange(spp, device="cuda").repeat_interleave(p)
+    keys = ray_keys(tpt.make_key(6), pids, sids)
+    cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, silhouette_softness=softness)
+    rays = fg.raygen(cam, keys, cfg)
+    n = rays.shape[1]
+    inputs = scene_inputs(scene)
+    call = fg.fused_call(inputs[:11], inputs[11], keys.k0, keys.k1, max_depth=depth,
+                         softness=softness)
+    soft = softness > 0.0
+    pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+    state = torch.cat([rays, torch.ones((3, n), device="cuda"),
+                       _alive_pattern(pattern, n)[None]]).contiguous()
+    rad = torch.zeros((3, n), device="cuda")
+    prev = torch.full((n,), -1, dtype=torch.int32, device="cuda") if soft else None
+    saved = []
+    for b in range(depth):
+        nxt, prev, idx, bidx = fg.grad_forward(call, state, rad, prev, pix, samp, b)
+        saved.append((state, idx, bidx))
+        state = nxt
+    gen = torch.Generator().manual_seed(8)
+    ct_rad = torch.randn((3, n), generator=gen).to("cuda")
+    carry = carry0 = torch.randn((9, n), generator=gen).to("cuda")
+    variant = "soft" if soft else "hard"
+    for b in range(depth - 1, -1, -1):
+        st, idx, bidx = saved[b]
+        dead = st[9] <= 0
+        for want_attr in (True, False):
+            before = fg.grad_backward.launches[variant]
+            ck, ak, sk = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad,
+                                          want_attr)
+            assert fg.grad_backward.launches[variant] == before + 1
+            cp, ap, _ = fg.grad_bwd_reference(call, st, idx, bidx, pix, samp, b, carry, ct_rad,
+                                              want_attr)
+            assert torch.equal(ck, cp) and torch.equal(ck[:, dead], carry[:, dead]), b
+            assert (ak is None) == (not want_attr)
+            if want_attr:
+                assert torch.equal(ak, ap) and not ak[:, dead].any(), b
+            sp = _sky_terms(call, st, idx, bidx, pix, samp, b, carry, ct_rad)
+            assert _within_sum_bound(sk, sp), (b, sk, sp.sum(dim=1))
+            assert pattern != "dead" or not sk.any()
+        carry = ck
+    assert torch.isfinite(carry).all()
+    assert (pattern == "dead") == torch.equal(carry, carry0)
 
 
 @pytest.mark.cuda
