@@ -58,12 +58,15 @@ raises on failure.  The last lines are one JSON object with the kernels'
 numbers and one with the device; without CUDA the script exits non-zero
 and prints neither.  Imports nothing of JAX.
 
-It also prints the registers, spill and stack of every regen forward and
-fused backward instantiation, the regen forward's live-lane share (the
+It also prints the registers, spill and stack of every regen forward,
+regen backward and fused backward instantiation and of the
+closest-hit-attributes kernel, the regen forward's live-lane share (the
 fixed map's from the lanes' counts, the lane fetch's from the kernel's
-counters) and resident grid, the fused backward per bounce with ns per
-live ray-bounce, and the step times of the hard, default soft and camera
-fits.
+counters) and resident grid, the regen backward's warp live share and a
+store-only pass over its cotangent planes, the fused backward per bounce
+with ns per live ray-bounce, the closest-hit-attributes kernel per bounce
+of the hits fit, and the step times of the
+hard, default soft, camera, hits and plane fits.
 """
 
 from __future__ import annotations
@@ -265,17 +268,25 @@ def ptxas_usage(log, entry):
     return out
 
 
+def warp_live_share(cnt):
+    """Live share of a one-thread-per-lane launch over lanes with ``cnt``
+    live iterations each (lanes 32 w .. 32 w + 31 in warp w, each warp
+    running until its longest lane ends): the lanes' iterations over 32 x
+    the sum of the warps' longest counts."""
+    c = cnt.double()
+    pad = (-c.numel()) % 32
+    warps = torch.cat([c, c.new_zeros(pad)]).view(-1, 32)
+    return c.sum().item() / (32.0 * warps.amax(dim=1).sum().item())
+
+
 def lane_shares(cnt, counters):
     """How a regen forward launch shared out its lanes' iterations: the
     fixed map's live-lane share (lanes 32 w .. 32 w + 31 in warp w, each
     warp running until its longest lane ends) and the lane fetch's
     (lane-iterations over the thread-iterations the kernel counted), with
     the resident grid's blocks (the ``counters`` of ``regen_forward``)."""
-    c = cnt.double()
-    pad = (-c.numel()) % 32
-    warps = torch.cat([c, c.new_zeros(pad)]).view(-1, 32)
-    total = c.sum().item()
-    return dict(fixed_map=total / (32.0 * warps.amax(dim=1).sum().item()),
+    total = cnt.double().sum().item()
+    return dict(fixed_map=warp_live_share(cnt),
                 fetch=total / counters[1].item(), lane_iterations=total,
                 thread_iterations=counters[1].item(), grid_blocks=counters[2].item())
 
@@ -920,6 +931,15 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     gen = torch.Generator().manual_seed(3)
     ct = (torch.randn((p, 3), generator=gen) * 1e-6).to(call.pixel_ids.device)
     ms[kn["regen_bwd"]] = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2)
+    ct_planes, part = gr.regen_backward(call, 0, resf, resi, ct)
+    # What the backward's schedule meets: the warps' live share (one thread
+    # per lane, each warp walking back from its longest lane's count), and
+    # the time of a store-only pass over its cotangent planes.
+    share = warp_live_share((resf[9] > 0).sum(dim=0))
+    store_ms = cuda_ms(lambda: ct_planes.zero_(), reps=2)
+    print(f"{tag} backward: warp live share {share:.4f} (live lane-iterations over 32 x the "
+          f"warps' longest counts), store-only pass over the {n_ct} cotangent planes "
+          f"{store_ms:.3f} ms")
     ct_planes, part = gr.regen_backward(call, 0, resf, resi, ct)
     ct_p, part_p = gr.regen_bwd_reference(sub, 0, resf_p, resi_p, ct[cols])
     (e1, d1), (e2, d2) = normwise_err(ct_planes[:, :, cols], ct_p), normwise_err(part[:, cols], part_p)
@@ -2156,9 +2176,9 @@ def phase9_hits_fit(tpt, dev, wrappers):
     kernel = ch.closest_hit_attrs
     recorded = []
 
-    def record(o, d, alive, tabs, t_min, t_max):
+    def record(o, d, alive, tabs, t_min, t_max, **kw):
         recorded.append((o, d, alive))
-        return kernel(o, d, alive, tabs, t_min, t_max)
+        return kernel(o, d, alive, tabs, t_min, t_max, **kw)
 
     # The wrapper counts its launches on the module's name: keep the count.
     record.launches = kernel.launches
@@ -2173,10 +2193,15 @@ def phase9_hits_fit(tpt, dev, wrappers):
     # The bucket the backward runs on each bounce's winners (random
     # cotangents; the last bounce has none).
     ct = (torch.randn((9, n), generator=torch.Generator().manual_seed(14)) * 1e-6).to(dev)
-    ms_b, bucket_ms, bound, live, ok, err = [], [], [0.0, 0.0], [], True, 0.0
+    # The wrapper as the route calls it, on the table the trace builds once,
+    # and with the table built in each call.
+    tab = ch.sphere_table(tables)
+    ms_b, ms_t, bucket_ms, bound, live, ok, err = [], [], [], [0.0, 0.0], [], True, 0.0
     for b, (o, d, alive) in enumerate(recorded):
-        ms_b.append(cuda_ms(lambda: kernel(o, d, alive, tables, cfg.t_min, cfg.t_max), reps=2))
-        got = kernel(o, d, alive, tables, cfg.t_min, cfg.t_max)
+        ms_b.append(cuda_ms(lambda: kernel(o, d, alive, tables, cfg.t_min, cfg.t_max, tab=tab),
+                            reps=5))
+        ms_t.append(cuda_ms(lambda: kernel(o, d, alive, tables, cfg.t_min, cfg.t_max), reps=5))
+        got = kernel(o, d, alive, tables, cfg.t_min, cfg.t_max, tab=tab)
         if b + 1 < depth:
             bucket_ms.append(cuda_ms(lambda: bucket.bucket_cols(ct, got[0], scene.num_spheres),
                                      reps=2))
@@ -2194,12 +2219,14 @@ def phase9_hits_fit(tpt, dev, wrappers):
     ms = sum(ms_b) / depth
     kernels_s = (per_step["closest_hit_attrs"] * ms + per_step["bucket"] * sum(bucket_ms)
                  / len(bucket_ms)) / 1e3
-    out.update(ms=ms, ms_per_bounce=ms_b, bucket_ms=bucket_ms, live=live, err=err, n_rays=n,
+    out.update(ms=ms, ms_per_bounce=ms_b, table_per_call_ms_per_bounce=ms_t,
+               bucket_ms=bucket_ms, live=live, err=err, n_rays=n,
                bound_ms=max(bound) * 1e3, kernel_share=kernels_s / out["step_s"],
                bound_by="operations" if bound[0] >= bound[1] else "bytes")
     print(f"phase9 closest_hit_attrs at one chunk ({cfg.width}x{cfg.height}x{chunk}spp, {n} "
           f"rays): {ms:.3f} ms per launch (mean over {len(live)}; per bounce "
-          f"{[round(x, 3) for x in ms_b]}), bound {out['bound_ms']:.3f} ms "
+          f"{[round(x, 3) for x in ms_b]}; with the table built in each call "
+          f"{[round(x, 3) for x in ms_t]}), bound {out['bound_ms']:.3f} ms "
           f"({out['bound_by']}), {out['bound_ms'] / ms:.3f} of bound; live rays per bounce "
           f"{live}; {N_CHECK_PIXELS} random rays against the plain version "
           f"{'bit-exact' if ok else 'DIFFER'}; bucket per bounce "
@@ -2299,6 +2326,9 @@ def main(argv=None):
             print(f"regen forward {vname} {mname}: {ptxas_usage(lib.log, entry)}")
     for v, vname in enumerate(("hard", "soft")):
         print(f"fused backward {vname}: {ptxas_usage(lib.log, f'grad_bwd_kernelILi{v}EE')}")
+    for v, vname in enumerate(("hard", "soft", "soft_plane")):
+        print(f"regen backward {vname}: {ptxas_usage(lib.log, f'regen_bwd_kernelILi{v}EE')}")
+    print(f"closest_hit_attrs: {ptxas_usage(lib.log, 'closest_hit_attrs_kernel')}")
 
     kernel = persistent.render_block_persistent
     plain = persistent.render_block_persistent_reference
@@ -2566,6 +2596,7 @@ def main(argv=None):
             "launches_per_step": main9c["per_step"], "loss_rel_vs_fused": main9c["loss_rel"],
             "grad_l2_vs_fused": main9c["grad_l2"], "live_rays_per_bounce": main9c["live"],
             "attrs_ms_per_bounce": main9c["ms_per_bounce"],
+            "attrs_table_per_call_ms_per_bounce": main9c["table_per_call_ms_per_bounce"],
             "bucket_ms_per_bounce": main9c["bucket_ms"],
             "kernel_share_of_step": main9c["kernel_share"],
         },
@@ -2714,9 +2745,11 @@ def main(argv=None):
         if name == "closest_hit_attrs":
             row["launches_over_fit_steps"] = FIT_STEPS
         report["kernels"].append(row)
+    plane_steps = ", ".join(f"{f['s_per_step']:.4f} (spp_chunk {f['spp_chunk']})"
+                            for f in main7["plane_fit"]["fits"])
     print(f"step times (s): hard fit {main6['step_s']:.4f}, default soft fit "
           f"{main7['step_s']:.4f}, fit_camera {main8c['step_s']:.4f}, fused scene-leaf "
-          f"{main8b['step_s']:.4f}")
+          f"{main8b['step_s']:.4f}, hits fit {main9c['step_s']:.4f}, plane fit {plane_steps}")
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (from the card's first use; "
           f"per phase {phase_s}); wall {time.perf_counter() - _T_IMPORT:.1f} s")
     print(json.dumps(report))

@@ -19,22 +19,30 @@
 // sqrt(max(disc, 0)) and an explicit disc > 0 test.  The two disagree on
 // tangent rays, so they share no device function.
 //
-// Design.  One thread per ray in a grid-stride loop over as many blocks as
-// the card keeps resident, so each block loads the sphere table into
-// shared memory once; all threads of a warp read the same sphere at once,
-// so the loads broadcast.  Rays are [N, 3] origins and directions as the
-// JAX wrappers take them.  A dead ray (alive 0) skips its scan and writes
-// the miss values (index -1, t = t_max; centers 0, r 1, albedo 0,
-// material 0, fuzz 0, ior 1).  The TPU kernels skip only whole
-// 1024-ray blocks that hold no live ray, so their output for a dead ray
-// depends on its block; live rays get the same answer either way.  The
-// winner's attributes are read once from its shared-memory row after the
-// scan, where the TPU scan carries all nine through every select.
+// Design.  Both run as many blocks as the card keeps resident, so each
+// block loads the sphere table into shared memory once; all threads of a
+// warp read the same sphere at once, so the loads broadcast.  Rays are
+// [N, 3] origins and directions as the JAX wrappers take them.  A dead ray
+// (alive 0) skips its scan and writes the miss values (index -1, t =
+// t_max; centers 0, r 1, albedo 0, material 0, fuzz 0, ior 1).  The TPU
+// kernels skip only whole 1024-ray blocks that hold no live ray, so their
+// output for a dead ray depends on its block; live rays get the same
+// answer either way.  The winner's attributes are read once from its
+// shared-memory row after the scan, where the TPU scan carries all nine
+// through every select.  closest_hit_kernel runs one thread per ray in a
+// grid-stride loop.  closest_hit_attrs_kernel serves every bounce of the
+// hits route, and after a scatter the live rays lie scattered over the
+// batch (cover at 2 spp: 100% at bounce 0, 39% at bounce 2, 1.5% at bounce
+// 9), so with one thread per ray nearly every warp still held a live ray
+// and scanned every sphere: each warp compacts its groups' live rays and
+// scans them 32 at a time (see the kernel).
 //
 // Bound.  The scan's FP32 work on live rays, 20 operations per sphere test
 // (persistent.cu's count): both kernels read 28 B per ray (origin,
 // direction, alive) and write 8 (index, t) or 44 B (index, 9 attributes,
-// material), far below the scan's time at hundreds of spheres.
+// material), far below the scan's time at hundreds of spheres.  Once few
+// rays are live, a scan's latency on the few warps left holding them sets
+// the attributes kernel's time.
 //
 // Numerics: --fmad=false and IEEE sqrt, as the other kernels: both match
 // their plain versions (ops/closest_hit.py) bit for bit.
@@ -45,6 +53,12 @@ namespace spt {
 namespace {
 
 constexpr int kThreads = 128;
+constexpr unsigned kFullWarp = 0xffffffffu;
+// The attributes kernel's block size (at 128 it ran bounce 0 of the cover
+// hits fit 5% slower on an H100), and the live rays from which a group of
+// 32 runs in place instead of queueing.
+constexpr int kAttrThreads = 256;
+constexpr int kDense = 24;
 
 __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
     int n, const float4* __restrict__ spheres, int n_spheres,
@@ -85,7 +99,25 @@ __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) closest_hit_attrs_kernel(
+// Lane of the set bit of rank r (0-based) in m, for r < popc(m): the
+// largest s whose lanes 0 .. s - 1 hold at most r set bits.
+__device__ __forceinline__ int rank_lane(unsigned m, int r) {
+  int s = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    if (__popc(m & ((1u << (s + step)) - 1u)) <= r) s += step;
+  }
+  return s;
+}
+
+// Each warp walks groups of 32 consecutive rays (group w, w + warps, ...).
+// A group with at least kDense live rays runs in place, one ray per lane,
+// and each lane stores its ray's outputs once, as with no queue (at bounce
+// 0 every group does).  Of a sparser group the dead rays store their miss
+// values at once and the live rays join the warp's queue, held in
+// registers (entry q in lane q), which runs whenever it reaches 32; after
+// the warp's last group, the fewer than 32 still queued run, one per lane.
+__global__ void __launch_bounds__(kAttrThreads) closest_hit_attrs_kernel(
     int n, const float* __restrict__ tab, int n_spheres,
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const unsigned char* __restrict__ alive, float t_min, float t_max,
@@ -95,16 +127,17 @@ __global__ void __launch_bounds__(kThreads) closest_hit_attrs_kernel(
   const SphereTables tabs = load_sphere_tables(smem, tab, n_spheres);
   __syncthreads();
   const size_t N = static_cast<size_t>(n);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    int bi = -1;
-    if (alive[i]) {
-      const size_t r = 3 * static_cast<size_t>(i);
-      float bt = t_max;
-      bi = closest_hit(tabs.geo, n_spheres, origins[r], origins[r + 1],
-                       origins[r + 2], dirs[r], dirs[r + 1], dirs[r + 2],
-                       t_min, bt);
-    }
+  // Ray i's winner (-1: a miss).
+  auto scan = [&](int i) -> int {
+    const size_t r = 3 * static_cast<size_t>(i);
+    float bt = t_max;
+    return closest_hit(tabs.geo, n_spheres, origins[r], origins[r + 1],
+                       origins[r + 2], dirs[r], dirs[r + 1], dirs[r + 2], t_min,
+                       bt);
+  };
+  // Ray i's winner bi (-1: a miss or a dead ray), its attributes and
+  // material.
+  auto store = [&](int i, int bi) {
     float w[9];
     int mat;
     sphere_attrs(tabs, bi, w, mat);
@@ -112,7 +145,45 @@ __global__ void __launch_bounds__(kThreads) closest_hit_attrs_kernel(
 #pragma unroll
     for (int j = 0; j < 9; ++j) attr_out[j * N + i] = w[j];
     mat_out[i] = mat;
+  };
+  const int lane = threadIdx.x & 31;
+  const int n_warps = gridDim.x * (kAttrThreads / 32);
+  const int n_groups = (n + 31) / 32;
+  int queued = 0;  // the warp's queue length (warp-uniform), below 32
+  int entry = 0;   // entry `lane` of the queue
+  for (int g = blockIdx.x * (kAttrThreads / 32) + (threadIdx.x >> 5);
+       g < n_groups; g += n_warps) {
+    const int i = g * 32 + lane;
+    const bool in = i < n;
+    const bool live = in && alive[i];
+    const unsigned m = __ballot_sync(kFullWarp, live);
+    const int k = __popc(m);
+    if (k >= kDense) {
+      // A dense group runs in place: its rays keep their neighbours.
+      int bi = -1;
+      if (live) bi = scan(i);
+      if (in) store(i, bi);
+      continue;
+    }
+    if (in && !live) store(i, -1);
+    // The group's live ray of rank r (0 .. k - 1; another r: any index).
+    auto ranked = [&](int r) {
+      const int src = r >= 0 && r < k ? rank_lane(m, r) : lane;
+      return __shfl_sync(kFullWarp, i, src);
+    };
+    const int fresh = ranked(lane - queued);
+    if (queued + k >= 32) {
+      // A full queue runs; entries 32 .. queued + k - 1 stay.
+      const int j = lane < queued ? entry : fresh;
+      entry = ranked(lane + 32 - queued);
+      queued += k - 32;
+      store(j, scan(j));
+    } else {
+      if (lane >= queued) entry = fresh;
+      queued += k;
+    }
   }
+  if (lane < queued) store(entry, scan(entry));
 }
 
 }  // namespace
@@ -156,10 +227,10 @@ extern "C" int spt_closest_hit_attrs(int n, const void* tab, int n_spheres,
   int blocks = 0;
   cudaError_t err = spt::allow_smem(spt::closest_hit_attrs_kernel, smem);
   if (err == cudaSuccess)
-    err = spt::grid_for(spt::closest_hit_attrs_kernel, spt::kThreads, n, smem,
-                        blocks);
+    err = spt::grid_for(spt::closest_hit_attrs_kernel, spt::kAttrThreads, n,
+                        smem, blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  spt::closest_hit_attrs_kernel<<<blocks, spt::kThreads, smem,
+  spt::closest_hit_attrs_kernel<<<blocks, spt::kAttrThreads, smem,
                                   static_cast<cudaStream_t>(stream)>>>(
       n, static_cast<const float*>(tab), n_spheres,
       static_cast<const float*>(origins), static_cast<const float*>(dirs),

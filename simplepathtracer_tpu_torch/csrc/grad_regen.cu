@@ -57,17 +57,32 @@
 // launch.  The full-residual forward and the re-forward (regen_kernel) keep
 // one thread per lane, so their 25-30 plane stores per iteration coalesce
 // (on lanes that drift apart they did not, and the hard full forward took
-// 1.7x as long), and write the dead iterations themselves.  The backward
-// skips dead iterations and writes their cotangents as 0.  Sphere tables
+// 1.7x as long), and write the dead iterations themselves.  Sphere tables
 // sit in shared memory (common.cuh); the re-forward reads its winner and
-// blocker by index there instead of the TPU's one-hot matrix product.  Per-lane partials are written once and summed by the host, so
-// every result is deterministic.
+// blocker by index there instead of the TPU's one-hot matrix product.
+// Per-lane partials are written once and summed by the host, so every
+// result is deterministic.
+//
+// The backward (regen_bwd_kernel) also keeps one thread per lane.  About
+// three quarters of a chunk's (iteration, lane) entries are dead (the
+// cover fit's chunks: 26% live hard, 25% soft), and their zero cotangents
+// are about half of its bytes.  So each lane finds its count by a binary
+// search over its alive column, each warp walks back only from its lanes'
+// longest count, and the iterations above it are stored as zeros with
+// nothing read.  A live iteration's 24-29 input planes are copied into
+// shared memory one iteration ahead (cp.async, two stages), so their
+// latency hides behind the previous iteration's adjoint: its registers
+// (128-168, spilling a little under the launch bounds) leave room for
+// 3-4 blocks of 128 threads per SM.  A lane above its count stores its
+// zeros in the same instructions as the live lanes' cotangents.
 //
 // Bound.  The recording forward is bound by the sphere scan's FP32 work,
 // as the persistent kernel (20 operations per sphere test; the soft scan
 // ~30); the re-forward and backward do O(1) work per iteration and are
 // bound by the planes they write and read (25 planes out; 25 in and 9 out;
-// soft: 30 out; 30 in and 13 out).
+// soft: 30 out; 30 in and 13 out).  The soft backward's adjoint is long
+// enough (~750 FP32 operations per live iteration, at 3 blocks per SM)
+// that its arithmetic's latency, not its bytes, sets its time.
 //
 // Numerics.  --fmad=false (cuda_build.py) and IEEE sqrt / division: every
 // operation rounds as the PyTorch elementwise op of the plain versions
@@ -75,6 +90,8 @@
 // bit.  Where the plain version divides a constant by a tensor, PyTorch
 // computes reciprocal(x) * c; the code below does the same.  logf and expf
 // are the CUDA math library's, as PyTorch's log and exp on the card.
+
+#include <cuda_pipeline_primitives.h>
 
 #include "bounce.cuh"
 
@@ -509,8 +526,48 @@ __global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
   }
 }
 
+// The backward's staged inputs of one live iteration, per thread: every
+// f32 residual plane but alive (a lane is live below its count), in plane
+// order, then the int planes kb s b idx mat (soft: bidx).
 template <int V>
-__global__ void __launch_bounds__(kThreads) regen_bwd_kernel(
+struct BwdSlots {
+  static constexpr int kF = (V != kHard ? kFBlk + 4 : kFBlk) - 1;
+  static constexpr int kI = V != kHard ? kIBlk + 1 : kIBlk;
+  static constexpr int kAll = kF + kI;
+  // The float slot of residual plane p (p != kFAlive), and the plane of
+  // float slot j.
+  __host__ __device__ static constexpr int slot(int p) {
+    return p < kFAlive ? p : p - 1;
+  }
+  __host__ __device__ static constexpr int plane(int j) {
+    return j < kFAlive ? j : j + 1;
+  }
+};
+
+// Shared memory of a backward launch: two stages of every thread's slots.
+template <int V>
+constexpr size_t bwd_smem() {
+  return 2 * static_cast<size_t>(BwdSlots<V>::kAll) * kThreads * sizeof(float);
+}
+
+// One thread per lane: lane l's iterations run in order on one thread, so
+// each plane access of a warp is 32 consecutive words.  A lane's live
+// iterations are 0 .. count - 1 (every recording forward and re-forward
+// writes alive so); the thread finds count by a binary search over its
+// alive column, and the warp walks back only from its lanes' largest count
+// (span).  Iterations span .. n_iter - 1 are dead for the whole warp: their
+// cotangents are stored as zeros with nothing read.  Inside the span a
+// lane's inputs of iteration it - 1 are copied into shared memory
+// (cp.async, two stages) while iteration it computes, so the loads' latency
+// hides behind the adjoint's arithmetic; a lane above its count computes
+// nothing and stores its zeros in the same store instructions as the live
+// lanes' cotangents.  The radiance cotangent and pixel are loaded again
+// only when the lane's bank changes.  Launch bounds: 4 blocks per SM hard
+// (128 registers, 40 B of spill), 3 soft (159, none) and soft + plane
+// (168, 124 B of spill; uncapped it took 203 and ran at 2 blocks, 1.4x as
+// long on an H100).
+template <int V>
+__global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3) regen_bwd_kernel(
     const int* __restrict__ pixel_ids, int n_pix, int n_lanes, int n_banks,
     const float* __restrict__ consts, int use_plane, uint32_t k0, uint32_t k1,
     uint32_t sample_offset, int n_iter, float t_min, float t_max,
@@ -518,18 +575,14 @@ __global__ void __launch_bounds__(kThreads) regen_bwd_kernel(
     const int* __restrict__ resi, const float* __restrict__ ct_rad,
     float* __restrict__ ct_planes, float* __restrict__ partials) {
   constexpr bool kSoftV = V != kHard;
+  using Slots = BwdSlots<V>;
+  extern __shared__ float stage[];  // [2][Slots::kAll][kThreads]
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
+  const bool in = lane < n_lanes;
   Consts k;
   load_consts(consts, k);
   const size_t L = static_cast<size_t>(n_lanes);
   const size_t plane_stride = static_cast<size_t>(n_iter) * L;
-  auto fp = [&](int plane, int it) -> float {
-    return resf[plane * plane_stride + static_cast<size_t>(it) * L + lane];
-  };
-  auto ip = [&](int plane, int it) -> int {
-    return resi[plane * plane_stride + static_cast<size_t>(it) * L + lane];
-  };
   auto ct = [&](int j, int it) -> float& {
     return ct_planes[j * plane_stride + static_cast<size_t>(it) * L + lane];
   };
@@ -537,86 +590,139 @@ __global__ void __launch_bounds__(kThreads) regen_bwd_kernel(
   const bool plane_on = V == kSoftPlane || (V == kHard && use_plane);
   constexpr int kCt = kSoftV ? 13 : 9;
 
+  // The lane's count: the first dead iteration of its alive column.
+  int count = 0;
+  for (int hi = in ? n_iter : 0; count < hi;) {
+    const int mid = (count + hi) >> 1;
+    if (resf[kFAlive * plane_stride + static_cast<size_t>(mid) * L + lane] > 0.0f)
+      count = mid + 1;
+    else
+      hi = mid;
+  }
+  const int span = __reduce_max_sync(kFullWarp, count);
+  if (in) {
+    for (int it = span; it < n_iter; ++it) {
+#pragma unroll
+      for (int j = 0; j < kCt; ++j) ct(j, it) = 0.0f;
+    }
+  }
+
+  float* const mine = stage + threadIdx.x;
+  // Copy iteration it's slots into stage it & 1.
+  auto fetch = [&](int it) {
+    float* dst = mine + (it & 1) * Slots::kAll * kThreads;
+    const size_t e = static_cast<size_t>(it) * L + lane;
+#pragma unroll
+    for (int j = 0; j < Slots::kF; ++j)
+      __pipeline_memcpy_async(dst + j * kThreads,
+                              resf + Slots::plane(j) * plane_stride + e, 4);
+#pragma unroll
+    for (int j = 0; j < Slots::kI; ++j)
+      __pipeline_memcpy_async(dst + (Slots::kF + j) * kThreads,
+                              resi + j * plane_stride + e, 4);
+  };
+  if (span > 0 && span - 1 < count) fetch(span - 1);
+  __pipeline_commit();
+
   float co[3] = {0.0f, 0.0f, 0.0f}, cd[3] = {0.0f, 0.0f, 0.0f};
   float ctp[3] = {0.0f, 0.0f, 0.0f};
   float sky_part[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float pl_part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int it = n_iter - 1; it >= 0; --it) {
-    if (!(fp(kFAlive, it) > 0.0f)) {
-      // Dead iteration: the carried cotangents pass through.
+  int kb_seen = -1;  // the bank whose pixel and radiance cotangent are held
+  uint32_t pix = 0;
+  float ctr[3] = {0.0f, 0.0f, 0.0f};
+  for (int it = span - 1; it >= 0; --it) {
+    if (it > 0 && it - 1 < count) fetch(it - 1);
+    __pipeline_commit();
+    __pipeline_wait_prior(1);  // iteration it's copies have landed
+    const float* sv = mine + (it & 1) * Slots::kAll * kThreads;
+    // The staged values of f32 residual plane p and i32 plane j.
+    auto plane_f = [&](int p) -> float {
+      return sv[Slots::slot(p) * kThreads];
+    };
+    auto slot_i = [&](int j) -> int {
+      return __float_as_int(sv[(Slots::kF + j) * kThreads]);
+    };
+    float g_ct[kCt];
 #pragma unroll
-      for (int j = 0; j < kCt; ++j) ct(j, it) = 0.0f;
-      continue;
+    for (int j = 0; j < kCt; ++j) g_ct[j] = 0.0f;
+    if (it < count) {
+      Bounce f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        f.o[c] = plane_f(c);
+        f.d[c] = plane_f(3 + c);
+        f.tp[c] = plane_f(6 + c);
+        f.c[c] = plane_f(kFAttr + c);
+        f.alb[c] = plane_f(kFAttr + 4 + c);
+      }
+      f.r = plane_f(kFAttr + 3);
+      f.fz = plane_f(kFAttr + 7);
+      f.io = plane_f(kFAttr + 8);
+      const int kb = slot_i(kIKb), s = slot_i(kIS), b = slot_i(kIB);
+      const int idx = slot_i(kIIdx);
+      f.mat = slot_i(kIMat);
+      f.hit = idx >= 0;
+      f.pm = plane_on && is_plane_code(idx);
+      f.do_rr = b >= rr_start_depth;
+      if (kb != kb_seen) {
+        // The lane's bank: its pixel (for the uniforms) and radiance
+        // cotangent.
+        kb_seen = kb;
+        pix = lane_pixel(pixel_ids, n_pix, n_lanes, kb, lane);
+        const long long pos = static_cast<long long>(kb) * n_lanes + lane;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) ctr[c] = pos < n_pix ? ct_rad[3 * pos + c] : 0.0f;
+      }
+      const uint32_t c1b = (sample_offset + static_cast<uint32_t>(s)) << 8;
+      bounce_uniforms(k0, k1, pix, c1b, static_cast<uint32_t>(b), f.u);
+      bounce_forward<V>(f, k.sky, t_min, t_max, rr_on, k.soft.sil_c);
+      Soft sf;
+      SoftCt sa;
+      if constexpr (kSoftV) {
+        // The blocker and its role (recorded by the forward).
+        sf.bval = slot_i(kIBlk) >= 0;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) sf.bc[c] = plane_f(kFBlk + c);
+        sf.br = plane_f(kFBlk + 3);
+        soft_forward<V>(f, sf, k.soft, idx == kPlaneCrossIdx, k.pl, t_min,
+                        t_max);
+      }
+      float g_o[3], g_d[3], g_tp[3], g_a9[9], g_sky[6];
+      bounce_adjoint<V>(f, rr_on, co, cd, ctp, ctr, g_o, g_d, g_tp, g_a9,
+                        g_sky, sf, k.soft, k.pl, t_min, sa);
+#pragma unroll
+      for (int j = 0; j < 9; ++j) g_ct[j] = f.hit ? g_a9[j] : 0.0f;
+      if constexpr (kSoftV) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) g_ct[9 + j] = sf.bval ? sa.blk4[j] : 0.0f;
+      }
+#pragma unroll
+      for (int c = 0; c < 6; ++c) sky_part[c] = sky_part[c] + g_sky[c];
+      // The offset also moves the crossing coin's probability on sphere-win
+      // lanes.
+      if constexpr (V == kSoftPlane) pl_part[0] = pl_part[0] + sa.pk;
+      if (f.pm) {
+        // Plane offset = the r slot; albedo 1:1; the normal slots dropped.
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pl_part[j] = pl_part[j] + g_a9[3 + j];
+      }
+      // A chain's camera ray starts here: the prior chain's final state has
+      // no consumers, so the carried cotangents restart from zero.
+      const bool regen = plane_f(kFRegen) > 0.0f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        co[c] = regen ? 0.0f : g_o[c];
+        cd[c] = regen ? 0.0f : g_d[c];
+        ctp[c] = regen ? 0.0f : g_tp[c];
+      }
     }
-    Bounce f;
+    if (in) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      f.o[c] = fp(c, it);
-      f.d[c] = fp(3 + c, it);
-      f.tp[c] = fp(6 + c, it);
-      f.c[c] = fp(kFAttr + c, it);
-      f.alb[c] = fp(kFAttr + 4 + c, it);
-    }
-    f.r = fp(kFAttr + 3, it);
-    f.fz = fp(kFAttr + 7, it);
-    f.io = fp(kFAttr + 8, it);
-    const int kb = ip(kIKb, it), s = ip(kIS, it), b = ip(kIB, it);
-    const int idx = ip(kIIdx, it);
-    f.mat = ip(kIMat, it);
-    f.hit = idx >= 0;
-    f.pm = plane_on && is_plane_code(idx);
-    f.do_rr = b >= rr_start_depth;
-    // The lane's bank: its pixel (for the uniforms) and radiance cotangent.
-    const uint32_t pix = lane_pixel(pixel_ids, n_pix, n_lanes, kb, lane);
-    const long long pos = static_cast<long long>(kb) * n_lanes + lane;
-    float ctr[3] = {0.0f, 0.0f, 0.0f};
-    if (pos < n_pix) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) ctr[c] = ct_rad[3 * pos + c];
-    }
-    const uint32_t c1b = (sample_offset + static_cast<uint32_t>(s)) << 8;
-    bounce_uniforms(k0, k1, pix, c1b, static_cast<uint32_t>(b), f.u);
-    bounce_forward<V>(f, k.sky, t_min, t_max, rr_on, k.soft.sil_c);
-    Soft sf;
-    SoftCt sa;
-    if constexpr (kSoftV) {
-      // The blocker and its role (recorded by the forward).
-      sf.bval = ip(kIBlk, it) >= 0;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) sf.bc[c] = fp(kFBlk + c, it);
-      sf.br = fp(kFBlk + 3, it);
-      soft_forward<V>(f, sf, k.soft, idx == kPlaneCrossIdx, k.pl, t_min,
-                      t_max);
-    }
-    float g_o[3], g_d[3], g_tp[3], g_a9[9], g_sky[6];
-    bounce_adjoint<V>(f, rr_on, co, cd, ctp, ctr, g_o, g_d, g_tp, g_a9,
-                      g_sky, sf, k.soft, k.pl, t_min, sa);
-#pragma unroll
-    for (int j = 0; j < 9; ++j) ct(j, it) = f.hit ? g_a9[j] : 0.0f;
-    if constexpr (kSoftV) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ct(9 + j, it) = sf.bval ? sa.blk4[j] : 0.0f;
-    }
-#pragma unroll
-    for (int c = 0; c < 6; ++c) sky_part[c] = sky_part[c] + g_sky[c];
-    // The offset also moves the crossing coin's probability on sphere-win
-    // lanes.
-    if constexpr (V == kSoftPlane) pl_part[0] = pl_part[0] + sa.pk;
-    if (f.pm) {
-      // Plane offset = the r slot; albedo 1:1; the normal slots dropped.
-#pragma unroll
-      for (int j = 0; j < 4; ++j) pl_part[j] = pl_part[j] + g_a9[3 + j];
-    }
-    // A chain's camera ray starts here: the prior chain's final state has
-    // no consumers, so the carried cotangents restart from zero.
-    const bool regen = fp(kFRegen, it) > 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      co[c] = regen ? 0.0f : g_o[c];
-      cd[c] = regen ? 0.0f : g_d[c];
-      ctp[c] = regen ? 0.0f : g_tp[c];
+      for (int j = 0; j < kCt; ++j) ct(j, it) = g_ct[j];
     }
   }
+  if (!in) return;
 #pragma unroll
   for (int c = 0; c < 6; ++c) partials[c * L + lane] = sky_part[c];
 #pragma unroll
@@ -738,13 +844,16 @@ extern "C" int spt_regen_backward(
       static_cast<float*>(ct_planes), static_cast<float*>(partials)
   switch (spt::variant_of(softness, use_plane)) {
     case spt::kHard:
-      spt::regen_bwd_kernel<spt::kHard><<<blocks, spt::kThreads, 0, st>>>(SPT_ARGS);
+      spt::regen_bwd_kernel<spt::kHard>
+          <<<blocks, spt::kThreads, spt::bwd_smem<spt::kHard>(), st>>>(SPT_ARGS);
       break;
     case spt::kSoft:
-      spt::regen_bwd_kernel<spt::kSoft><<<blocks, spt::kThreads, 0, st>>>(SPT_ARGS);
+      spt::regen_bwd_kernel<spt::kSoft>
+          <<<blocks, spt::kThreads, spt::bwd_smem<spt::kSoft>(), st>>>(SPT_ARGS);
       break;
     default:
-      spt::regen_bwd_kernel<spt::kSoftPlane><<<blocks, spt::kThreads, 0, st>>>(SPT_ARGS);
+      spt::regen_bwd_kernel<spt::kSoftPlane>
+          <<<blocks, spt::kThreads, spt::bwd_smem<spt::kSoftPlane>(), st>>>(SPT_ARGS);
       break;
   }
 #undef SPT_ARGS

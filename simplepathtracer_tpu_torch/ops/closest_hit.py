@@ -112,18 +112,25 @@ def closest_hit(origins, dirs, alive, centers, radii, t_min=1e-3, t_max=3.0e7):
 closest_hit.launches = Counter()
 
 
-def closest_hit_attrs(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7):
+def closest_hit_attrs(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7, *, tab=None):
     """(idx [N] int32, -1 on a miss; attr9, a tuple of 9 [N] f32 columns
     cx cy cz r albedo rgb fuzz ior; material [N] int32) of the closest
     sphere, over the forward kernels' scan (detached).  ``tables``: the 11
-    [S] tables (cx cy cz r r^2 albedo rgb material fuzz ior)."""
+    [S] tables (cx cy cz r r^2 albedo rgb material fuzz ior); ``tab``:
+    ``sphere_table(tables)`` where the caller has built it already (a trace
+    builds it once for all its bounces)."""
     if on_cpu(origins):
-        return closest_hit_attrs_reference(origins, dirs, alive, tables, t_min, t_max)
+        return closest_hit_attrs_reference(origins, dirs, alive, tables, t_min, t_max, tab=tab)
     o, d, al = _rays(origins.detach(), dirs.detach(), alive)
     dev = o.device
     if len(tables) != 11 or any(t.device != dev for t in tables):
         raise ValueError(f"tables must be the 11 sphere tables on {dev}")
-    tab = sphere_table(tables)
+    if tab is None:
+        tab = sphere_table(tables)
+    elif tab.device != dev or tab.dtype != torch.float32 or tab.dim() != 2 or (
+        tab.shape[1] != 10 or not tab.is_contiguous()
+    ):
+        raise ValueError(f"tab must be a contiguous f32 [S_pad, 10] sphere table on {dev}")
     s_pad = tab.shape[0]
     if s_pad * _SMEM_PER_SPHERE > _MAX_SMEM:
         raise ValueError(f"{s_pad} spheres do not fit a block's shared memory")
@@ -191,12 +198,14 @@ def closest_hit_reference(origins, dirs, alive, centers, radii, t_min=1e-3, t_ma
 closest_hit_reference.calls = 0
 
 
-def closest_hit_attrs_reference(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7):
+def closest_hit_attrs_reference(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7, *,
+                                tab=None):
     """Plain version of ``closest_hit_attrs``: ``persistent.closest_hit_plain``
     (the kernels' scan) and the winner's row of the table."""
     closest_hit_attrs_reference.calls += 1
     with torch.no_grad():
-        tab = sphere_table(tables)
+        if tab is None:
+            tab = sphere_table(tables)
         o, d = origins.detach(), dirs.detach()
         _, bi, hit = closest_hit_plain(
             o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],

@@ -396,7 +396,14 @@ def regen_backward(call: RegenCall, sample_offset, resf, resi, ct_rad):
     cotangent ``ct_rad`` [P, 3].  Returns (attribute cotangents
     [9, n_iter, n_lanes] f32, zero where idx < 0 -- soft: 13, the
     blocker's cx cy cz r appended, zero where bidx < 0; per-lane partials
-    [10, n_lanes] f32: sky lo/hi rgb, then plane offset and albedo rgb)."""
+    [10, n_lanes] f32: sky lo/hi rgb, then plane offset and albedo rgb).
+
+    The planes must be as a recording forward or re-forward writes them:
+    each lane's alive column 1 on iterations 0 .. count - 1 and 0 after
+    (``tests/test_torch_regen_counts.py`` holds them to it).  The kernel
+    finds each lane's count by a binary search over that column and
+    disagrees with ``regen_bwd_reference``, which reads every iteration's
+    alive, on a column that is not a prefix."""
     dev = _device(call)
     if dev.type == "cpu":
         return regen_bwd_reference(call, sample_offset, resf, resi, ct_rad)

@@ -315,9 +315,10 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
         return trace_rays_fused(origins, dirs, keys, scene, config)
     if config.use_pallas_hits:
         # The table's float attributes, differentiable, and its values for
-        # the kernel.
+        # the kernel, padded into the kernel's table once for every bounce.
         attr9 = pack_tables(scene)
         hit_tables = tuple(t.detach() for t in scene_inputs(scene)[:11])
+        hit_tab = _ch.sphere_table(hit_tables)
     n = origins.shape[0]
     soft = config.silhouette_softness
     fresnel = bool(soft > 0.0 and intersect.SIL_FRESNEL)
@@ -335,7 +336,8 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
             # attach_attr_columns buckets their cotangents into the table by
             # the -1-masked index (a miss or dead ray buckets nowhere).
             idx, attr_vals, mat = _ch.closest_hit_attrs(
-                o.detach(), d.detach(), alive, hit_tables, config.t_min, config.t_max)
+                o.detach(), d.detach(), alive, hit_tables, config.t_min, config.t_max,
+                tab=hit_tab)
             cx, cy, cz, r, ar, ag, ab, fz, io = attach_attr_columns(attr9, idx, *attr_vals)
             hit = hit_from_gathered(
                 o, d, torch.clamp(idx, min=0).to(torch.int64), idx >= 0,

@@ -104,3 +104,41 @@ def test_hits_pixel_loss_kernels_match_plain_on_card(monkeypatch):
     assert torch.equal(l_k, l_p)
     for a, b in zip(g_k, g_p):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["none", "all", "one_in_33", "queue_fills", "random"])
+@pytest.mark.parametrize("name", ["three_sphere", "cover"])
+def test_closest_hit_attrs_compaction_on_card(name, pattern):
+    """The attributes kernel runs a group of 32 rays with at least 24 live
+    in place; a sparser group's live rays join the warp's queue, which runs
+    32 at a time, and the rays still queued after the warp's last group run
+    one per lane.  Bit for bit against the plain version, through the
+    wrapper with and without a prebuilt table, on every pattern of live
+    rays: none, all, one in 33 (at most one per group of 32), 20 of every 32
+    (below the in-place threshold: the queue fills on most groups and a
+    partial tail is left), and half at random.  The rays are the case's
+    camera rays repeated, cut to a count that is not a multiple of 32: 2 M
+    on three_sphere, so each warp of the resident grid walks several
+    groups, and 327 K on cover (488 sphere slots)."""
+    scene, cam, cfg, keys, o, d = _case(name)
+    tables = tuple(t.contiguous() for t in scene_inputs(scene)[:11])
+    reps = -(-2_000_003 // o.shape[0]) if name == "three_sphere" else 40
+    n = o.shape[0] * reps - 5
+    o, d = o.repeat(reps, 1)[:n].contiguous(), d.repeat(reps, 1)[:n].contiguous()
+    i = torch.arange(n, device="cuda")
+    alive = {"none": i < 0, "all": i >= 0, "one_in_33": i % 33 == 0,
+             "queue_fills": i % 32 < 20,
+             "random": torch.rand(n, generator=torch.Generator("cuda").manual_seed(2),
+                                  device="cuda") < 0.5}[pattern]
+    launches = ch.closest_hit_attrs.launches["closest_hit_attrs"]
+    got = ch.closest_hit_attrs(o, d, alive, tables)
+    want = ch.closest_hit_attrs_reference(o, d, alive, tables)
+    again = ch.closest_hit_attrs(o, d, alive, tables, tab=ch.sphere_table(tables))
+    assert ch.closest_hit_attrs.launches["closest_hit_attrs"] == launches + 2
+    for out in (got, again):
+        assert torch.equal(out[0], want[0]) and torch.equal(out[2], want[2])
+        assert all(torch.equal(a, w) for a, w in zip(out[1], want[1]))
+    assert (got[0][~alive] == -1).all()
+    if pattern != "none":
+        assert (got[0][alive] >= 0).any()

@@ -2,7 +2,8 @@
 card.  They are CUDA kernels with no CPU mode, so these tests skip without
 an NVIDIA GPU; ``chip_smoke.py`` phase 5 holds the same comparisons.  The
 recording forward's lane fetch (a resident grid whose threads take lanes
-from a counter) is held on uneven lanes.  This file imports no JAX, so it
+from a counter) is held on uneven lanes, and so is the backward's walk over
+each warp's live span.  This file imports no JAX, so it
 also runs where only the port is installed:
 
     python -m pytest tests/test_torch_grad_cuda.py -m cuda
@@ -15,22 +16,23 @@ import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
 
 
-def _call(rr, softness=0.0, plane=True, pixel_ids=None, n_samples=8):
+def _call(rr, softness=0.0, plane=True, pixel_ids=None, n_samples=8, n_banks=1, width=48,
+          height=24):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     scene = tpt.three_sphere_scene(device="cuda")
     if plane:
         scene = tpt.with_ground_plane(scene)
     cam = tpt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=90, device="cuda")
-    cfg = tpt.RenderConfig(width=48, height=24, spp=8, max_depth=10, rr_start_depth=rr,
+    cfg = tpt.RenderConfig(width=width, height=height, spp=8, max_depth=10, rr_start_depth=rr,
                            silhouette_softness=softness)
     inputs, cam19 = gr._trace_inputs(scene, cam, cfg)
     if pixel_ids is None:
         pixel_ids = torch.arange(cfg.num_pixels)
     return gr.regen_call(
         inputs[:11], inputs[11], inputs[12], cam19, tpt.make_key(1), pixel_ids.to("cuda"),
-        n_samples=n_samples, max_depth=10, width=48, height=24, rr_start_depth=rr,
-        softness=softness,
+        n_samples=n_samples, max_depth=10, width=width, height=height, rr_start_depth=rr,
+        softness=softness, n_banks=n_banks,
     )
 
 
@@ -127,3 +129,46 @@ def test_regen_forward_lane_fetch_on_card(n_samples, rr, n_pix, softness, plane)
     assert torch.equal(rf[:, alive], pf[:, alive]) and torch.equal(ri[:, alive], pi[:, alive])
     if softness:
         assert torch.equal(ri[gr._I_BLK], pi[gr._I_BLK])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softness,plane", [(0.0, True), (0.05, False), (0.05, True)],
+                         ids=["hard", "soft", "soft_plane"])
+@pytest.mark.parametrize("rr", [0, 2], ids=["no-rr", "rr"])
+@pytest.mark.parametrize("n_banks", [1, 2], ids=["1bank", "2banks"])
+def test_regen_backward_uneven_lanes_on_card(n_banks, rr, softness, plane):
+    """The backward walks each warp back from its lanes' longest count and
+    writes the iterations above it as zeros without reading them.  Held bit
+    for bit against the plain version on planes whose lanes end unevenly:
+    1,000 pixels of a 48x24 frame in one bank, or 2,050 of a 64x48 frame
+    in two (n_lanes 1,000 or 1,025, neither a multiple of 32), the
+    forward's own counts cut short on two lanes in three (one lane in three
+    to a single iteration, one to a random count, 0 included), and lanes
+    32-63 -- a whole warp -- dead for the whole chunk."""
+    gen = torch.Generator().manual_seed(11 + n_banks)
+    w, h, n_pix = (48, 24, 1000) if n_banks == 1 else (64, 48, 2050)
+    pix = torch.randperm(w * h, generator=gen)[:n_pix]
+    call = _call(rr, softness, plane, pix, 12, n_banks, w, h)
+    assert call.n_banks == n_banks and call.n_lanes % 32 != 0
+    _, cnt, (resf, resi) = gr.regen_forward(call, 3, True)
+    cnt = cnt.long().cpu()
+    lanes = torch.arange(call.n_lanes)
+    cut = torch.where(lanes % 3 == 1, cnt.clamp(max=1), cnt)
+    rnd = (torch.rand(call.n_lanes, generator=gen) * (cnt + 1).double()).long()
+    cut = torch.where(lanes % 3 == 2, rnd, cut)
+    cut[32:64] = 0
+    dead = (torch.arange(call.n_iter)[:, None] >= cut[None, :]).to("cuda")
+    resf[9][dead] = 0.0
+    resi[3][dead] = -1
+    if softness:
+        resi[gr._I_BLK][dead] = -1
+    assert ((resf[9] > 0).sum(dim=0).cpu() == cut).all() and (cut < cnt).any()
+
+    ct = torch.randn((call.pixel_ids.shape[0], 3), generator=gen).to("cuda")
+    launches = gr.regen_backward.launches[gr.variant(call)]
+    ctp, part = gr.regen_backward(call, 3, resf, resi, ct)
+    ctp_p, part_p = gr.regen_bwd_reference(call, 3, resf, resi, ct)
+    assert gr.regen_backward.launches[gr.variant(call)] == launches + 1
+    assert torch.equal(ctp, ctp_p) and torch.equal(part, part_p)
+    assert not ctp[:, dead].any() and not part[:, 32:64].any()
+    assert ctp[:, ~dead].abs().sum() > 0

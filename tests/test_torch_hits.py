@@ -148,6 +148,25 @@ def test_closest_hit_attrs_matches_jax_kernel(cover_rays):
     np.testing.assert_array_equal(t_mat[miss], 0)
 
 
+def test_hits_route_builds_the_sphere_table_once_per_trace(cover_rays, monkeypatch):
+    """``closest_hit_attrs`` on a prebuilt table gives its own answer, and
+    the hits bounce hands it the table its trace built once: one build for
+    every ``max_depth`` calls."""
+    scene, o, d, alive = cover_rays
+    tables = scene_inputs(convert_scene(scene, "cpu"))[:11]
+    args = (torch.tensor(o), torch.tensor(d), torch.tensor(alive), tables)
+    own = ch.closest_hit_attrs(*args)
+    given = ch.closest_hit_attrs(*args, tab=ch.sphere_table(tables))
+    assert torch.equal(own[0], given[0]) and torch.equal(own[2], given[2])
+    assert all(torch.equal(a, b) for a, b in zip(own[1], given[1]))
+    built, sphere_table = [], ch.sphere_table
+    monkeypatch.setattr(ch, "sphere_table", lambda t: built.append(1) or sphere_table(t))
+    scene, cam, cfg, target = _tiny()
+    calls = ch.closest_hit_attrs_reference.calls
+    _port_loss_grads(scene, cam, cfg, tpt.make_key(0), target)
+    assert built and ch.closest_hit_attrs_reference.calls - calls == len(built) * cfg.max_depth
+
+
 def test_intersect_scene_pallas_rebuilds_a_differentiable_hit(cover_rays):
     """intersect_scene_pallas: the kernel's winner (kernel 11's formulation)
     and the hit rebuilt by _hit_from_index, differentiable in the scene."""
