@@ -58,15 +58,23 @@ raises on failure.  The last lines are one JSON object with the kernels'
 numbers and one with the device; without CUDA the script exits non-zero
 and prints neither.  Imports nothing of JAX.
 
+At each full-width chunk it holds the full-residual forward's and the
+re-forward's dead entries to their contract on every (iteration, lane):
+alive 1 exactly below the lane's count and 0 from it on, idx (soft: the
+blocker's index) -1 there.
+
 It also prints the registers, spill and stack of every regen forward,
-regen backward and fused backward instantiation and of the
-closest-hit-attributes kernel, the regen forward's live-lane share (the
-fixed map's from the lanes' counts, the lane fetch's from the kernel's
-counters) and resident grid, the regen backward's warp live share and a
+re-forward, regen backward and fused backward instantiation and of the
+closest-hit-attributes and bounce-step kernels, the regen forward's
+live-lane share (the fixed map's from the lanes' counts, the lane
+fetch's from the kernel's counters) and resident grid, store-only passes
+over the re-forward's dead entries (in a one-thread-per-lane tail's
+order and row by row), the regen backward's warp live share and a
 store-only pass over its cotangent planes, the fused backward per bounce
-with ns per live ray-bounce, the closest-hit-attributes kernel per bounce
-of the hits fit, and the step times of the
-hard, default soft, camera, hits and plane fits.
+with ns per live ray-bounce, the bounce step per bounce of
+``render_pixels`` with its live rays and the groups of 32 rays holding
+one, the closest-hit-attributes kernel per bounce of the hits fit, and
+the step times of the hard, default soft, camera, hits and plane fits.
 """
 
 from __future__ import annotations
@@ -413,6 +421,48 @@ def equal_on_alive(a, b, alive):
     if ai.shape[0] > 5:
         ok = ok and torch.equal(ai[5], bi[5])
     return ok
+
+
+def dead_entries_hold(resf, resi, cnt):
+    """The dead-entry contract on every (iteration, lane) of residual planes
+    ([k, n_iter, n_lanes]): alive (float plane 9) is 1 below a lane's count
+    ``cnt`` and 0 from it on, where idx (int plane 3) and, under soft
+    silhouettes, the blocker index (int plane 5) are -1."""
+    dead = torch.arange(resf.shape[1], device=cnt.device)[:, None] >= cnt.long()[None, :]
+    ok = torch.equal(resf[9], (~dead).float()) and bool(((resi[3] == -1) | ~dead).all())
+    if resi.shape[0] > 5:
+        ok = ok and bool(((resi[5] == -1) | ~dead).all())
+    return ok
+
+
+def dead_store_ms(cnt, n_iter, n_planes):
+    """What the re-forward's dead-entry stores cost on their own: store-only
+    passes (``index_fill_``) over the dead entries (iteration >= the lane's
+    count ``cnt``) of ``n_planes`` [n_iter, n_lanes] planes, in two orders.
+    Lane by lane, as a one-thread-per-lane tail writes them: warp by warp,
+    step s of the tail storing lane j's entry at iteration cnt[j] + s, so 32
+    consecutive stores hit up to 32 rows.  Row by row: the same entries
+    sorted, so 32 consecutive stores hit one row.  Both read the same
+    8-byte indices.  Returns (lane-by-lane ms, row-by-row ms, dead
+    entries)."""
+    dev, n = cnt.device, cnt.numel()
+    c = cnt.long()
+    cw = torch.cat([c, c.new_full(((-n) % 32,), n_iter)]).view(-1, 32)
+    lanes = torch.arange(cw.numel(), device=dev).view(-1, 32)
+    row = cw[:, None, :] + torch.arange(n_iter, device=dev)[None, :, None]
+    lane_order = (row * n + lanes[:, None, :])[row < n_iter]
+    del row
+    row_order = lane_order.sort().values
+    planes = torch.empty((n_planes, n_iter * n), dtype=torch.float32, device=dev)
+
+    def fill(idx):
+        for k in range(n_planes):
+            planes[k].index_fill_(0, idx, 0.0)
+
+    out = (cuda_ms(lambda: fill(lane_order), reps=2), cuda_ms(lambda: fill(row_order), reps=2),
+           lane_order.numel())
+    del planes, lane_order, row_order
+    return out
 
 
 def normwise_err(got, want):
@@ -858,6 +908,9 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
            f"{rows.numel()} random lanes:")
     live = ((scene.radii.abs() > 1e-3) & (scene.centers[:, 1] > -1e6)).sum().item()
     ms, bound, res = {}, {}, {}
+    # Timed launches per kernel: 10x more on a chunk of a few million
+    # entries (the plane fit's), whose kernels take well under a ms.
+    more = 1 if b * n > 5e7 else 10
 
     # Full-residual mode: the planes on the random lanes, and the winner
     # codes of the whole chunk.
@@ -866,6 +919,12 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     ok = (torch.equal(rad_f[cols], rad_fp) and torch.equal(cnt_f[cols], cnt_fp)
           and equal_on_alive((resf_f[:, :, cols], resi_f[:, :, cols]), res_fp, res_fp[0][9] > 0))
     errs[kn["regen_fwd"]] = (rad_f[cols] - rad_fp).abs().max().item()
+    dead_ok = dead_entries_hold(resf_f, resi_f, cnt_f)
+    print(f"{tag} regen fwd (full residuals) dead-entry contract on all {b} x {n} entries "
+          f"{'holds' if dead_ok else 'BROKEN'}")
+    if not dead_ok:
+        raise RuntimeError("full width: regen forward kernel (full residuals) breaks the "
+                           "dead-entry contract")
     idx_f = resi_f[3]
     res["codes"] = dict(plane=gr.is_plane(idx_f).sum().item(),
                         crossing_loser=(idx_f == gr.PLANE_CROSS_IDX).sum().item(),
@@ -877,7 +936,7 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
                            "with its plain version")
     del resf_f, resi_f, idx_f, res_fp
 
-    ms[kn["regen_fwd"]] = cuda_ms(lambda: gr.regen_forward(call, 0, False), reps=2)
+    ms[kn["regen_fwd"]] = cuda_ms(lambda: gr.regen_forward(call, 0, False), reps=2 * more)
     counters = torch.zeros((3,), dtype=torch.int64, device=cnt_f.device)
     rad, cnt, packed = gr.regen_forward(call, 0, False, counters)
     res["lane_share"] = sh = lane_shares(cnt, counters)
@@ -895,7 +954,7 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     if not ok:
         raise RuntimeError("full width: regen forward kernel disagrees with its plain version")
     del rad_f, cnt_f
-    res["full_ms"] = cuda_ms(lambda: gr.regen_forward(call, 0, True), reps=1)
+    res["full_ms"] = cuda_ms(lambda: gr.regen_forward(call, 0, True), reps=more)
     print(f"{tag} regen fwd (full residuals) {res['full_ms']:.3f} ms")
     iters = cnt.double().sum().item()
     res.update(iters_chunk=iters, n_iter=b, n_lanes=n)
@@ -904,9 +963,9 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     ops = iters * live * flops
     nbytes = packed.numel() * 4 + p * (4 + 12)
     bound[kn["regen_fwd"]] = (ops / PEAK_FP32, nbytes / PEAK_BYTES)
-    del rad, cnt
+    del rad
 
-    ms[kn["regen_refwd"]] = cuda_ms(lambda: gr.regen_refwd(call, 0, packed), reps=2)
+    ms[kn["regen_refwd"]] = cuda_ms(lambda: gr.regen_refwd(call, 0, packed), reps=2 * more)
     resf, resi = gr.regen_refwd(call, 0, packed)
     resf_p, resi_p = gr.regen_refwd_reference(sub, 0, packed_p)
     alive = resf_p[9] > 0
@@ -917,10 +976,24 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
         idx_a = resi_p[3][alive]
         extra = (f"; blockers {(resi_p[5][alive] >= 0).sum().item()}, crossing-loser plane "
                  f"wins {(idx_a == gr.PLANE_CROSS_IDX).sum().item()}")
+    dead_ok = dead_entries_hold(resf, resi, cnt)
     print(f"{tag} re-forward planes {'bit-exact' if ok else 'DIFFER'} on "
-          f"{alive.sum().item()} alive entries{extra}")
+          f"{alive.sum().item()} alive entries{extra}; dead-entry contract on all {b} x {n} "
+          f"entries {'holds' if dead_ok else 'BROKEN'}")
     if not ok:
         raise RuntimeError("full width: re-forward kernel disagrees with its plain version")
+    if not dead_ok:
+        raise RuntimeError("full width: re-forward kernel breaks the dead-entry contract")
+    # What its dead entries' stores cost alone, in a one-thread-per-lane
+    # tail's order and row by row.
+    n_dead_planes = 3 if soft else 2
+    lane_ms, row_ms, n_dead = dead_store_ms(cnt, b, n_dead_planes)
+    res["dead_store"] = dict(entries=n_dead, planes=n_dead_planes, lane_by_lane_ms=lane_ms,
+                             row_by_row_ms=row_ms)
+    print(f"{tag} re-forward dead entries {n_dead} of {b * n} ({n_dead / (b * n):.4f}): "
+          f"store-only pass over the {n_dead_planes} dead-triple planes lane by lane (a "
+          f"one-thread-per-lane tail's order) {lane_ms:.3f} ms, row by row {row_ms:.3f} ms")
+    del cnt
     # Reads the packed words; writes the planes on live entries, alive and
     # idx (soft: and bidx) on the rest.
     dead = 12 if soft else 8
@@ -930,13 +1003,13 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
 
     gen = torch.Generator().manual_seed(3)
     ct = (torch.randn((p, 3), generator=gen) * 1e-6).to(call.pixel_ids.device)
-    ms[kn["regen_bwd"]] = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2)
+    ms[kn["regen_bwd"]] = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2 * more)
     ct_planes, part = gr.regen_backward(call, 0, resf, resi, ct)
     # What the backward's schedule meets: the warps' live share (one thread
     # per lane, each warp walking back from its longest lane's count), and
     # the time of a store-only pass over its cotangent planes.
     share = warp_live_share((resf[9] > 0).sum(dim=0))
-    store_ms = cuda_ms(lambda: ct_planes.zero_(), reps=2)
+    store_ms = cuda_ms(lambda: ct_planes.zero_(), reps=2 * more)
     print(f"{tag} backward: warp live share {share:.4f} (live lane-iterations over 32 x the "
           f"warps' longest counts), store-only pass over the {n_ct} cotangent planes "
           f"{store_ms:.3f} ms")
@@ -962,14 +1035,14 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     res["library_ms"], res["bucket_rows"] = {}, {}
     for bname, c, idx in buckets:
         k = c.shape[0]
-        ms[bname] = cuda_ms(lambda: bucket.bucket_cols(c, idx, s), reps=3)
+        ms[bname] = cuda_ms(lambda: bucket.bucket_cols(c, idx, s), reps=3 * more)
         d_k = bucket.bucket_cols(c, idx, s)
         idx_keep, src = bucket_rows(c, idx, s)
         n_rows = idx_keep.numel()
         # Reads every index and the k cotangents of the rows that name a sphere.
         bound[bname] = (n_rows * k / PEAK_FP32, (idx.numel() * 4 + n_rows * k * 4) / PEAK_BYTES)
         table = torch.zeros((s, k), dtype=torch.float32, device=src.device)
-        res["library_ms"][bname] = cuda_ms(lambda: table.index_add_(0, idx_keep, src), reps=3)
+        res["library_ms"][bname] = cuda_ms(lambda: table.index_add_(0, idx_keep, src), reps=3 * more)
         lib = torch.zeros_like(table).index_add_(0, idx_keep, src)
         err_k, err_l, tol, top = bucket_errors(d_k, lib, idx_keep, src, s)
         errs[bname] = err_k.max().item()
@@ -2012,12 +2085,17 @@ def phase9_explicit_forward(tpt, dev, wrappers):
     del o, d
     st_p = state[:, rows]
     s_live = live_spheres(scene)
-    ms_b, bound, live, ok, err = [], [0.0, 0.0], [], True, 0.0
+    ms_b, bound, live, groups, ok, err = [], [0.0, 0.0], [], [], True, 0.0
     for b in range(depth):
         ms_b.append(cuda_ms(lambda: bs.bounce_step(call, state, pix, samp, b), reps=2))
         nxt = bs.bounce_step(call, state, pix, samp, b)
-        n_live = int((state[12] > 0).sum().item())
+        alive = state[12] > 0
+        n_live = int(alive.sum().item())
         live.append(n_live)
+        # Groups of 32 consecutive rays holding a live ray: the warps that
+        # scan when each thread takes one ray.
+        groups.append(int(torch.cat([alive, alive.new_zeros((-n) % 32)]).view(-1, 32)
+                          .any(dim=1).sum().item()))
         bound[0] += n_live * s_live * FLOPS_PER_SPHERE_TEST / PEAK_FP32 / depth
         bound[1] += n * BOUNCE_STEP_BYTES / PEAK_BYTES / depth
         got = bs.bounce_step_reference(call, st_p, pix[rows], samp[rows], b)
@@ -2027,12 +2105,15 @@ def phase9_explicit_forward(tpt, dev, wrappers):
     ok = ok and torch.equal(state[9:12].T, rad)
     del state, nxt
     ms = sum(ms_b) / depth
-    out.update(ms=ms, ms_per_bounce=ms_b, live=live, err=err, bound_ms=max(bound) * 1e3,
+    out.update(ms=ms, ms_per_bounce=ms_b, live=live, live_groups=groups, err=err,
+               bound_ms=max(bound) * 1e3,
                bound_by="operations" if bound[0] >= bound[1] else "bytes")
     print(f"phase9 bounce step at {cfg.width}x{cfg.height}x{spp}spp: {ms:.3f} ms per launch "
           f"(mean over {depth}; per bounce {[round(x, 3) for x in ms_b]}), bound "
           f"{out['bound_ms']:.3f} ms ({out['bound_by']}), "
-          f"{out['bound_ms'] / ms:.3f} of bound; live rays per bounce {live}; "
+          f"{out['bound_ms'] / ms:.3f} of bound; live rays per bounce {live}; groups of 32 "
+          f"rays holding a live ray per bounce {groups} of {-(-n // 32)} (sum over bounces "
+          f"{sum(groups) / -(-n // 32):.3f} x the batch; live rays {sum(live) / n:.3f} x); "
           f"{N_CHECK_PIXELS} random rays against the plain version "
           f"{'bit-exact' if ok else 'DIFFER'}, the trace equals render_pixels' radiance")
     if not ok:
@@ -2322,13 +2403,15 @@ def main(argv=None):
 
     for v, vname in enumerate(("hard", "soft", "soft_plane")):
         for mname, entry in (("idx", f"regen_idx_kernelILi{v}EE"),
-                             ("full", f"regen_kernelILi0ELi{v}EE")):
+                             ("full", f"regen_kernelILi0ELi{v}EE"),
+                             ("re-forward", f"regen_kernelILi2ELi{v}EE")):
             print(f"regen forward {vname} {mname}: {ptxas_usage(lib.log, entry)}")
     for v, vname in enumerate(("hard", "soft")):
         print(f"fused backward {vname}: {ptxas_usage(lib.log, f'grad_bwd_kernelILi{v}EE')}")
     for v, vname in enumerate(("hard", "soft", "soft_plane")):
         print(f"regen backward {vname}: {ptxas_usage(lib.log, f'regen_bwd_kernelILi{v}EE')}")
     print(f"closest_hit_attrs: {ptxas_usage(lib.log, 'closest_hit_attrs_kernel')}")
+    print(f"bounce_step: {ptxas_usage(lib.log, 'bounce_step_kernel')}")
 
     kernel = persistent.render_block_persistent
     plain = persistent.render_block_persistent_reference
@@ -2586,6 +2669,7 @@ def main(argv=None):
             "s": main9b["s"], "mpaths_per_s": paths9 / main9b["s"] / 1e6,
             "ms_per_launch": main9b["ms"], "ms_per_bounce": main9b["ms_per_bounce"],
             "live_rays_per_bounce": main9b["live"],
+            "live_groups_per_bounce": main9b["live_groups"],
             "vs_persistent": main9b["vs_persistent"],
         },
         "hits_fit": {
@@ -2624,7 +2708,11 @@ def main(argv=None):
     }]}
     def regen_fwd_extra(name, res, v):
         """The regen forward's registers (both recording modes), lane
-        shares and full-residual time; nothing for the other kernels."""
+        shares and full-residual time; the re-forward's registers and its
+        dead entries' store-only passes; nothing for the other kernels."""
+        if name.startswith("regen_refwd"):
+            return {**ptxas_usage(lib.log, f"regen_kernelILi2ELi{v}EE"),
+                    "dead_store": res["dead_store"]}
         if not name.startswith("regen_fwd"):
             return {}
         return {"ptxas_idx": ptxas_usage(lib.log, f"regen_idx_kernelILi{v}EE"),
@@ -2744,6 +2832,9 @@ def main(argv=None):
         }
         if name == "closest_hit_attrs":
             row["launches_over_fit_steps"] = FIT_STEPS
+        if name == "bounce_step":
+            row.update(ptxas_usage(lib.log, "bounce_step_kernel"),
+                       ms_per_bounce=res["ms_per_bounce"], live_rays_per_bounce=res["live"])
         report["kernels"].append(row)
     plane_steps = ", ".join(f"{f['s_per_step']:.4f} (spp_chunk {f['spp_chunk']})"
                             for f in main7["plane_fit"]["fits"])

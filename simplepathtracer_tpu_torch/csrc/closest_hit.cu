@@ -53,7 +53,6 @@ namespace spt {
 namespace {
 
 constexpr int kThreads = 128;
-constexpr unsigned kFullWarp = 0xffffffffu;
 // The attributes kernel's block size (at 128 it ran bounce 0 of the cover
 // hits fit 5% slower on an H100), and the live rays from which a group of
 // 32 runs in place instead of queueing.
@@ -99,24 +98,12 @@ __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
   }
 }
 
-// Lane of the set bit of rank r (0-based) in m, for r < popc(m): the
-// largest s whose lanes 0 .. s - 1 hold at most r set bits.
-__device__ __forceinline__ int rank_lane(unsigned m, int r) {
-  int s = 0;
-#pragma unroll
-  for (int step = 16; step > 0; step >>= 1) {
-    if (__popc(m & ((1u << (s + step)) - 1u)) <= r) s += step;
-  }
-  return s;
-}
-
-// Each warp walks groups of 32 consecutive rays (group w, w + warps, ...).
-// A group with at least kDense live rays runs in place, one ray per lane,
-// and each lane stores its ray's outputs once, as with no queue (at bounce
-// 0 every group does).  Of a sparser group the dead rays store their miss
-// values at once and the live rays join the warp's queue, held in
-// registers (entry q in lane q), which runs whenever it reaches 32; after
-// the warp's last group, the fewer than 32 still queued run, one per lane.
+// Each warp walks its groups of 32 consecutive rays through
+// common.cuh:for_each_ray_compacted: a group with at least kDense live rays
+// runs in place, one ray per lane, and each lane stores its ray's outputs
+// once, as with no queue (at bounce 0 every group does); of a sparser group
+// the dead rays store their miss values at once and the live rays are
+// scanned 32 at a time from the warp's queue.
 __global__ void __launch_bounds__(kAttrThreads) closest_hit_attrs_kernel(
     int n, const float* __restrict__ tab, int n_spheres,
     const float* __restrict__ origins, const float* __restrict__ dirs,
@@ -127,17 +114,17 @@ __global__ void __launch_bounds__(kAttrThreads) closest_hit_attrs_kernel(
   const SphereTables tabs = load_sphere_tables(smem, tab, n_spheres);
   __syncthreads();
   const size_t N = static_cast<size_t>(n);
-  // Ray i's winner (-1: a miss).
-  auto scan = [&](int i) -> int {
-    const size_t r = 3 * static_cast<size_t>(i);
-    float bt = t_max;
-    return closest_hit(tabs.geo, n_spheres, origins[r], origins[r + 1],
-                       origins[r + 2], dirs[r], dirs[r + 1], dirs[r + 2], t_min,
-                       bt);
-  };
-  // Ray i's winner bi (-1: a miss or a dead ray), its attributes and
+  // Ray i's winner (-1: a miss or a dead ray), its attributes and
   // material.
-  auto store = [&](int i, int bi) {
+  auto work = [&](int i, bool live) {
+    int bi = -1;
+    if (live) {
+      const size_t r = 3 * static_cast<size_t>(i);
+      float bt = t_max;
+      bi = closest_hit(tabs.geo, n_spheres, origins[r], origins[r + 1],
+                       origins[r + 2], dirs[r], dirs[r + 1], dirs[r + 2],
+                       t_min, bt);
+    }
     float w[9];
     int mat;
     sphere_attrs(tabs, bi, w, mat);
@@ -146,44 +133,10 @@ __global__ void __launch_bounds__(kAttrThreads) closest_hit_attrs_kernel(
     for (int j = 0; j < 9; ++j) attr_out[j * N + i] = w[j];
     mat_out[i] = mat;
   };
-  const int lane = threadIdx.x & 31;
-  const int n_warps = gridDim.x * (kAttrThreads / 32);
-  const int n_groups = (n + 31) / 32;
-  int queued = 0;  // the warp's queue length (warp-uniform), below 32
-  int entry = 0;   // entry `lane` of the queue
-  for (int g = blockIdx.x * (kAttrThreads / 32) + (threadIdx.x >> 5);
-       g < n_groups; g += n_warps) {
-    const int i = g * 32 + lane;
-    const bool in = i < n;
-    const bool live = in && alive[i];
-    const unsigned m = __ballot_sync(kFullWarp, live);
-    const int k = __popc(m);
-    if (k >= kDense) {
-      // A dense group runs in place: its rays keep their neighbours.
-      int bi = -1;
-      if (live) bi = scan(i);
-      if (in) store(i, bi);
-      continue;
-    }
-    if (in && !live) store(i, -1);
-    // The group's live ray of rank r (0 .. k - 1; another r: any index).
-    auto ranked = [&](int r) {
-      const int src = r >= 0 && r < k ? rank_lane(m, r) : lane;
-      return __shfl_sync(kFullWarp, i, src);
-    };
-    const int fresh = ranked(lane - queued);
-    if (queued + k >= 32) {
-      // A full queue runs; entries 32 .. queued + k - 1 stay.
-      const int j = lane < queued ? entry : fresh;
-      entry = ranked(lane + 32 - queued);
-      queued += k - 32;
-      store(j, scan(j));
-    } else {
-      if (lane >= queued) entry = fresh;
-      queued += k;
-    }
-  }
-  if (lane < queued) store(entry, scan(entry));
+  for_each_ray_compacted<kDense>(
+      n, blockIdx.x * (kAttrThreads / 32) + (threadIdx.x >> 5),
+      gridDim.x * (kAttrThreads / 32), [&](int i) { return alive[i] != 0; },
+      work);
 }
 
 }  // namespace

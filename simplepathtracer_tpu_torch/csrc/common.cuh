@@ -4,8 +4,9 @@
 // gradient kernels run (threefry2x32, to_unit_float, the bounce uniforms of
 // pallas_grad_regen._uniforms7_tile, camera_ray_tiles, closest_hit_scan and
 // its shared-memory sphere tables, plane_override, scatter_tiles, and the
-// soft scan closest_hit_scan_soft with silhouette_logit_tile), and the
-// host's grid-stride launch helpers.
+// soft scan closest_hit_scan_soft with silhouette_logit_tile), the
+// live-ray compaction of the per-ray kernels (for_each_ray_compacted), and
+// the host's grid-stride launch helpers.
 //
 // Numerics: the library is built without --use_fast_math and with
 // --fmad=false, so every add, multiply, divide and sqrt rounds as the
@@ -360,6 +361,72 @@ __device__ __forceinline__ bool scatter(
     sdx = gx * ginv; sdy = gy * ginv; sdz = gz * ginv;
   }
   return mat != kMetal || (sdx * nfx + sdy * nfy + sdz * nfz > 0.0f);
+}
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// Lane of the set bit of rank r (0-based) in m, for r < popc(m): the
+// largest s whose lanes 0 .. s - 1 hold at most r set bits.
+__device__ __forceinline__ int rank_lane(unsigned m, int r) {
+  int s = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    if (__popc(m & ((1u << (s + step)) - 1u)) <= r) s += step;
+  }
+  return s;
+}
+
+// Live-ray compaction of a per-ray kernel whose live rays cost far more
+// than its dead ones (a scan over every sphere): the calling warp (the
+// warp-th of n_warps, all 32 threads converged) walks rays 0 .. n - 1 in
+// groups of 32 consecutive rays (group warp, warp + n_warps, ...) and
+// calls work(i, live) once per ray i, live = is_live(i).  A group with at
+// least kDense live rays runs in place, each lane calling work on its own
+// ray, dead or live, in the same instructions (at bounce 0 every group
+// does, and its rays keep their neighbours).  Of a sparser group the dead
+// rays run at once (work(i, false)) and the live rays join the warp's
+// queue, held in registers (entry q in lane q), which runs whenever it
+// reaches 32 (work(j, true) on every lane); after the warp's last group,
+// the fewer than 32 still queued run, one per lane.  So a scan is paid
+// for by a full warp, except once per warp at the end.
+template <int kDense, typename IsLive, typename Work>
+__device__ __forceinline__ void for_each_ray_compacted(int n, int warp,
+                                                       int n_warps,
+                                                       IsLive is_live,
+                                                       Work work) {
+  const int lane = threadIdx.x & 31;
+  const int n_groups = (n + 31) / 32;
+  int queued = 0;  // the warp's queue length (warp-uniform), below 32
+  int entry = 0;   // entry `lane` of the queue
+  for (int g = warp; g < n_groups; g += n_warps) {
+    const int i = g * 32 + lane;
+    const bool in = i < n;
+    const bool live = in && is_live(i);
+    const unsigned m = __ballot_sync(kFullWarp, live);
+    const int k = __popc(m);
+    if (k >= kDense) {
+      if (in) work(i, live);
+      continue;
+    }
+    if (in && !live) work(i, false);
+    // The group's live ray of rank r (0 .. k - 1; another r: any index).
+    auto ranked = [&](int r) {
+      const int src = r >= 0 && r < k ? rank_lane(m, r) : lane;
+      return __shfl_sync(kFullWarp, i, src);
+    };
+    const int fresh = ranked(lane - queued);
+    if (queued + k >= 32) {
+      // A full queue runs; entries 32 .. queued + k - 1 stay.
+      const int j = lane < queued ? entry : fresh;
+      entry = ranked(lane + 32 - queued);
+      queued += k - 32;
+      work(j, true);
+    } else {
+      if (lane >= queued) entry = fresh;
+      queued += k;
+    }
+  }
+  if (lane < queued) work(entry, true);
 }
 
 // Blocks for a grid-stride launch of ``threads``-thread blocks over n items:

@@ -57,7 +57,10 @@
 // launch.  The full-residual forward and the re-forward (regen_kernel) keep
 // one thread per lane, so their 25-30 plane stores per iteration coalesce
 // (on lanes that drift apart they did not, and the hard full forward took
-// 1.7x as long), and write the dead iterations themselves.  Sphere tables
+// 1.7x as long), and each warp walks its iterations in step, so the dead
+// entries (three quarters of a cover chunk's) are stored row by row: inside
+// the warp's live span in the live lanes' store instructions, after it as
+// stores alone.  Sphere tables
 // sit in shared memory (common.cuh); the re-forward reads its winner and
 // blocker by index there instead of the TPU's one-hot matrix product.
 // Per-lane partials are written once and summed by the host, so every
@@ -99,15 +102,19 @@ namespace spt {
 namespace {
 
 constexpr int kThreads = 128;
-// Blocks per SM the launch bounds of the forward kernels ask for: 7 x 128
-// threads cap them at 72 registers (the soft scan needs 70 without a
-// spill; at 8 blocks, 64 registers, it spilled and ran 6% slower on an
-// H100; unbounded, the re-forward took 94 and ran at 5 blocks per SM).
+// Blocks per SM the launch bounds of the forward kernels ask for.  The
+// idx-only forward: 7 x 128 threads cap it at 72 registers (the soft scan
+// needs 70 without a spill; at 8 blocks, 64 registers, it spilled and ran
+// 6% slower on an H100).  The re-forward: 6 (80 registers; at 7 it ran
+// ~4% slower on an H100, at 8 ~2% slower again; unbounded it took 94 and
+// ran at 5 blocks per SM).  The full-residual forward: 8 (64 registers;
+// ~3% faster than at 7, ~8% faster than at 6).
 constexpr int kRegenBlocksPerSm = 7;
-constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kModeFull = 0;
 constexpr int kModeIdx = 1;
 constexpr int kModeRefwd = 2;
+template <int MODE>
+constexpr int kPlaneBlocksPerSm = MODE == kModeRefwd ? 6 : 8;
 // f32 residual planes: 0-2 o, 3-5 d, 6-8 tp, 9 alive, 10 regen, 11-19 the
 // winner's cx cy cz r ar ag ab fuzz ior; soft: 20-23 the blocker's cx cy cz
 // r.  i32: 0 kb, 1 s, 2 b, 3 idx, 4 mat; soft: 5 the blocker's index.
@@ -116,6 +123,9 @@ constexpr int kFRegen = 10;
 constexpr int kFAttr = 11;
 constexpr int kFBlk = 20;
 constexpr int kIKb = 0, kIS = 1, kIB = 2, kIIdx = 3, kIMat = 4, kIBlk = 5;
+// f32 residual planes of variant V.
+template <int V>
+constexpr int kNumF = V != kHard ? kFBlk + 4 : kFBlk;
 // The recording forward's counters (u64): 0 the next lane to fetch, 1
 // thread-iterations (32 per loop trip of a warp), 2 the grid's blocks.
 constexpr int kCntNext = 0, kCntThreadIters = 1, kCntBlocks = 2;
@@ -247,9 +257,10 @@ __device__ __forceinline__ BlockTables load_block(const RegenArgs& a,
 
 // Iteration w.it of lane ``lane`` (whose walk is not over): one bounce,
 // regenerating a camera ray first if no path is in flight, with its
-// records; then w.it + 1.
+// records; then w.it + 1.  Returns the winner code and (soft) the blocker
+// index (else -1), whose planes, as alive's, the caller stores.
 template <int MODE, int V>
-__device__ __forceinline__ void regen_step(const RegenArgs& a,
+__device__ __forceinline__ int2 regen_step(const RegenArgs& a,
                                            const BlockTables& bt_,
                                            const Consts& k, int lane,
                                            LaneState& w) {
@@ -288,7 +299,6 @@ __device__ __forceinline__ void regen_step(const RegenArgs& a,
       fp(3 + c) = w.d[c];
       fp(6 + c) = w.tp[c];
     }
-    fp(kFAlive) = 1.0f;
     fp(kFRegen) = regen ? 1.0f : 0.0f;
     ip(kIKb) = w.kb;
     ip(kIS) = w.s;
@@ -365,12 +375,10 @@ __device__ __forceinline__ void regen_step(const RegenArgs& a,
       if constexpr (kSoftV) a.packed[word_stride + wpos] = w.bword;
     }
   } else {
-    ip(kIIdx) = bi;
     ip(kIMat) = f.mat;
 #pragma unroll
     for (int j = 0; j < 9; ++j) fp(kFAttr + j) = wa[j];
     if constexpr (kSoftV) {
-      ip(kIBlk) = qi;
 #pragma unroll
       for (int j = 0; j < 4; ++j) fp(kFBlk + j) = blk[j];
     }
@@ -425,6 +433,7 @@ __device__ __forceinline__ void regen_step(const RegenArgs& a,
   }
   w.alive = surv;
   w.it = it + 1;
+  return make_int2(bi, qi);
 }
 
 // The idx-only recording forward on a resident grid whose threads fetch
@@ -492,37 +501,67 @@ __global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
 
 // The full-residual forward and the re-forward (MODE kModeFull or
 // kModeRefwd): one thread per lane, so the 25-30 plane stores of an
-// iteration coalesce, and the lane's iterations after its walk's end
-// written dead (alive 0, idx and bidx -1).
+// iteration coalesce.  Each warp walks its iterations in step, 0 ..
+// n_iter - 1: at iteration it a lane below its count runs regen_step, and
+// a lane at or above it is dead there, so the alive and idx (soft: bidx)
+// planes take every lane's entry of row it, live (1, its winner) or dead
+// (0, -1), in the same store instructions, and a dead lane writes zeros
+// into the row's other planes, so that no 32-byte sector of the row is
+// left partly written (on an H100 that made the hard re-forward ~10%
+// faster, though it stores more bytes).  From the warp's longest count on,
+// its rows are dead for every lane: the three planes' stores alone, 32
+// lanes of one row each, and nothing in the other planes.  (Lanes writing
+// their own dead iterations from their own counts would touch up to 32
+// rows per store, one word in each 32-byte sector: on the cover chunks
+// that cost the hard re-forward ~1.5 ms of its 6.)
 template <int MODE, int V>
-__global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
+__global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSm<MODE>)
     regen_kernel(SPT_REGEN_PARAMS) {
   const RegenArgs a = {SPT_REGEN_FIELDS};
   extern __shared__ float4 smem[];
   const BlockTables bt = load_block<V>(a, smem);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n_lanes) return;
+  const bool in = lane < n_lanes;
   Consts k;
   load_consts(consts, k);
-  LaneState w;
-  lane_start(w);
-  for (; w.it < n_iter;) {
-    if (!w.alive && w.kb >= n_banks) break;
-    regen_step<MODE, V>(a, bt, k, lane, w);
-  }
-  int it = w.it;
-  if (MODE != kModeRefwd) out_cnt[lane] = static_cast<float>(it);
-  // The dead iterations.  (This kernel with the constants in shared
-  // memory, one struct parameter and a 64-bit element index stepped by
-  // n_lanes here ran the re-forward 15% slower on an H100.)
   const size_t L = static_cast<size_t>(n_lanes);
   const size_t plane_stride = static_cast<size_t>(n_iter) * L;
+  float* const alive_p = resf + kFAlive * plane_stride + lane;
+  int* const idx_p = resi + kIIdx * plane_stride + lane;
+  int* const bidx_p = resi + kIBlk * plane_stride + lane;
+  LaneState w;
+  lane_start(w);
+  int it = 0;
   for (; it < n_iter; ++it) {
-    const size_t e = static_cast<size_t>(it) * L + lane;
-    resf[kFAlive * plane_stride + e] = 0.0f;
-    resi[kIIdx * plane_stride + e] = -1;
-    if constexpr (V != kHard) resi[kIBlk * plane_stride + e] = -1;
+    const bool live = in && !lane_done(a, w);
+    if (!__any_sync(kFullWarp, live)) break;
+    int2 code = make_int2(-1, -1);
+    if (live) {
+      code = regen_step<MODE, V>(a, bt, k, lane, w);
+    } else if (in) {
+      const size_t e = static_cast<size_t>(it) * L + lane;
+#pragma unroll
+      for (int j = 0; j < kNumF<V>; ++j)
+        if (j != kFAlive) resf[j * plane_stride + e] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kIBlk; ++j)
+        if (j != kIIdx) resi[j * plane_stride + e] = 0;
+    }
+    if (in) {
+      const size_t e = static_cast<size_t>(it) * L;
+      alive_p[e] = live ? 1.0f : 0.0f;
+      idx_p[e] = code.x;
+      if constexpr (V != kHard) bidx_p[e] = code.y;
+    }
+  }
+  if (!in) return;
+  if (MODE != kModeRefwd) out_cnt[lane] = static_cast<float>(w.it);
+  for (; it < n_iter; ++it) {
+    const size_t e = static_cast<size_t>(it) * L;
+    alive_p[e] = 0.0f;
+    idx_p[e] = -1;
+    if constexpr (V != kHard) bidx_p[e] = -1;
   }
 }
 
@@ -531,7 +570,7 @@ __global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
 // order, then the int planes kb s b idx mat (soft: bidx).
 template <int V>
 struct BwdSlots {
-  static constexpr int kF = (V != kHard ? kFBlk + 4 : kFBlk) - 1;
+  static constexpr int kF = kNumF<V> - 1;
   static constexpr int kI = V != kHard ? kIBlk + 1 : kIBlk;
   static constexpr int kAll = kF + kI;
   // The float slot of residual plane p (p != kFAlive), and the plane of

@@ -76,7 +76,6 @@ constexpr int kThreads = 128;
 // 64 registers (80 without the cap, 6 blocks per SM); the 8-block build was
 // the faster of the two on an H100 at the cover frame.
 constexpr int kBlocksPerSm = 8;
-constexpr unsigned kFullWarp = 0xffffffffu;
 
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
     const int* __restrict__ pixel_ids, int n_pix,

@@ -142,3 +142,45 @@ def test_closest_hit_attrs_compaction_on_card(name, pattern):
     assert (got[0][~alive] == -1).all()
     if pattern != "none":
         assert (got[0][alive] >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["none", "all", "one_in_33", "queue_fills", "random"])
+@pytest.mark.parametrize("name", ["three_sphere", "three_sphere_plane", "cover"])
+def test_bounce_step_compaction_on_card(name, pattern):
+    """The bounce-step kernel runs a group of 32 rays with at least 24 live
+    in place (dead and live rays storing in the same instructions); a
+    sparser group's dead rays copy their state at once and its live rays
+    join the warp's queue, which runs 32 at a time, and the rays still
+    queued after the warp's last group run one per lane.  Bit for bit
+    against the plain version -- every live ray's next state and every
+    dead ray's copy -- on every pattern of live rays: none, all, one in 33,
+    20 of every 32 (the queue fills on most groups and a partial tail is
+    left) and half at random, at bounce 0 and at bounce 3 (Russian roulette
+    on where the case sets it from bounce 2).  The rays are the case's
+    camera rays repeated, cut to a count that is not a multiple of 32: 2 M
+    on the three-sphere scenes, so each warp of the resident grid walks
+    several groups, and 327 K on cover (488 sphere slots)."""
+    scene, cam, cfg, keys, o, d = _case(name)
+    call = bounce_step_call(scene, keys, cfg)
+    reps = 40 if name == "cover" else -(-2_000_003 // o.shape[0])
+    n = o.shape[0] * reps - 5
+    o, d = o.repeat(reps, 1)[:n].contiguous(), d.repeat(reps, 1)[:n].contiguous()
+    pix = keys.pixel.int().repeat(reps)[:n].contiguous()
+    samp = keys.sample.int().repeat(reps)[:n].contiguous()
+    i = torch.arange(n, device="cuda")
+    alive = {"none": i < 0, "all": i >= 0, "one_in_33": i % 33 == 0,
+             "queue_fills": i % 32 < 20,
+             "random": torch.rand(n, generator=torch.Generator("cuda").manual_seed(2),
+                                  device="cuda") < 0.5}[pattern]
+    state = bs.initial_state(o, d)
+    state[12] = alive.float()
+    launches = bs.bounce_step.launches["bounce_step"]
+    for b in (0, 3):
+        got = bs.bounce_step(call, state, pix, samp, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bs.bounce_step_reference(call, state, pix, samp, b)), b
+        assert torch.equal(got[:12, ~alive], state[:12, ~alive]) and not got[12, ~alive].any()
+        if pattern != "none":
+            assert got[12, alive].any() and not torch.equal(got[:, alive], state[:, alive])
+    assert bs.bounce_step.launches["bounce_step"] == launches + 2

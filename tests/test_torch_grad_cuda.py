@@ -172,3 +172,55 @@ def test_regen_backward_uneven_lanes_on_card(n_banks, rr, softness, plane):
     assert torch.equal(ctp, ctp_p) and torch.equal(part, part_p)
     assert not ctp[:, dead].any() and not part[:, 32:64].any()
     assert ctp[:, ~dead].abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softness,plane", [(0.0, True), (0.05, False), (0.05, True)],
+                         ids=["hard", "soft", "soft_plane"])
+@pytest.mark.parametrize("rr", [0, 2], ids=["no-rr", "rr"])
+@pytest.mark.parametrize("n_banks", [1, 2], ids=["1bank", "2banks"])
+def test_regen_reforward_uneven_lanes_on_card(n_banks, rr, softness, plane):
+    """The full-residual forward and the re-forward walk each warp's
+    iterations in step: a lane at or above its count stores alive 0 and idx
+    -1 (soft: bidx -1) in the live lanes' store instructions, and the rows
+    above the warp's longest count are stored alone.  Held on lanes that
+    end unevenly (1,000 random pixels of a 48x24 frame in one bank, or
+    2,050 of 64x48 in two: n_lanes 1,000 or 1,025, neither a multiple of
+    32; 12 samples): every plane bit for bit against the plain version on
+    live entries, alive 1 exactly below each lane's count and 0 from it on,
+    idx (soft: bidx) -1 on every dead entry, and the backward fed by the
+    re-forward's planes bit for bit equal to the backward fed by the plain
+    version's (which reads only live entries and alive, so it gives what a
+    re-forward that matches the plain version gave before)."""
+    gen = torch.Generator().manual_seed(21 + n_banks)
+    w, h, n_pix = (48, 24, 1000) if n_banks == 1 else (64, 48, 2050)
+    pix = torch.randperm(w * h, generator=gen)[:n_pix]
+    call = _call(rr, softness, plane, pix, 12, n_banks, w, h)
+    assert call.n_banks == n_banks and call.n_lanes % 32 != 0
+    v = gr.variant(call)
+    launches = (gr.regen_forward.launches[v], gr.regen_refwd.launches[v])
+    rad, cnt, full = gr.regen_forward(call, 3, True)
+    _, _, packed = gr.regen_forward(call, 3, False)
+    refwd = gr.regen_refwd(call, 3, packed)
+    assert (gr.regen_forward.launches[v], gr.regen_refwd.launches[v]) == (
+        launches[0] + 2, launches[1] + 1)
+    rad_p, cnt_p, (pf, pi) = gr.regen_fwd_reference(call, 3, True)
+    assert torch.equal(rad, rad_p) and torch.equal(cnt, cnt_p)
+    assert cnt.min() < cnt.max()
+    dead = torch.arange(call.n_iter, device="cuda")[:, None] >= cnt.long()[None, :]
+    alive = ~dead
+    assert torch.equal(pf[9] > 0, alive)
+    for f, i in (full, refwd):
+        assert torch.equal(f[:, alive], pf[:, alive]) and torch.equal(i[:, alive], pi[:, alive])
+        assert torch.equal(f[9], alive.float())
+        assert (i[3][dead] == -1).all()
+        if softness:
+            assert (i[gr._I_BLK][dead] == -1).all()
+
+    ct = torch.randn((call.pixel_ids.shape[0], 3), generator=gen).to("cuda")
+    ctp, part = gr.regen_backward(call, 3, *refwd, ct)
+    ctp_k, part_k = gr.regen_backward(call, 3, pf, pi, ct)
+    ctp_p, part_p = gr.regen_bwd_reference(call, 3, pf, pi, ct)
+    assert torch.equal(ctp, ctp_k) and torch.equal(part, part_k)
+    assert torch.equal(ctp, ctp_p) and torch.equal(part, part_p)
+    assert not ctp[:, dead].any() and ctp[:, alive].abs().sum() > 0
