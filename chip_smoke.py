@@ -75,6 +75,18 @@ with ns per live ray-bounce, the bounce step per bounce of
 ``render_pixels`` with its live rays and the groups of 32 rays holding
 one, the closest-hit-attributes kernel per bounce of the hits fit, and
 the step times of the hard, default soft, camera, hits and plane fits.
+
+For the bucket kernel it prints the key coherence of every chunk it
+buckets at full width (rows cut into groups of 32 consecutive rows, as a
+warp reads them: the share of groups whose rows that name a sphere hold
+one key, the mean distinct keys per group, the busiest slot's share of
+those rows), its time at every shape the main paths give it (the hard and
+soft chunks, the plane fit's chunk, the fused route's step, the hits
+route's bounces) and both instantiations' registers; for the
+index-and-t closest hit its time alone and through its wrapper, its
+registers, and a grazing ray set (tangent, an ulp off, from inside, near
+root at t_min; all, some and no rays alive) bit for bit against its plain
+version.
 """
 
 from __future__ import annotations
@@ -83,6 +95,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -500,6 +513,28 @@ def bucket_errors(d_k, d_p, idx_keep, src, s):
     tol = (BUCKET_RTOL * ref.abs() + BUCKET_ATOL_REL * src.abs().max().double()
            + BUCKET_SUM_ROUNDINGS * F32_EPS * mag)
     return (d_k.double() - ref).abs(), (d_p.double() - ref).abs(), tol, ref.abs().max().item()
+
+
+def key_coherence(idx, s):
+    """How the bucket's keys fall in groups of 32 consecutive rows (as a
+    warp reads them), counting only rows that name a sphere, over the
+    groups that hold one: the share of groups with one distinct key, the
+    mean count of distinct keys per group, and the busiest slot's share of
+    the rows."""
+    flat = idx.reshape(-1)
+    g = torch.cat([flat, flat.new_full(((-flat.numel()) % 32,), -1)]).view(-1, 32)
+    live = (g >= 0) & (g < s)
+    keep = live.any(dim=1)
+    g, live = g[keep], live[keep]
+    srt = torch.where(live, g, torch.full_like(g, s)).sort(dim=1).values
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    distinct = (new & (srt < s)).sum(dim=1).float()
+    counts = torch.bincount(flat[(flat >= 0) & (flat < s)].long(), minlength=s)
+    return dict(groups=int(keep.sum().item()), one_key_share=(distinct == 1).float().mean().item(),
+                mean_distinct_keys=distinct.mean().item(),
+                busiest_share=counts.max().item() / max(1, counts.sum().item()),
+                busiest_slot=int(counts.argmax().item()))
 
 
 def loss_and_grads(tpt, scene, target, cam, cfg, key, dev, pixel_perm=None, leaves=None):
@@ -1032,9 +1067,11 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     buckets = [("bucket", ct_planes[:9], resi[3])]
     if soft:
         buckets.append(("bucket_blocker", ct_planes[9:], resi[5]))
-    res["library_ms"], res["bucket_rows"] = {}, {}
+    res["library_ms"], res["bucket_rows"], res["coherence"] = {}, {}, {}
     for bname, c, idx in buckets:
         k = c.shape[0]
+        res["coherence"][bname] = coh = key_coherence(idx, s)
+        print(f"{tag} {bname} key coherence over groups of 32 rows: {json.dumps(coh)}")
         ms[bname] = cuda_ms(lambda: bucket.bucket_cols(c, idx, s), reps=3 * more)
         d_k = bucket.bucket_cols(c, idx, s)
         idx_keep, src = bucket_rows(c, idx, s)
@@ -1622,7 +1659,7 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
         errs["grad_bwd" + sfx] = max(errs["grad_bwd" + sfx], (ck[:, rows] - cp).abs().max().item())
         if want_attr:
             for c, ix in [(ak[:9], idx)] + ([(ak[9:], bidx)] if soft else []):
-                bucket_ms += cuda_ms(lambda: bucket.bucket_cols(c, ix, s), reps=2)
+                bucket_ms += cuda_ms(lambda: bucket.bucket_cols(c, ix, s), reps=5)
                 d_k = bucket.bucket_cols(c, ix, s)
                 idx_keep, src = bucket_rows(c, ix, s)
                 k = c.shape[0]
@@ -2285,7 +2322,7 @@ def phase9_hits_fit(tpt, dev, wrappers):
         got = kernel(o, d, alive, tables, cfg.t_min, cfg.t_max, tab=tab)
         if b + 1 < depth:
             bucket_ms.append(cuda_ms(lambda: bucket.bucket_cols(ct, got[0], scene.num_spheres),
-                                     reps=2))
+                                     reps=10))
         want = ch.closest_hit_attrs_reference(o[rows], d[rows], alive[rows], tables, cfg.t_min,
                                               cfg.t_max)
         a_k, a_p = torch.stack(got[1])[:, rows], torch.stack(want[1])
@@ -2319,12 +2356,37 @@ def phase9_hits_fit(tpt, dev, wrappers):
     return out
 
 
-def phase9_closest_hit(tpt, dev, wrappers):
+def grazing_cases(scene, dev):
+    """(name, centers, radii, origins, dirs, alive) of the grazing ray sets
+    the index-and-t kernel is held to bit for bit: tests/kernel_cases.py's
+    grazing_rays on its AXIS_SPHERES (centered on the z axis, where
+    tangency is exact) and on the cover scene, each with every, some and no
+    ray alive."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from kernel_cases import AXIS_SPHERES, grazing_rays
+
+    axis_c, axis_r = (torch.tensor(a, device=dev) for a in AXIS_SPHERES)
+    out = []
+    for name, c, r in (("axis", axis_c, axis_r), ("cover", scene.centers, scene.radii)):
+        o, d = grazing_rays(c, r)
+        n = o.shape[0]
+        every = torch.ones(n, dtype=torch.bool, device=dev)
+        some = torch.arange(n, device=dev) % 3 != 0
+        for alive_name, alive in (("all", every), ("some", some), ("none", ~every)):
+            out.append((f"{name}/{alive_name}", c, r, o, d, alive))
+    return out
+
+
+def phase9_closest_hit(tpt, dev, wrappers, lib):
     """intersect_scene_pallas (kernel 11) on the full frame's camera rays
-    (one sample per pixel): launches, CUDA-event ms, bound, and 2,048 random
-    rays against the plain version.  Returns what the report needs."""
+    (one sample per pixel): launches, CUDA-event ms through the kernel's
+    wrapper (which builds the sphere table) and of spt_closest_hit alone
+    (on a table built once), bound, 2,048 random rays against the plain
+    version, and the grazing ray sets bit for bit.  Returns what the report
+    needs."""
     from simplepathtracer_tpu_torch.ops import closest_hit as ch
     from simplepathtracer_tpu_torch.ops import intersect
+    from simplepathtracer_tpu_torch.ops.cuda_build import stream
 
     scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
     keys = fused_keys(cfg.width, cfg.height, 1, tpt.make_key(0), dev)
@@ -2335,27 +2397,53 @@ def phase9_closest_hit(tpt, dev, wrappers):
     hit = intersect.intersect_scene_pallas(o, d, alive, scene, cfg.t_min, cfg.t_max)
     sync(dev)
     launches, calls = launch_counts(wrappers), plain_calls(wrappers)
-    ms = cuda_ms(lambda: ch.closest_hit(o, d, alive, scene.centers, scene.radii, cfg.t_min,
-                                        cfg.t_max), reps=5)
+    ms = cuda_ms(lambda: ch.closest_hit(o, d, alive, scene.centers, scene.radii,
+                                        cfg.t_min, cfg.t_max), reps=5)
+    # The kernel alone: the wrapper's table (cx, cy, cz, r^2) and outputs
+    # made once, then only the launch.
+    rad = scene.radii.detach()
+    spheres = torch.cat([scene.centers.detach(), (rad * rad)[:, None]], 1).contiguous()
+    oc, dc = o.contiguous(), d.contiguous()
+    i_out = torch.empty(n, dtype=torch.int32, device=dev)
+    t_out = torch.empty(n, dtype=torch.float32, device=dev)
+
+    def launch():
+        if lib.lib.spt_closest_hit(n, spheres.data_ptr(), spheres.shape[0], oc.data_ptr(),
+                                   dc.data_ptr(), alive.data_ptr(), float(cfg.t_min),
+                                   float(cfg.t_max), i_out.data_ptr(), t_out.data_ptr(),
+                                   stream(dev)) != 0:
+            raise RuntimeError("phase9: spt_closest_hit failed to launch")
+
+    alone_ms = cuda_ms(launch, reps=20)
     idx, t = ch.closest_hit(o, d, alive, scene.centers, scene.radii, cfg.t_min, cfg.t_max)
     rows = torch.randperm(n, generator=torch.Generator().manual_seed(13))[:N_CHECK_PIXELS].to(dev)
     i_p, t_p = ch.closest_hit_reference(o[rows], d[rows], alive[rows], scene.centers,
                                         scene.radii, cfg.t_min, cfg.t_max)
     ok = (torch.equal(idx[rows], i_p) and torch.equal(t[rows], t_p)
+          and torch.equal(i_out, idx) and torch.equal(t_out, t)
           and torch.equal(hit.hit, idx >= 0) and bool(torch.isfinite(hit.t).all()))
+    err = (t[rows] - t_p).abs().max().item()
+    grazing = {}
+    for name, c, rad, go, gd, galive in grazing_cases(scene, dev):
+        gi, gt = ch.closest_hit(go, gd, galive, c, rad, cfg.t_min, cfg.t_max)
+        wi, wt = ch.closest_hit_reference(go, gd, galive, c, rad, cfg.t_min, cfg.t_max)
+        same = torch.equal(gi, wi) and torch.equal(gt, wt)
+        grazing[name] = dict(rays=go.shape[0], hits=int((gi >= 0).sum().item()), exact=same)
+        ok = ok and same
+        err = max(err, (gt - wt).abs().max().item())
     s_live = live_spheres(scene)
     ops_s = n * s_live * FLOPS_PER_SPHERE_TEST / PEAK_FP32
     bytes_s = n * HIT_BYTES / PEAK_BYTES
-    out = {"ms": ms, "launches": launches, "err": (t[rows] - t_p).abs().max().item(),
+    out = {"ms": ms, "ms_kernel_alone": alone_ms, "launches": launches, "err": err,
            "bound_ms": max(ops_s, bytes_s) * 1e3,
            "bound_by": "operations" if ops_s >= bytes_s else "bytes", "n_rays": n,
-           "hit_share": (idx >= 0).float().mean().item()}
+           "hit_share": (idx >= 0).float().mean().item(), "grazing": grazing}
     print(f"phase9 intersect_scene_pallas cover {cfg.width}x{cfg.height} camera rays ({n}), "
           f"{s_live} live spheres: launches {launches}, plain calls {calls}; closest_hit "
-          f"{ms:.3f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}), "
-          f"{out['bound_ms'] / ms:.3f} of bound, hits {out['hit_share']:.4f}; "
-          f"{N_CHECK_PIXELS} random rays against the plain version "
-          f"{'bit-exact' if ok else 'DIFFER'}")
+          f"{ms:.3f} ms through its wrapper (table built), {alone_ms:.3f} ms alone, bound "
+          f"{out['bound_ms']:.3f} ms ({out['bound_by']}), {out['bound_ms'] / ms:.3f} of bound, "
+          f"hits {out['hit_share']:.4f}; {N_CHECK_PIXELS} random rays and the grazing sets "
+          f"{json.dumps(grazing)} against the plain version {'bit-exact' if ok else 'DIFFER'}")
     if launches != {"closest_hit": 1} or any(calls.values()) or not ok:
         raise RuntimeError("phase9: intersect_scene_pallas did not run through the closest-hit "
                            "kernel, or the kernel disagrees with its plain version")
@@ -2412,6 +2500,9 @@ def main(argv=None):
         print(f"regen backward {vname}: {ptxas_usage(lib.log, f'regen_bwd_kernelILi{v}EE')}")
     print(f"closest_hit_attrs: {ptxas_usage(lib.log, 'closest_hit_attrs_kernel')}")
     print(f"bounce_step: {ptxas_usage(lib.log, 'bounce_step_kernel')}")
+    for k in BUCKET_NAMES:
+        print(f"bucket_kernel<{k}>: {ptxas_usage(lib.log, f'bucket_kernelILi{k}EE')}")
+    print(f"closest_hit_kernel: {ptxas_usage(lib.log, 'closest_hit_kernel')}")
 
     kernel = persistent.render_block_persistent
     plain = persistent.render_block_persistent_reference
@@ -2657,7 +2748,7 @@ def main(argv=None):
     phase_done("phase9b")
     main9c = phase9_hits_fit(tpt, dev, wrappers)
     phase_done("phase9c")
-    main9d = phase9_closest_hit(tpt, dev, wrappers)
+    main9d = phase9_closest_hit(tpt, dev, wrappers, lib)
     phase_done("phase9d")
     for name, res in (("bounce_step", main9b), ("closest_hit_attrs", main9c),
                       ("closest_hit", main9d)):
@@ -2686,6 +2777,32 @@ def main(argv=None):
         },
         "closest_hit": {"rays": main9d["n_rays"], "hit_share": main9d["hit_share"]},
     }))
+
+    # The bucket at every shape the main paths give it (one launch per chunk
+    # of the hard, default and plane fits; the fused scene-leaf step's
+    # launches summed; the hits route's launch per bounce) and its key
+    # coherence at each chunk.
+    plane_k, plane_fit = main7["plane_kernels"], main7["plane_fit"]
+    bucket_shapes = {
+        "bucket": {"hard_chunk": main6["ms"]["bucket"], "soft_chunk": main7["ms"]["bucket"],
+                   "plane_chunk": plane_k["ms"]["bucket"],
+                   "fused_step_sum": main8b["bucket"]["ms"],
+                   "hits_per_bounce": main9c["bucket_ms"]},
+        "bucket_blocker": {"soft_chunk": main7["ms"]["bucket_blocker"],
+                           "plane_chunk": plane_k["ms"]["bucket_blocker"]},
+    }
+    print("bucket ms by shape: " + json.dumps(bucket_shapes))
+
+    def bucket_extra(name):
+        """The bucket rows' registers, times by shape and key coherence."""
+        if name not in bucket_shapes:
+            return {}
+        k = 9 if name == "bucket" else N_BLK_PLANES
+        coh = {shape: res["coherence"][name] for shape, res in
+               (("hard_chunk", main6), ("soft_chunk", main7), ("plane_chunk", plane_k))
+               if name in res["coherence"]}
+        return {**ptxas_usage(lib.log, f"bucket_kernelILi{k}EE"),
+                "ms_by_shape": bucket_shapes[name], "coherence": coh}
 
     report = {"kernels": [{
         "name": "persistent_render",
@@ -2737,6 +2854,7 @@ def main(argv=None):
             "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
             "launches_over_fit_steps": FIT_STEPS,
             **regen_fwd_extra(name, main6, 0),
+            **bucket_extra(name),
         })
     for name, source, replaces in SOFT_KERNELS:
         report["kernels"].append({
@@ -2756,8 +2874,8 @@ def main(argv=None):
             "kernel_ms_at_plain_shape": grad_kernel_small_ms[name],
             "launches_over_fit_steps": FIT_STEPS,
             **regen_fwd_extra(name, main7, 1),
+            **bucket_extra(name),
         })
-    plane_k, plane_fit = main7["plane_kernels"], main7["plane_fit"]
     for name, source, replaces in SOFT_PLANE_KERNELS:
         report["kernels"].append({
             "name": name,
@@ -2810,7 +2928,8 @@ def main(argv=None):
                                         f"{cfg.max_depth}, per launch (render_pixels)"),
                 "closest_hit_attrs": (main9c, f"{cfg.width}x{cfg.height}x{main9c['chunk']}spp "
                                               f"chunk of the hits fit, per launch"),
-                "closest_hit": (main9d, f"{cfg.width}x{cfg.height} camera rays, one launch")}
+                "closest_hit": (main9d, f"{cfg.width}x{cfg.height} camera rays, one launch "
+                                        f"through the wrapper (table built)")}
     for name, source, replaces in EXPLICIT_KERNELS:
         res, ms_shape = explicit[name]
         row = {
@@ -2832,6 +2951,9 @@ def main(argv=None):
         }
         if name == "closest_hit_attrs":
             row["launches_over_fit_steps"] = FIT_STEPS
+        if name == "closest_hit":
+            row.update(ptxas_usage(lib.log, "closest_hit_kernel"),
+                       ms_kernel_alone=res["ms_kernel_alone"], grazing=res["grazing"])
         if name == "bounce_step":
             row.update(ptxas_usage(lib.log, "bounce_step_kernel"),
                        ms_per_bounce=res["ms_per_bounce"], live_rays_per_bounce=res["live"])

@@ -19,9 +19,10 @@
 // sqrt(max(disc, 0)) and an explicit disc > 0 test.  The two disagree on
 // tangent rays, so they share no device function.
 //
-// Design.  Both run as many blocks as the card keeps resident, so each
-// block loads the sphere table into shared memory once; all threads of a
-// warp read the same sphere at once, so the loads broadcast.  Rays are
+// Design.  Each block loads the sphere table into shared memory; all
+// threads of a warp read the same sphere at once, so the loads broadcast.
+// The attributes kernel runs as many blocks as the card keeps resident, so
+// each block loads its table once.  Rays are
 // [N, 3] origins and directions as the JAX wrappers take them.  A dead ray
 // (alive 0) skips its scan and writes the miss values (index -1, t =
 // t_max; centers 0, r 1, albedo 0, material 0, fuzz 0, ior 1).  The TPU
@@ -29,8 +30,13 @@
 // output for a dead ray depends on its block; live rays get the same
 // answer either way.  The winner's attributes are read once from its
 // shared-memory row after the scan, where the TPU scan carries all nine
-// through every select.  closest_hit_kernel runs one thread per ray in a
-// grid-stride loop.  closest_hit_attrs_kernel serves every bounce of the
+// through every select.  closest_hit_kernel runs one thread per ray on the
+// exact grid, one block per 128 rays (on an H100 it ran 0.349 ms on the
+// cover frame's 960,000 camera rays against 0.383 on a resident grid with a
+// grid-stride loop, both at an unroll of 4: a block's table of a few KB
+// comes from L2), and takes the square root and the roots only where
+// disc > 0 (see the kernel).
+// closest_hit_attrs_kernel serves every bounce of the
 // hits route, and after a scatter the live rays lie scattered over the
 // batch (cover at 2 spp: 100% at bounce 0, 39% at bounce 2, 1.5% at bounce
 // 9), so with one thread per ray nearly every warp still held a live ray
@@ -52,13 +58,24 @@
 namespace spt {
 namespace {
 
+// The index-and-t kernel's block size and its scan's unroll depth (on an
+// H100 at the cover frame's camera rays, an unroll of 8 ran about 1.5%
+// slower in four runs of five, of 4 4-6% slower; 64- and 256-thread blocks
+// at an unroll of 8 ran within 1% of 128: PERF.md §6).
 constexpr int kThreads = 128;
+constexpr int kUnroll = 16;
 // The attributes kernel's block size (at 128 it ran bounce 0 of the cover
 // hits fit 5% slower on an H100), and the live rays from which a group of
 // 32 runs in place instead of queueing.
 constexpr int kAttrThreads = 256;
 constexpr int kDense = 24;
 
+// The scan takes the square root, the two roots and their select only
+// where disc > 0.  The TPU kernel computes them for every sphere, from
+// sqrt(max(disc, 0)), and then rejects the sphere unless disc > 0: where
+// disc <= 0 or is NaN, none of those values reaches an output, so skipping
+// them changes no bit.  Camera rays from nearby pixels miss most spheres
+// together, so whole warps skip them.
 __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
     int n, const float4* __restrict__ spheres, int n_spheres,
     const float* __restrict__ origins, const float* __restrict__ dirs,
@@ -66,36 +83,36 @@ __global__ void __launch_bounds__(kThreads) closest_hit_kernel(
     int* __restrict__ idx_out, float* __restrict__ t_out) {
   // spheres: [n_spheres] (cx, cy, cz, r^2).
   extern __shared__ float4 smem[];
-  for (int s = threadIdx.x; s < n_spheres; s += blockDim.x)
-    smem[s] = spheres[s];
+  for (int s = threadIdx.x; s < n_spheres; s += kThreads) smem[s] = spheres[s];
   __syncthreads();
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float bt = t_max;
-    int bi = -1;
-    if (alive[i]) {
-      const size_t r = 3 * static_cast<size_t>(i);
-      const float ox = origins[r], oy = origins[r + 1], oz = origins[r + 2];
-      const float dx = dirs[r], dy = dirs[r + 1], dz = dirs[r + 2];
-#pragma unroll 4
-      for (int s = 0; s < n_spheres; ++s) {
-        const float4 g = smem[s];
-        const float ocx = g.x - ox, ocy = g.y - oy, ocz = g.z - oz;
-        const float tc = ocx * dx + ocy * dy + ocz * dz;
-        const float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
-        const float disc = g.w - (oc2 - tc * tc);
-        const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float bt = t_max;
+  int bi = -1;
+  if (alive[i]) {
+    const size_t r = 3 * static_cast<size_t>(i);
+    const float ox = origins[r], oy = origins[r + 1], oz = origins[r + 2];
+    const float dx = dirs[r], dy = dirs[r + 1], dz = dirs[r + 2];
+#pragma unroll (kUnroll)
+    for (int s = 0; s < n_spheres; ++s) {
+      const float4 g = smem[s];
+      const float ocx = g.x - ox, ocy = g.y - oy, ocz = g.z - oz;
+      const float tc = ocx * dx + ocy * dy + ocz * dz;
+      const float oc2 = ocx * ocx + ocy * ocy + ocz * ocz;
+      const float disc = g.w - (oc2 - tc * tc);
+      if (disc > 0.0f) {
+        const float sq = sqrtf(disc);
         const float t_near = tc - sq;
         const float t = t_near > t_min ? t_near : tc + sq;
-        if (disc > 0.0f && t > t_min && t < bt) {
+        if (t > t_min && t < bt) {
           bt = t;
           bi = s;
         }
       }
     }
-    idx_out[i] = bi;
-    t_out[i] = bt;
   }
+  idx_out[i] = bi;
+  t_out[i] = bt;
 }
 
 // Each warp walks its groups of 32 consecutive rays through
@@ -151,11 +168,8 @@ extern "C" int spt_closest_hit(int n, const void* spheres, int n_spheres,
                                const void* alive, float t_min, float t_max,
                                void* idx_out, void* t_out, void* stream) {
   const size_t smem = static_cast<size_t>(n_spheres) * sizeof(float4);
-  int blocks = 0;
-  cudaError_t err = spt::allow_smem(spt::closest_hit_kernel, smem);
-  if (err == cudaSuccess)
-    err = spt::grid_for(spt::closest_hit_kernel, spt::kThreads, n, smem,
-                        blocks);
+  const int blocks = (n + spt::kThreads - 1) / spt::kThreads;
+  const cudaError_t err = spt::allow_smem(spt::closest_hit_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   spt::closest_hit_kernel<<<blocks, spt::kThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(

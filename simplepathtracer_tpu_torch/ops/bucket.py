@@ -13,9 +13,11 @@ is a parameter: 9 winner-attribute columns, or the soft blocker's 4
 (cx, cy, cz, r; the JAX package pads those to 9).
 
 On a CUDA tensor ``bucket_cols`` launches the hand-written kernel in
-``csrc/bucket.cu`` (shared-memory accumulators, shared atomics, one global
-atomic per table entry and block); on a CPU tensor it calls the plain
-version ``bucket_cols_reference`` (``index_add_``).  The TPU kernel's
+``csrc/bucket.cu`` (each warp sums its 32 rows by key in registers, one
+lane per distinct key adds them to a shared-memory table, and each block
+adds its table's nonzero entries to the output with global atomics); on a
+CPU tensor it calls the plain version ``bucket_cols_reference``
+(``index_add_``).  The TPU kernel's
 bitcast idx row and bf16x3 split exist for the TPU's matrix unit only and
 have no counterpart here.  The kernel's atomics add in an order that
 changes from run to run, so it agrees with the plain version to rounding

@@ -10,8 +10,9 @@ only:
 * ``closest_hit`` / ``closest_hit_reference`` -- ``closest_hit_pallas``
   (``_closest_hit_kernel``): winner index and t, in that kernel's own
   formulation (r^2 from ``radii * radii``, ``sqrt(max(disc, 0))``, an
-  explicit ``disc > 0`` test).  ``intersect.intersect_scene_pallas`` rebuilds
-  the differentiable hit from the index.
+  explicit ``disc > 0`` test; the kernel takes the roots only where disc > 0,
+  which changes no bit).  ``intersect.intersect_scene_pallas`` rebuilds the
+  differentiable hit from the index.
 * ``closest_hit_attrs`` / ``closest_hit_attrs_reference`` --
   ``closest_hit_attrs_pallas`` (``_closest_hit_attrs_kernel``): winner index,
   its 9 float attributes (cx cy cz r albedo rgb fuzz ior) and its material,

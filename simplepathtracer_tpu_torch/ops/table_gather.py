@@ -6,8 +6,9 @@ closest-hit kernel (``ops/closest_hit.py``), detached;
 ``attach_attr_columns`` reattaches the table's gradient to them.  Its
 backward, like ``gather_rows``', is the scatter-add transpose of the
 winner lookup, d_table[s, k] = sum over rows r of [idx[r] == s] ct[r, k],
-computed by ``ops/bucket.py:bucket_cols``: the CUDA kernel (shared-memory
-atomics) on a CUDA tensor, its plain version (``index_add_``) on the CPU.
+computed by ``ops/bucket.py:bucket_cols``: the CUDA kernel (sums by key
+within each warp, then shared-memory and global atomics) on a CUDA tensor,
+its plain version (``index_add_``) on the CPU.
 Rows with idx -1 (a miss or a dead ray) bucket nowhere.  The JAX
 package's chunked one-hot matmuls served the TPU's matrix unit and have
 no counterpart here.  On the card the bucket kernel takes 9 or 4 columns

@@ -14,6 +14,7 @@ that changes from run to run: its gradients are held to rtol 1e-5.
 
 import pytest
 import torch
+from kernel_cases import AXIS_SPHERES, grazing_rays
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch.camera import generate_rays
@@ -184,3 +185,32 @@ def test_bounce_step_compaction_on_card(name, pattern):
         if pattern != "none":
             assert got[12, alive].any() and not torch.equal(got[:, alive], state[:, alive])
     assert bs.bounce_step.launches["bounce_step"] == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alive_mask", ["all", "some", "none"])
+@pytest.mark.parametrize("spheres", ["axis", "cover"])
+def test_closest_hit_grazing_rays_on_card(spheres, alive_mask):
+    """The index-and-t kernel bit for bit against its plain version on
+    ``kernel_cases.grazing_rays``: tangent rays (disc exactly 0 on spheres
+    centered on the z axis), rays an ulp off, rays from inside, near roots
+    at t_min, with every, some and no ray alive.  The kernel takes the roots only where
+    disc > 0; the plain version keeps the JAX kernel's sqrt(max(disc, 0))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    if spheres == "axis":
+        centers, radii = (torch.tensor(a, device="cuda") for a in AXIS_SPHERES)
+    else:
+        scene = tpt.compact_scene(tpt.cover_scene(0, device="cuda"))
+        centers, radii = scene.centers, scene.radii
+    o, d = grazing_rays(centers, radii)
+    n = o.shape[0]
+    alive = {"all": torch.ones(n, dtype=torch.bool, device="cuda"),
+             "some": torch.arange(n, device="cuda") % 3 != 0,
+             "none": torch.zeros(n, dtype=torch.bool, device="cuda")}[alive_mask]
+    launches = ch.closest_hit.launches["closest_hit"]
+    idx, t = ch.closest_hit(o, d, alive, centers, radii)
+    assert ch.closest_hit.launches["closest_hit"] == launches + 1
+    want_idx, want_t = ch.closest_hit_reference(o, d, alive, centers, radii)
+    assert torch.equal(idx, want_idx) and torch.equal(t, want_t)
+    assert alive_mask == "none" or bool((idx >= 0).any())

@@ -28,10 +28,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from kernel_cases import PATTERNS, float64_bound, key_pattern
 
 import simplepathtracer_tpu as spt
 from simplepathtracer_tpu.ops import pallas_grad_regen as jr
-from simplepathtracer_tpu.ops.pallas_bucket import bucket_cols_pallas
+from simplepathtracer_tpu.ops.pallas_bucket import bucket_cols_pallas, bucket_rows_pallas
 from simplepathtracer_tpu.ops.pallas_common import banked_lane_layout
 from simplepathtracer_tpu.render import _persistent_args
 from simplepathtracer_tpu.scenes import with_ground_plane
@@ -190,3 +191,32 @@ def test_bucket_matches_jax_kernel():
     got = bucket.bucket_cols(torch.tensor(cols), torch.tensor(idx), s)
     assert got.shape == (s, 9)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("n_buckets", (1, 3, 488))
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_bucket_key_patterns_match_jax_kernel(pattern, n_buckets):
+    """The plain version the kernel is held to on the card, against the
+    TPU kernel (interpret mode) on the card tests' key patterns, with 9 and
+    4 columns.  Both are held to the float64 sum of the rows that name a
+    slot under chip_smoke.py's bound for the kernel (rtol 1e-5, atol 1e-7 of
+    max |cotangent|, 8 float32 roundings of the entry's absolute row sum):
+    each sums in its own order, the TPU kernel after a bf16x3 split.  The
+    patterns are tests/kernel_cases.py's, at 4,096 rows."""
+    rng = np.random.default_rng(PATTERNS.index(pattern) * 10 + n_buckets)
+    for k in bucket.COLS:
+        cols, idx = key_pattern(pattern, n_buckets, k, rng, 4096)
+        n = idx.shape[0]
+        if n % 1024 == 0:
+            want = np.asarray(bucket_cols_pallas(
+                [jnp.asarray(c.reshape(n // 128, 128)) for c in cols],
+                jnp.asarray(idx.reshape(n // 128, 128)), n_buckets, interpret=True))
+        else:
+            want = np.asarray(bucket_rows_pallas(jnp.asarray(cols.T), jnp.asarray(idx),
+                                                 n_buckets, interpret=True))
+        got = bucket.bucket_cols_reference(torch.tensor(cols), torch.tensor(idx), n_buckets)
+        assert got.shape == (n_buckets, k) and got.dtype == torch.float32
+        ref, tol = (x.numpy() for x in float64_bound(torch.tensor(cols), torch.tensor(idx),
+                                                     n_buckets))
+        assert np.all(np.abs(got.numpy() - ref) <= tol)
+        assert np.all(np.abs(want - ref) <= tol)

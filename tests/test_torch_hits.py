@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from kernel_cases import AXIS_SPHERES, grazing_rays
 
 import simplepathtracer_tpu as spt
 from simplepathtracer_tpu import inverse as jinv
@@ -123,6 +124,48 @@ def test_closest_hit_matches_jax_kernel(cover_rays):
     rel = np.abs(t_t[hits] - j_t[hits]) / np.abs(j_t[hits])
     assert (rel > 1e-6).mean() < 0.25, (rel > 1e-6).mean()
     assert rel.max() < 1e-3, rel.max()
+
+
+@pytest.mark.parametrize("alive_mask", ["all", "some", "none"])
+@pytest.mark.parametrize("spheres", ["axis", "cover"])
+def test_closest_hit_grazing_rays_match_jax_kernel(spheres, alive_mask):
+    """``closest_hit_reference``, which the kernel matches bit for bit on the
+    card, on ``kernel_cases.grazing_rays``: tangent rays, rays an ulp off,
+    rays from inside, near roots at t_min.  t equals the IEEE float32 evaluation of
+    the JAX kernel's formulation (as in test_closest_hit_matches_jax_kernel)
+    on every live hit.  Against the JAX kernel in interpret mode: on the
+    axis spheres (exact arithmetic) the index is equal on every live ray and
+    t within rtol 1e-3 (XLA's FMAs round disc otherwise where it cancels);
+    on the cover scene a tangent ray's disc is a few roundings from 0, so
+    XLA's FMAs flip a few knife-edge winners: the index is equal on all but
+    0.5% of the live rays, and t within rtol 1e-3 where it is.  Dead rays
+    miss."""
+    if spheres == "axis":
+        centers, radii = (torch.tensor(a) for a in AXIS_SPHERES)
+    else:
+        ts = convert_scene(spt.PRESETS["cover"].build(jax.random.PRNGKey(0))[0], "cpu")
+        centers, radii = ts.centers, ts.radii
+    o, d = grazing_rays(centers, radii)
+    n = o.shape[0]
+    alive = {"all": torch.ones(n, dtype=torch.bool), "some": torch.arange(n) % 3 != 0,
+             "none": torch.zeros(n, dtype=torch.bool)}[alive_mask]
+    t_idx, t_t = (x.numpy() for x in ch.closest_hit_reference(o, d, alive, centers, radii))
+    a = alive.numpy()
+    np.testing.assert_array_equal(t_idx[~a], -1)
+    np.testing.assert_array_equal(t_t[t_idx < 0], np.float32(3.0e7))
+    hits = t_idx >= 0
+    c, r = centers.numpy()[t_idx[hits]], radii.numpy()[t_idx[hits]]
+    t_ieee, sq = _ieee_t(o.numpy()[hits], d.numpy()[hits], c, (r * r).astype(np.float32))
+    assert np.all(np.abs(t_t[hits] - t_ieee) <= 1e-6 * np.abs(t_ieee) + 2 * np.spacing(sq))
+    if not a.any():
+        return
+    j_idx, j_t = (np.asarray(x)[a] for x in closest_hit_pallas(
+        jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), jnp.asarray(a),
+        jnp.asarray(centers.numpy()), jnp.asarray(radii.numpy()), interpret=True))
+    t_idx, t_t = t_idx[a], t_t[a]
+    same = t_idx == j_idx
+    assert (~same).mean() <= (0.0 if spheres == "axis" else 0.005), (~same).sum()
+    assert hits.any() and np.all(np.abs(t_t[same] - j_t[same]) <= 1e-3 * np.abs(j_t[same]))
 
 
 def test_closest_hit_attrs_matches_jax_kernel(cover_rays):
