@@ -96,6 +96,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -200,6 +201,10 @@ FUSED_KERNELS = (
 # offset in degrees); AD/FD of vfov (tests/test_camera_grad.py:21-52: eps,
 # and rtol 0.25 as bounds).
 FUSED_SPP = 8
+# Steps the fused scene-leaf route is timed over (~22 ms each on the card:
+# 3 steps read 21.5-21.7 ms from one run to the next, more than the gain a
+# raygen change can show).
+FUSED_STEPS = 10
 # Chunks, samples per chunk and depth that phase 6 runs through the plain
 # route (its time grows with each; the fit's own chunk and depth are held
 # kernel by kernel in phase 6 (e)).
@@ -227,6 +232,37 @@ BOUNCE_STEP_BYTES, ATTRS_BYTES, HIT_BYTES = 112, 69, 33
 # The hits route against the fused route on the same key (phase 9c): loss
 # relative difference, and each smooth leaf's gradient relative L2 error.
 HITS_LOSS_RTOL, HITS_GRAD_L2 = 1e-4, 2e-2
+# Raygen (phase 8b): bytes per ray each launch must move (the int32 pixel
+# and sample ids in, the 6 float32 planes out), and the operations per ray
+# that common.cuh's camera_ray states, counted from the source once (so the
+# bound does not follow the kernel's own instructions).  Integer: each
+# threefry2x32 call 72 (the two counter adds, 20 rounds of add, rotate and
+# xor with the rotate one funnel shift, 5 key injections of two adds; the
+# injected words are the launch's), the two calls sharing pix + k0 (143);
+# the counters sid << 8 | 124 and | 125 (3); the four uniforms' >> 8 (4);
+# the pixel's row and column by a multiply-high, a shift and a
+# multiply-subtract (3).  FP32: the uniforms' scale (4), s01 and t01 (5),
+# the lens radius and angle (2), ou and ov (2), origin (12), direction (15),
+# its norm and scale (9); conversions 6; sqrt, sin, cos, rsqrt 4.  The
+# rates: FP32 lanes issue PEAK_FP32 / 2 results per second (the peak counts
+# an FMA as two), integer lanes half that (64 results per clock per SM
+# against FP32's 128: CUDA C++ Programming Guide, compute capability 9.0),
+# so the integer work sets the operations bound (153 at half rate against
+# 212 at the full rate).
+RAYGEN_BYTES = 32
+RAYGEN_OPS = {"integer": 153, "fp32": 49, "conversion": 6, "special": 4}
+# Rays per thread of the raygen kernel (csrc/grad.cu kRaygenRays).
+RAYGEN_RAYS_PER_THREAD = 4
+# SASS opcodes (before the first dot) by the pipe that runs them.
+SASS_PIPES = {
+    "integer": {"IADD3", "IADD", "IMAD", "LOP3", "LOP", "SHF", "ISETP", "IMNMX", "IABS", "LEA",
+                "SEL", "PRMT", "FLO", "POPC", "BMSK", "SGXT", "VIADD", "VIMNMX", "BREV"},
+    "fp32": {"FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FCHK", "FSET"},
+    "conversion": {"I2F", "F2I", "I2FP", "F2F", "FRND", "F2IP"},
+    "mufu": {"MUFU"},
+    "memory": {"LDG", "STG", "LDS", "STS", "LDL", "STL", "LDC", "ATOMG", "ATOMS", "RED"},
+}
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?([A-Z0-9_.]+)([^;]*);")
 # Report-name suffix of each regen kernel variant (ops/grad_regen.variant)
 # and report name of each bucket column count.
 VARIANT_SUFFIX = {"hard": "", "soft": "_soft", "soft_plane": "_soft_plane"}
@@ -287,6 +323,75 @@ def ptxas_usage(log, entry):
             out["registers"] = int(words[words.index("registers") - 1])
             seen = False
     return out
+
+
+def sass_kernel(so_path, log, entry):
+    """[(address, predicated, opcode, operands)] of the kernel whose mangled
+    name contains ``entry`` (its first match among the entry functions of
+    the nvcc ``log``), from ``cuobjdump -sass`` of that function alone."""
+    from simplepathtracer_tpu_torch.ops.cuda_build import _nvcc
+
+    names = [n for n in re.findall(r"Compiling entry function '([^']+)'", log) if entry in n]
+    if not names:
+        raise RuntimeError(f"no kernel named like {entry} in the nvcc log")
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(_nvcc())), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", "-fun", names[0], str(so_path)],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr[:500]}")
+    ins, inside = [], False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            inside = names[0] in line
+        elif inside and (m := SASS_LINE.search(line)):
+            ins.append((int(m.group(1), 16), bool(m.group(2)), m.group(3), m.group(4).strip()))
+    if not ins:
+        raise RuntimeError(f"cuobjdump printed no SASS for {names[0]}")
+    return ins
+
+
+def sass_pipe(opcode):
+    base = opcode.split(".")[0]
+    if base.startswith("U"):
+        return "uniform"
+    return next((p for p, ops in SASS_PIPES.items() if base in ops), "other")
+
+
+def sass_hot_path(ins):
+    """The instructions a thread runs when it takes no slow path: from the
+    kernel's entry to its last EXIT before the first subroutine, leaving
+    out each region that a predicated forward branch skips and that holds a
+    CALL or a loop of its own (the IEEE square root's special-value call,
+    sincosf's Payne-Hanek reduction: no argument of the launches here takes
+    them), innermost first, so that a region around them (a bounds check)
+    stays."""
+    def target(op, operands):
+        word = operands.split()[-1] if operands else ""
+        return int(word, 16) if op == "BRA" and word.startswith("0x") else None
+
+    first_ret = next((i for i, x in enumerate(ins) if x[2].startswith("RET")), len(ins))
+    main = ins[:max(i for i, x in enumerate(ins[:first_ret]) if x[2] == "EXIT") + 1]
+    at = {x[0]: i for i, x in enumerate(main)}
+    regions = sorted((at[t] - i, i, at[t]) for i, (a, pred, op, operands) in enumerate(main)
+                     if pred and (t := target(op, operands)) is not None and t > a and t in at)
+    skip = [False] * len(main)
+    for _, i, j in regions:
+        def rare(k):
+            a, _, op, operands = main[k]
+            t = target(op, operands)
+            return op.startswith("CALL") or (t is not None and main[i][0] < t < a)
+        if any(rare(k) and not skip[k] for k in range(i + 1, j)):
+            skip[i + 1:j] = [True] * (j - i - 1)
+    return [x for x, s in zip(main, skip) if not s]
+
+
+def sass_counts(ins):
+    counts = {}
+    for x in ins:
+        counts[sass_pipe(x[2])] = counts.get(sass_pipe(x[2]), 0) + 1
+    counts["total"] = len(ins)
+    counts["local"] = sum(x[2].split(".")[0] in ("LDL", "STL") for x in ins)
+    return counts
 
 
 def warp_live_share(cnt):
@@ -1703,7 +1808,95 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
     return res
 
 
-def phase8_fused_route(tpt, dev, wrappers):
+def raygen_main(tpt, fg, lib, cam, cfg, key, rows):
+    """Raygen (row 8) at the fused route's launch, every pixel of the frame x
+    FUSED_SPP samples: CUDA-event ms through ``_raygen_launch`` on the int64
+    ids of ``ray_keys`` (two int32 casts included), on the int32 ids
+    the route passes it, and of ``spt_raygen`` alone (ids and output made
+    once); the scalar instantiation alone at the same launch (the pixel ids
+    one element off 16-byte alignment, which the host reads as its cue);
+    SASS per ray by pipe, ptxas, and both bounds.  Holds raygen bit for bit
+    against its plain version on the rays ``rows``, on the first n - 1 rays
+    (n % 4 != 0), on the last pixel ids of the frame, and at a width that is
+    not a power of two with ids up to 2^31 - 1.  Raises on a mismatch."""
+    from simplepathtracer_tpu_torch.ops.cuda_build import stream
+    from simplepathtracer_tpu_torch.ops.persistent import camera_constants
+    from simplepathtracer_tpu_torch.ops.sampling import ray_keys
+
+    t0 = time.perf_counter()
+    dev = cam.origin.device
+    w, h = cfg.width, cfg.height
+    keys = fused_keys(w, h, FUSED_SPP, key, dev)
+    n = keys.pixel.shape[0]
+    pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+    keys32 = keys._replace(pixel=pix, sample=samp)
+    cam19 = camera_constants(cam, w, h).detach().contiguous()
+    out, out_scalar = torch.empty((6, n), device=dev), torch.empty((6, n), device=dev)
+    pix_off = torch.empty(n + 1, dtype=torch.int32, device=dev)[1:]
+    pix_off.copy_(pix)
+
+    def launch(p_ids, o):
+        if lib.lib.spt_raygen(n, cam19.data_ptr(), keys.k0, keys.k1, p_ids.data_ptr(),
+                              samp.data_ptr(), w, fg._f32(1.0 / w), fg._f32(1.0 / h),
+                              o.data_ptr(), stream(dev)) != 0:
+            raise RuntimeError("raygen: spt_raygen failed to launch")
+
+    res = {"ms": cuda_ms(lambda: fg._raygen_launch(cam19, keys, w, h), reps=10),
+           "ms_int32_ids": cuda_ms(lambda: fg._raygen_launch(cam19, keys32, w, h), reps=10),
+           "ms_kernel_alone": cuda_ms(lambda: launch(pix, out), reps=20),
+           "ms_scalar_path_alone": cuda_ms(lambda: launch(pix_off, out_scalar), reps=20)}
+    sync(dev)
+
+    want = fg.raygen_reference(cam, sub_keys(keys, rows), cfg)
+    checks = {"rows": torch.equal(out[:, rows], want), "scalar_path": torch.equal(out_scalar, out)}
+    tail = sub_keys(keys, slice(0, n - 1))
+    got = fg.raygen(cam, tail, cfg)
+    pick = torch.cat([rows[rows < n - 1], torch.arange(n - 65, n - 1, device=dev)])
+    checks["n_minus_1"] = torch.equal(got[:, pick], fg.raygen_reference(cam, sub_keys(tail, pick), cfg))
+    p = w * h
+    last = ray_keys(key, torch.arange(p - 4096, p, device=dev).repeat(2),
+                    torch.arange(2, device=dev).repeat_interleave(4096))
+    checks["last_pixel_ids"] = torch.equal(fg.raygen(cam, last, cfg), fg.raygen_reference(cam, last, cfg))
+    wide = cfg.replace(width=46337, height=46345)
+    top = ray_keys(key, torch.arange(2**31 - 4096, 2**31, device=dev),
+                   torch.zeros(4096, dtype=torch.int64, device=dev))
+    checks["width_46337_ids_to_2^31"] = torch.equal(fg.raygen(cam, top, wide),
+                                                    fg.raygen_reference(cam, top, wide))
+    res["checks"] = checks
+    res["max_abs_err"] = (out[:, rows] - want).abs().max().item()
+    del out_scalar
+
+    # The bounds, from the work the function needs: bytes (each id read
+    # once, each plane written once) and operations (RAYGEN_OPS, integer at
+    # half the FP32 lanes' rate); the larger sets row 8's bound.  The SASS
+    # per ray of the instantiation this launch runs (each thread makes
+    # RAYGEN_RAYS_PER_THREAD rays) is printed beside them, not used in them.
+    t_sass = time.perf_counter()
+    hot = sass_hot_path(sass_kernel(lib.path, lib.log, "raygen_kernelILb1"))
+    t_sass = time.perf_counter() - t_sass
+    per_ray = {k: v / RAYGEN_RAYS_PER_THREAD for k, v in sass_counts(hot).items()}
+    lanes = PEAK_FP32 / 2
+    ops_s = max(RAYGEN_OPS["integer"] / (lanes / 2), sum(RAYGEN_OPS.values()) / lanes)
+    res.update(sass_per_ray=per_ray, ops_per_ray=RAYGEN_OPS, bound_ops_ms=n * ops_s * 1e3,
+               bound_bytes_ms=n * RAYGEN_BYTES / PEAK_BYTES * 1e3, n_rays=n,
+               ptxas=ptxas_usage(lib.log, "raygen_kernelILb1"),
+               ptxas_scalar=ptxas_usage(lib.log, "raygen_kernelILb0"))
+    res["bound_ms"] = max(res["bound_ops_ms"], res["bound_bytes_ms"])
+    res["bound_by"] = "operations" if res["bound_ops_ms"] >= res["bound_bytes_ms"] else "bytes"
+    print(f"raygen at {w}x{h}x{FUSED_SPP}spp ({n} rays): through _raygen_launch {res['ms']:.4f} ms "
+          f"(int64 ids, two casts; int32 ids {res['ms_int32_ids']:.4f}), alone "
+          f"{res['ms_kernel_alone']:.4f} ms, scalar path alone {res['ms_scalar_path_alone']:.4f} ms; "
+          f"ptxas {res['ptxas']} (scalar {res['ptxas_scalar']}); SASS per ray {json.dumps(per_ray)}; "
+          f"bounds: bytes {res['bound_bytes_ms']:.4f} ms, operations {res['bound_ops_ms']:.4f} ms "
+          f"({json.dumps(RAYGEN_OPS)} per ray, integer at half rate) -> "
+          f"{res['bound_ms'] / res['ms_kernel_alone']:.3f} of bound alone; bit-exact {checks}; "
+          f"{time.perf_counter() - t0:.1f} s ({t_sass:.1f} s of it cuobjdump)")
+    if not all(checks.values()):
+        raise RuntimeError(f"raygen disagrees with its plain version: {checks}")
+    return res
+
+
+def phase8_fused_route(tpt, dev, wrappers, lib):
     """The fused scene-leaf route at bench.py's shape: value_and_grad of
     pixel_loss on the cover frame at 8 spp in one chunk, hard, through the
     raygen kernel, the fused forward and backward and the buckets; held
@@ -1725,14 +1918,14 @@ def phase8_fused_route(tpt, dev, wrappers):
     reset_counts(wrappers)
     reset_peak(dev)
     t0 = time.perf_counter()
-    for _ in range(FIT_STEPS):
+    for _ in range(FUSED_STEPS):
         l_f, g_f = loss_and_grads(tpt, start, target, cam, fcfg, key, dev)
     sync(dev)
-    out = {"step_s": (time.perf_counter() - t0) / FIT_STEPS, "peak_gb": peak_gb(dev)}
+    out = {"step_s": (time.perf_counter() - t0) / FUSED_STEPS, "peak_gb": peak_gb(dev)}
     launches = launch_counts(wrappers)
     calls = plain_calls(wrappers)
     out["launches"] = launches
-    per_step = {k: v / FIT_STEPS for k, v in launches.items()}
+    per_step = {k: v / FUSED_STEPS for k, v in launches.items()}
     want = {"raygen": 1, "grad_fwd": cfg.max_depth, "grad_bwd": cfg.max_depth,
             "bucket": cfg.max_depth}
     paths = cfg.num_pixels * FUSED_SPP
@@ -1767,6 +1960,7 @@ def phase8_fused_route(tpt, dev, wrappers):
     gen = torch.Generator().manual_seed(10)
     rows = torch.randperm(paths, generator=gen)[:N_CHECK_PIXELS].to(dev)
     out.update(fused_full_width(tpt, fg, bucket, start, cam, fcfg, key, FUSED_SPP, rows, True))
+    out["raygen"] = raygen_main(tpt, fg, lib, cam, fcfg, key, rows)
     return out
 
 
@@ -2699,7 +2893,7 @@ def main(argv=None):
     # ---- phase 8: camera gradients through the fused kernels -------------
     fused_errs, fused_plain_ms, fused_small_ms, fused_shapes = phase8_kernels(tpt, dev)
     phase_done("phase8a")
-    main8b = phase8_fused_route(tpt, dev, wrappers)
+    main8b = phase8_fused_route(tpt, dev, wrappers, lib)
     phase_done("phase8b")
     main8c = phase8_fit_camera(tpt, dev, wrappers, extra_adfd=args.camera_adfd)
     phase_done("phase8c")
@@ -2710,12 +2904,13 @@ def main(argv=None):
     for res in (main8b, main8c):
         for name, err in res["errs"].items():
             fused_errs[name] = max(fused_errs[name], err)
+    fused_errs["raygen"] = max(fused_errs["raygen"], main8b["raygen"]["max_abs_err"])
     print("phase8: " + json.dumps({
         "fused_route": {
             "shape": f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth {cfg.max_depth}, one chunk",
             "s_per_step": main8b["step_s"],
             "mpaths_per_s": cfg.num_pixels * FUSED_SPP / main8b["step_s"] / 1e6,
-            "peak_gb": main8b["peak_gb"], "launches": main8b["launches"], "steps": FIT_STEPS,
+            "peak_gb": main8b["peak_gb"], "launches": main8b["launches"], "steps": FUSED_STEPS,
             "loss_rel_vs_regen": main8b["loss_rel"], "bucket": main8b["bucket"],
             "live_rays_per_bounce": main8b["live"],
             "fwd_ms_per_bounce": main8b["fwd_ms_per_bounce"],
@@ -2899,6 +3094,12 @@ def main(argv=None):
     for name, source, replaces in FUSED_KERNELS:
         res = main8c if name.endswith("_soft") else main8b
         fwd = {}
+        if name == "raygen":
+            rg = main8b["raygen"]
+            fwd = {k: rg[k] for k in ("ms_kernel_alone", "ms_int32_ids", "ms_scalar_path_alone",
+                                      "bound_bytes_ms", "bound_ops_ms", "ops_per_ray",
+                                      "sass_per_ray", "ptxas_scalar", "checks")}
+            fwd.update(rg["ptxas"])
         for pre in ("grad_fwd", "grad_bwd"):
             if name.startswith(pre):
                 fwd = dict(ptxas_usage(lib.log, f"{pre}_kernelILi{int(res is main8c)}EE"),
@@ -2911,17 +3112,17 @@ def main(argv=None):
             "replaces": replaces,
             "launches": res["launches"][name],
             "max_abs_err": fused_errs[name],
-            "ms": res["ms"][name],
+            "ms": main8b["raygen"]["ms"] if name == "raygen" else res["ms"][name],
             "plain_ms": fused_plain_ms[name],
-            "bound_ms": res["bound_ms"][name],
-            "bound_by": res["bound_by"][name],
+            "bound_ms": main8b["raygen"]["bound_ms"] if name == "raygen" else res["bound_ms"][name],
+            "bound_by": main8b["raygen"]["bound_by"] if name == "raygen" else res["bound_by"][name],
             "library_ms": None,
             "ms_shape": (f"{cfg.width}x{cfg.height}x{res['n_rays'] // cfg.num_pixels}spp depth "
                          f"{cfg.max_depth}{' soft ' + str(DEFAULT_SOFTNESS) if res is main8c else ''}"
                          ", per launch"),
             "plain_ms_shape": fused_shapes[name] + ", per launch",
             "kernel_ms_at_plain_shape": fused_small_ms[name],
-            "launches_over_steps": FIT_STEPS,
+            "launches_over_steps": FUSED_STEPS if res is main8b else FIT_STEPS,
             **fwd,
         })
     explicit = {"bounce_step": (main9b, f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth "

@@ -4,7 +4,7 @@
 // Replace the TPU kernels of the JAX package's ops/pallas_grad.py:
 //   grad_fwd_kernel<V>   _grad_fwd_kernel   (one bounce, emits residuals)
 //   grad_bwd_kernel<V>   _grad_bwd_kernel   (one bounce's adjoint)
-//   raygen_kernel        _raygen_kernel     (thin-lens rays, slots 124/125)
+//   raygen_kernel<kVec>  _raygen_kernel     (thin-lens rays, slots 124/125)
 // V = kHard or kSoft (two-sided soft silhouettes).  Like the JAX kernels
 // they are sphere-only: plane scenes take the eager bounce
 // (render.trace_rays).  The bounce and its hand-written adjoint are
@@ -60,8 +60,12 @@
 //
 // Bound.  The forward is bound by the sphere scan's FP32 work (20
 // operations per sphere test, the soft scan ~32) on live rays; the
-// backward and raygen do O(1) work per ray and are bound by the planes
-// they read and write.
+// backward does O(1) work per ray and is bound by the planes it reads and
+// writes.  Raygen moves 32 bytes per ray, but its two 20-round threefry
+// calls make it about as bound by integer issue (integer instructions run
+// at half the FP32 rate): it takes no runtime division (a magic multiplier
+// for 1 / width), makes 4 rays per thread with int4 loads and float4
+// stores where n % 4 == 0, and runs the exact grid (PERF.md, row 8).
 //
 // Numerics.  --fmad=false (cuda_build.py) and IEEE sqrt and division, as
 // the other kernels: the forward, the backward's per-ray cotangents and
@@ -415,26 +419,102 @@ __global__ void __launch_bounds__(kThreads) grad_bwd_kernel(
   block_sum_atomic<6>(sky_acc, sky_out);
 }
 
-__global__ void __launch_bounds__(kThreads) raygen_kernel(
+// Raygen: each thread makes kRaygenRays rays (its ids loaded as int4, each
+// output plane stored as a float4 where the pointers and n allow; one ray
+// at a time otherwise) over the exact grid.  The pixel's row and column
+// come from a multiply-high by the host's magic number for 1 / width
+// (Divider) in place of a division by a runtime divisor.  256-thread
+// blocks: at 128 ptxas spills a register around the square root's slow-path
+// call (PERF.md, row 8).
+constexpr int kRaygenThreads = 256;
+constexpr int kRaygenRays = 4;
+
+// Exact p / d for every p < 2^31 (pixel ids are int32): with s = ceil(log2
+// d) - 1 and m = ceil(2^(32 + s) / d), p / d = umulhi(p, m) >> s, since m d
+// - 2^(32 + s) < d <= 2^(s + 1) keeps the error of p m / 2^(32 + s) below
+// 1 / d (Granlund and Montgomery).  m = 0 stands for d = 1.
+struct Divider {
+  uint32_t m;
+  int s;
+};
+
+inline Divider make_divider(uint32_t d) {
+  if (d <= 1u) return {0u, 0};
+  int l = 0;
+  while ((uint64_t{1} << l) < d) ++l;
+  const int s = l - 1;
+  const uint64_t m = ((uint64_t{1} << (32 + s)) + d - 1) / d;
+  return {static_cast<uint32_t>(m), s};
+}
+
+// One camera ray of pixel p and sample sid: common.cuh's camera_ray.
+__device__ __forceinline__ void raygen_ray(const float (&cam)[19], uint32_t k0,
+                                           uint32_t k1, uint32_t p,
+                                           uint32_t sid, uint32_t width,
+                                           Divider div, float inv_w,
+                                           float inv_h, float (&o)[3],
+                                           float (&d)[3]) {
+  const uint32_t y = div.m != 0u ? __umulhi(p, div.m) >> div.s : p;
+  const uint32_t x = p - y * width;
+  camera_ray(cam, k0, k1, p, sid << 8, static_cast<float>(x),
+             static_cast<float>(y), inv_w, inv_h, o[0], o[1], o[2], d[0],
+             d[1], d[2]);
+}
+
+// kVec: n % 4 == 0 and pix, samp, rays 16-byte aligned, so a thread's rays
+// 4t .. 4t + 3 are one int4 of each id array and one float4 of each plane.
+// Otherwise thread t of block b makes rays 4 b blockDim + t + j blockDim
+// (j < 4), each load and store coalesced across the block.  The host
+// launches one block per tile of 4 blockDim rays (the exact grid); ray
+// indices are 64-bit, so every n up to INT_MAX is indexed.
+template <bool kVec>
+__global__ void __launch_bounds__(kRaygenThreads) raygen_kernel(
     int n, const float* __restrict__ cam19, uint32_t k0, uint32_t k1,
-    const int* __restrict__ pix, const int* __restrict__ samp, int width,
-    float inv_w, float inv_h, float* __restrict__ rays) {
+    const int* __restrict__ pix, const int* __restrict__ samp,
+    uint32_t width, Divider div, float inv_w, float inv_h,
+    float* __restrict__ rays) {
+  static_assert(kRaygenRays == 4, "the vector path loads one int4 per thread");
+  const int64_t N = n;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * blockDim.x * kRaygenRays;
+  if (base >= N) return;
   float cam[19];
 #pragma unroll
   for (int j = 0; j < 19; ++j) cam[j] = cam19[j];
-  const size_t N = static_cast<size_t>(n);
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const uint32_t p = static_cast<uint32_t>(pix[i]);
-    const float xf = static_cast<float>(p % static_cast<uint32_t>(width));
-    const float yf = static_cast<float>(p / static_cast<uint32_t>(width));
-    float o[3], d[3];
-    camera_ray(cam, k0, k1, p, static_cast<uint32_t>(samp[i]) << 8, xf, yf,
-               inv_w, inv_h, o[0], o[1], o[2], d[0], d[1], d[2]);
+  if constexpr (kVec) {
+    const int64_t i0 = base + threadIdx.x * kRaygenRays;
+    if (i0 >= N) return;
+    const int4 p4 = *reinterpret_cast<const int4*>(pix + i0);
+    const int4 s4 = *reinterpret_cast<const int4*>(samp + i0);
+    const int p[4] = {p4.x, p4.y, p4.z, p4.w};
+    const int s[4] = {s4.x, s4.y, s4.z, s4.w};
+    float o[kRaygenRays][3], d[kRaygenRays][3];
+#pragma unroll
+    for (int r = 0; r < kRaygenRays; ++r)
+      raygen_ray(cam, k0, k1, static_cast<uint32_t>(p[r]),
+                 static_cast<uint32_t>(s[r]), width, div, inv_w, inv_h, o[r],
+                 d[r]);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      rays[c * N + i] = o[c];
-      rays[(3 + c) * N + i] = d[c];
+      *reinterpret_cast<float4*>(rays + c * N + i0) =
+          make_float4(o[0][c], o[1][c], o[2][c], o[3][c]);
+      *reinterpret_cast<float4*>(rays + (3 + c) * N + i0) =
+          make_float4(d[0][c], d[1][c], d[2][c], d[3][c]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < kRaygenRays; ++r) {
+      const int64_t i = base + threadIdx.x + r * blockDim.x;
+      if (i < N) {
+        float o[3], d[3];
+        raygen_ray(cam, k0, k1, static_cast<uint32_t>(pix[i]),
+                   static_cast<uint32_t>(samp[i]), width, div, inv_w, inv_h,
+                   o, d);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          rays[c * N + i] = o[c];
+          rays[(3 + c) * N + i] = d[c];
+        }
+      }
     }
   }
 }
@@ -547,18 +627,24 @@ extern "C" int spt_grad_backward(
 
 // Thin-lens camera rays for n (pixel, sample) ids: rays [6, n] f32 (origin
 // xyz, unit direction xyz).  cam19: ops/persistent.py:camera_constants.
+// Every n up to INT_MAX is taken: its grid of at most 2^21 blocks is within
+// gridDim.x's limit, and the kernel indexes rays in 64 bits.
 extern "C" int spt_raygen(int n, const void* cam19, unsigned int k0,
                           unsigned int k1, const void* pix, const void* samp,
                           int width, float inv_w, float inv_h, void* rays,
                           void* stream) {
-  int blocks = 0;
-  const cudaError_t err =
-      spt::grid_for(spt::raygen_kernel, spt::kThreads, n, 0, blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  spt::raygen_kernel<<<blocks, spt::kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  if (n <= 0 || width <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  const bool vec = n % 4 == 0 && aligned(pix) && aligned(samp) && aligned(rays);
+  const int per_block = spt::kRaygenThreads * spt::kRaygenRays;
+  const int blocks = (n - 1) / per_block + 1;
+  const auto launch = vec ? spt::raygen_kernel<true> : spt::raygen_kernel<false>;
+  launch<<<blocks, spt::kRaygenThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       n, static_cast<const float*>(cam19), k0, k1,
-      static_cast<const int*>(pix), static_cast<const int*>(samp), width,
-      inv_w, inv_h, static_cast<float*>(rays));
+      static_cast<const int*>(pix), static_cast<const int*>(samp),
+      static_cast<uint32_t>(width), spt::make_divider(width), inv_w, inv_h,
+      static_cast<float*>(rays));
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,7 +19,8 @@ differentiable ray generation.
 Not ported yet, and raising ``NotImplementedError`` rather than being
 ignored: cost-balanced pixel order (``balance``), the gradient-accumulated
 estimator (``grad_accum``, ``make_accum_grad_step``) and fit snapshots
-(``snapshot_path``; A.14).
+(``snapshot_path``), each under its item of ROADMAP queue A
+(``balanced_pixel_perm``, ``make_accum_grad_step``, ``checkpoint``).
 """
 
 from __future__ import annotations
@@ -136,7 +137,8 @@ def fit_config(config: RenderConfig, device=None) -> RenderConfig:
 def make_accum_grad_step(*args, **kwargs):
     """The gradient-accumulated estimator: not ported yet."""
     raise NotImplementedError(
-        "make_accum_grad_step (grad_accum) is not ported yet: ROADMAP A.9 leftovers"
+        "make_accum_grad_step (grad_accum) is not ported yet "
+        "(ROADMAP queue A: make_accum_grad_step)"
     )
 
 
@@ -188,15 +190,18 @@ def fit(
     del rebalance_every, snapshot_every
     if balance:
         raise NotImplementedError(
-            "fit(balance=True): balanced_pixel_perm is not ported yet (ROADMAP A.8)"
+            "fit(balance=True): balanced_pixel_perm is not ported yet "
+            "(ROADMAP queue A: balanced_pixel_perm)"
         )
     if grad_accum:
         raise NotImplementedError(
-            "fit(grad_accum=...): make_accum_grad_step is not ported yet (ROADMAP A.9)"
+            "fit(grad_accum=...): make_accum_grad_step is not ported yet "
+            "(ROADMAP queue A: make_accum_grad_step)"
         )
     if snapshot_path:
         raise NotImplementedError(
-            "fit(snapshot_path=...): fit snapshots are not ported yet (ROADMAP A.14)"
+            "fit(snapshot_path=...): fit snapshots are not ported yet "
+            "(ROADMAP queue A: checkpoint)"
         )
     dev = resolve_device(device)
     if softness and any(k in leaves for k in _GEOMETRY_LEAVES):

@@ -359,11 +359,13 @@ grad_bwd_reference.calls = 0
 
 def raygen_reference(camera, keys, config):
     """Plain version of ``raygen``: ``persistent.camera_ray_plain`` as
-    [6, N]."""
+    [6, N].  The ids are cast to int64, which ``camera_ray_plain`` takes
+    (its ``sid << 8`` and threefry words hold u32 values), since
+    ``trace_pixels_fused`` passes int32 ids."""
     raygen_reference.calls += 1
     cam19 = camera_constants(camera, config.width, config.height).detach()
-    return torch.stack(camera_ray_plain(cam19, keys.k0, keys.k1, keys.pixel, keys.sample,
-                                        config.width, config.height))
+    return torch.stack(camera_ray_plain(cam19, keys.k0, keys.k1, keys.pixel.long(),
+                                        keys.sample.long(), config.width, config.height))
 
 
 raygen_reference.calls = 0
@@ -476,6 +478,9 @@ def trace_rays_fused(origins, dirs, keys, scene, config):
 
 def trace_pixels_fused(camera, keys, scene, config):
     """``trace_rays_fused`` with the camera rays made by the raygen kernel
-    (the JAX package's ``trace_pixels_fused``); the camera is detached."""
+    (the JAX package's ``trace_pixels_fused``); the camera is detached.
+    The ids are cast to int32 once, for raygen and the bounces."""
+    keys = keys._replace(pixel=keys.pixel.to(torch.int32).contiguous(),
+                         sample=keys.sample.to(torch.int32).contiguous())
     rays = raygen(camera, keys, config)
     return trace_rays_fused(rays[0:3].t(), rays[3:6].t(), keys, scene, config)

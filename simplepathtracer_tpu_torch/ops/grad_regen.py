@@ -189,7 +189,8 @@ def scene_block(tables, sky6, softness=0.0):
     if softness > 0.0 and intersect.SIL_FRESNEL:
         raise NotImplementedError(
             "intersect.SIL_FRESNEL=True: the detached Schlick-coin ratio is "
-            "not ported to the gradient kernels (ROADMAP A.11 leftovers); "
+            "not ported to the gradient kernels (ROADMAP queue A: SIL_FRESNEL in "
+            "the gradient kernels); "
             "the eager route (use_pallas_grad=False) honours it"
         )
     tab = sphere_table(tables)

@@ -1,18 +1,22 @@
 """Differentiable sphere-table gathers whose backward buckets cotangents by
 winner index (counterpart of the JAX package's ``ops/table_gather.py``).
 
-The ``use_pallas_hits`` bounce reads the winner's attributes from the
-closest-hit kernel (``ops/closest_hit.py``), detached;
-``attach_attr_columns`` reattaches the table's gradient to them.  Its
-backward, like ``gather_rows``', is the scatter-add transpose of the
-winner lookup, d_table[s, k] = sum over rows r of [idx[r] == s] ct[r, k],
-computed by ``ops/bucket.py:bucket_cols``: the CUDA kernel (sums by key
-within each warp, then shared-memory and global atomics) on a CUDA tensor,
-its plain version (``index_add_``) on the CPU.
-Rows with idx -1 (a miss or a dead ray) bucket nowhere.  The JAX
-package's chunked one-hot matmuls served the TPU's matrix unit and have
-no counterpart here.  On the card the bucket kernel takes 9 or 4 columns
-(``bucket.COLS``).
+The backward of both is the scatter-add transpose of the winner lookup,
+d_table[s, k] = sum over rows r of [idx[r] == s] ct[r, k]; rows with idx
+-1 (a miss or a dead ray) bucket nowhere.
+
+* ``gather_rows`` (any [S, K] table) buckets through ``bucket_rows``, a
+  plain ``index_add_``, on every device: the JAX package's ``gather_rows``
+  sums with its jnp ``bucket_rows`` too, outside any Pallas kernel.  (Its
+  chunked one-hot matmuls served the TPU's matrix unit and have no
+  counterpart here.)
+* ``attach_attr_columns`` is the ``use_pallas_hits`` bounce's: it
+  reattaches the table's gradient to the winner attributes the closest-hit
+  kernel read (``ops/closest_hit.py``), detached.  Its backward is
+  ``ops/bucket.py:bucket_cols``: the CUDA kernel (sums by key within each
+  warp, then shared-memory and global atomics) on a CUDA tensor, which
+  takes the [S, 9] table of ``pack_tables`` (``bucket.COLS``; up to 4096
+  slots), and its plain version on the CPU.
 
 All float attributes come through ONE [S, 9] matrix (``pack_tables``), so
 the backward buckets once per bounce.
@@ -42,12 +46,6 @@ def bucket_rows(ct, idx, s):
     return _bucket.bucket_cols_reference(ct.T, idx, s)
 
 
-def _bucket_ct(ct_cols, idx, s):
-    """[S, K] table cotangent from K cotangent columns ([K, N]) by ``idx``."""
-    return _bucket.bucket_cols(ct_cols.to(torch.float32).contiguous(),
-                               idx.to(torch.int32).contiguous(), s)
-
-
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, table, idx):
@@ -58,7 +56,7 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         (idx,) = ctx.saved_tensors
-        return _bucket_ct(ct.T, idx, ctx.s), None
+        return bucket_rows(ct, idx, ctx.s), None
 
 
 def gather_rows(table, idx):
@@ -77,7 +75,8 @@ class _AttachAttrColumns(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *ct_cols):
         (idx,) = ctx.saved_tensors
-        d_table = _bucket_ct(torch.stack(ct_cols), idx, ctx.s)
+        d_table = _bucket.bucket_cols(torch.stack(ct_cols).to(torch.float32).contiguous(),
+                                      idx.to(torch.int32).contiguous(), ctx.s)
         return (d_table, None) + (None,) * len(ct_cols)
 
 

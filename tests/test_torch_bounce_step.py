@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu as spt
 from simplepathtracer_tpu.camera import generate_rays as jax_generate_rays
@@ -59,16 +60,6 @@ from simplepathtracer_tpu_torch.render import trace_rays_pallas
 
 KNIFE_MEAN, KNIFE_SHARE = 1e-4, 5e-3
 _TRIO_CAM = dict(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=90)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """The cover traces are large for the CPU: one thread each, so the
-    suite's workers do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _knife_edge(a, b):

@@ -49,6 +49,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu as spt
 from simplepathtracer_tpu import inverse as jinv
@@ -59,17 +60,6 @@ from simplepathtracer_tpu_torch.convert import convert_camera, convert_params, c
 W, H, DEPTH = 48, 24, 3
 KNIFE_EDGE_TOL, KNIFE_EDGE_SHARE = 1e-6, 0.02
 ROUTES = {"eager": {}, "fused": dict(use_pallas_grad=True)}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread per test: the suite runs several test processes
-    at once, and torch's thread pools oversubscribed across them ran this
-    file's large CPU tensors (the AD/FD renders) ~50x slower than alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_setup():

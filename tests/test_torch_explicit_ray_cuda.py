@@ -23,6 +23,7 @@ from simplepathtracer_tpu_torch.ops import bucket
 from simplepathtracer_tpu_torch.ops import closest_hit as ch
 from simplepathtracer_tpu_torch.ops.sampling import camera_jitter, ray_keys
 from simplepathtracer_tpu_torch.ops.grad_regen import scene_inputs
+from simplepathtracer_tpu_torch.ops.table_gather import attach_attr_columns, gather_rows
 from simplepathtracer_tpu_torch.render import bounce_step_call
 
 
@@ -214,3 +215,36 @@ def test_closest_hit_grazing_rays_on_card(spheres, alive_mask):
     want_idx, want_t = ch.closest_hit_reference(o, d, alive, centers, radii)
     assert torch.equal(idx, want_idx) and torch.equal(t, want_t)
     assert alive_mask == "none" or bool((idx >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,k", [(37, 3), (5000, 9)], ids=["K3", "S5000"])
+def test_gather_rows_takes_any_table_shape_on_card(s, k):
+    """``gather_rows`` on the card takes tables the bucket kernel does not
+    (K = 3; S = 5000 > 4096): value equal to the plain gather's, gradient
+    to plain autograd's to rtol 1e-5, and no bucket launch; on the same
+    rows ``attach_attr_columns`` (the hits route's 9 columns) still
+    launches the bucket kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator().manual_seed(3)
+    n = 3000
+    table = torch.randn((s, k), generator=gen).cuda().requires_grad_(True)
+    idx = torch.randint(0, s, (n,), generator=gen, dtype=torch.int32).cuda()
+    ct = torch.randn((n, k), generator=gen).cuda()
+    before = sum(bucket.bucket_cols.launches.values())
+    out = gather_rows(table, idx)
+    assert torch.equal(out, table[idx.long()])
+    (g,) = torch.autograd.grad(out, [table], ct)
+    (g_plain,) = torch.autograd.grad(table[idx.long()], [table], ct)
+    torch.testing.assert_close(g, g_plain, rtol=1e-5, atol=1e-5)
+    assert sum(bucket.bucket_cols.launches.values()) == before
+    if s <= 4096:
+        tab9 = torch.randn((s, 9), generator=gen).cuda().requires_grad_(True)
+        cols = tuple(tab9.detach()[idx.long(), j] for j in range(9))
+        launched = bucket.bucket_cols.launches[9]
+        out9 = attach_attr_columns(tab9, idx, *cols)
+        (g9,) = torch.autograd.grad(sum(c.sum() for c in out9), [tab9])
+        assert bucket.bucket_cols.launches[9] == launched + 1
+        torch.testing.assert_close(g9, torch.autograd.grad(tab9[idx.long()].sum(), [tab9])[0],
+                                   rtol=1e-5, atol=1e-5)

@@ -269,3 +269,63 @@ def test_fused_route_matches_regen_route_on_card():
     assert abs(l_f - l_r) <= 1e-6 * abs(l_r)
     for a, b in zip(g_f, g_r):
         assert torch.allclose(a, b, rtol=2e-3, atol=2e-6)
+
+
+# (name, width, height, pixel ids, sample ids) of the raygen edge cases.
+_RAYGEN_EDGES = {
+    # every pixel id of each frame size the repo renders (the divider's
+    # width: 1200 and 400 the presets, 64 / 48 / 37 the tests)
+    **{f"frame{w}x{h}": (w, h, "all", 1)
+       for w, h in [(1200, 800), (400, 200), (64, 32), (48, 24), (37, 13)]},
+    # 4,099 random ids of the 1200 x 800 frame: n % 4 != 0, the scalar path
+    "tail4099": (1200, 800, "random", 4099),
+    # the last 4,096 pixel ids of a 1200 x 800 frame, samples 0..7
+    "last_pixels": (1200, 800, "last", 8),
+    # a width that is not a power of two, ids up to 2^31 - 1
+    "id_limit": (46337, 46345, "limit", 1),
+}
+
+
+def _raygen_edge(name):
+    w, h, which, m = _RAYGEN_EDGES[name]
+    dev = "cuda"
+    if which == "all":
+        pids = torch.arange(w * h, device=dev).repeat(m)
+        sids = torch.arange(m, device=dev).repeat_interleave(w * h)
+    elif which == "random":
+        gen = torch.Generator().manual_seed(11)
+        pids = torch.randint(0, w * h, (m,), generator=gen).to(dev)
+        sids = torch.randint(0, 100, (m,), generator=gen).to(dev)
+    elif which == "last":
+        pids = torch.arange(w * h - 4096, w * h, device=dev).repeat(m)
+        sids = torch.arange(m, device=dev).repeat_interleave(4096)
+    else:
+        pids = torch.arange(2**31 - 4096, 2**31, device=dev)
+        sids = torch.zeros_like(pids)
+    cfg = tpt.RenderConfig(width=w, height=h, spp=1)
+    return cfg, ray_keys(tpt.make_key(12), pids, sids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_RAYGEN_EDGES))
+def test_raygen_edges_on_card(name):
+    """Raygen bit for bit against its plain version where its host picks
+    another path or its divider could slip: every pixel id of each frame
+    size the repo renders, n % 4 != 0 (the scalar path), the last pixel ids
+    of a 1200 x 800 frame, ids up to 2^31 - 1 at a width that is not a power
+    of two; and the same ids as int32 one element off 16-byte alignment,
+    which the kernel cannot load as int4 (the scalar path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cam = tpt.PRESETS["cover"].camera_fn("cuda")
+    cfg, keys = _raygen_edge(name)
+    n = keys.pixel.shape[0]
+    want = fg.raygen_reference(cam, keys, cfg)
+    before = fg.raygen.launches["raygen"]
+    assert torch.equal(fg.raygen(cam, keys, cfg), want)
+    pix = torch.empty(n + 1, dtype=torch.int32, device="cuda")[1:]
+    pix.copy_(keys.pixel)
+    assert pix.data_ptr() % 16
+    off = keys._replace(pixel=pix, sample=keys.sample.to(torch.int32))
+    assert torch.equal(fg.raygen(cam, off, cfg), want)
+    assert fg.raygen.launches["raygen"] == before + 2

@@ -47,6 +47,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu as spt
 from simplepathtracer_tpu.camera import generate_rays as jax_generate_rays

@@ -21,6 +21,7 @@ import importlib
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch.ops import bucket, grad as fg, grad_regen, intersect

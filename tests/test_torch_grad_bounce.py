@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from simplepathtracer_tpu.ops.pallas_grad import bounce_tile as j_bounce_tile
 from simplepathtracer_tpu_torch.ops.bounce import bounce_tile, bounce_tile_adjoint

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from kernel_cases import PATTERNS, float64_bound, key_pattern
 
 import simplepathtracer_tpu as spt

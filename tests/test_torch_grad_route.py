@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu as spt
 from simplepathtracer_tpu import inverse as jinv

@@ -39,6 +39,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from kernel_cases import AXIS_SPHERES, grazing_rays
 
 import simplepathtracer_tpu as spt
@@ -238,6 +239,31 @@ def test_gather_rows_matches_plain_gather_and_its_gradient():
     (g,) = torch.autograd.grad(out, [table], ct)
     (g_plain,) = torch.autograd.grad(table[idx.long()], [table], ct)
     np.testing.assert_allclose(g.numpy(), g_plain.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s,k", [(37, 3), (5000, 9)], ids=["K3", "S5000"])
+def test_gather_rows_takes_any_table_shape(s, k):
+    """Tables the bucket kernel does not take (K = 3; S = 5000 > 4096): the
+    value is the plain gather's, the gradient that of plain autograd and of
+    the JAX package's ``gather_rows`` (its jnp ``bucket_rows``) on the same
+    inputs, to ``tests/test_table_gather.py``'s bounds."""
+    from simplepathtracer_tpu.ops.table_gather import gather_rows as jax_gather_rows
+
+    rng = np.random.default_rng(3)
+    n = 3000
+    tab = rng.standard_normal((s, k)).astype(np.float32)
+    ix = rng.integers(0, s, n).astype(np.int32)
+    ct = rng.standard_normal((n, k)).astype(np.float32)
+    table = torch.tensor(tab, requires_grad=True)
+    idx = torch.tensor(ix)
+    out = gather_rows(table, idx)
+    assert torch.equal(out, table[idx.long()])
+    (g,) = torch.autograd.grad(out, [table], torch.tensor(ct))
+    (g_plain,) = torch.autograd.grad(table[idx.long()], [table], torch.tensor(ct))
+    np.testing.assert_allclose(g.numpy(), g_plain.numpy(), rtol=1e-5, atol=1e-5)
+    g_jax = jax.vjp(lambda t: jax_gather_rows(t, jnp.asarray(ix)), jnp.asarray(tab))[1](
+        jnp.asarray(ct))[0]
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_jax), rtol=1e-5, atol=1e-5)
 
 
 def test_bucket_rows_matches_float64_index_add():

@@ -14,6 +14,7 @@ and by chip_smoke.py.  They need no JAX:
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch.ops import persistent

@@ -10,6 +10,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch import inverse
@@ -282,7 +283,7 @@ def test_regen_variant_names_the_kernel_instantiation(softness, plane, want):
     [
         (dict(softness=0.0, balance=True), "balance"),
         (dict(softness=0.0, grad_accum=2), "grad_accum"),
-        (dict(softness=0.0, snapshot_path="fit.npz"), "A.14"),
+        (dict(softness=0.0, snapshot_path="fit.npz"), "checkpoint"),
     ],
     ids=["balance", "grad_accum", "snapshot_path"],
 )

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from simplepathtracer_tpu.ops import sampling as js
 from simplepathtracer_tpu_torch.ops import sampling as ts

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from test_torch_grad_bounce import N, T_MAX, T_MIN, make_tile
 
 from simplepathtracer_tpu.ops import intersect as j_intersect

@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 from test_torch_grad_regen import CAM, SEED, _scene
 
 import simplepathtracer_tpu as spt

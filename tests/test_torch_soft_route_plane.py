@@ -1,0 +1,14 @@
+"""The ground-plane case of ``test_torch_soft_route.py``'s eager route (soft
+0.05, Russian roulette from bounce 2, the crossing coin live): plain
+autograd through ``trace_rays``' soft branch against ``jax.grad`` through
+the JAX jnp path, with that file's pixels and bounds.  A file of its own so
+the suite's workers run the heavy cases at once."""
+
+import pytest
+from torch_threads import one_torch_thread  # noqa: F401
+from test_torch_soft_route import check_soft_gradients
+
+
+@pytest.mark.parametrize("plane", [True], ids=["soft-plane-rr"])
+def test_soft_eager_gradients_match_jax(plane):
+    check_soft_gradients(plane, regen=False)
