@@ -51,7 +51,17 @@ persistent kernel: the knife-edge bound); ``fit`` through the hits route
 (closest-hit-attributes and bucket kernels only; the loss must fall; its
 first value and gradient against the fused route on the same rays, and
 the kernel at each bounce of a chunk on 2,048 random rays); and
-``intersect_scene_pallas`` on the full frame's camera rays.  Comparisons of earlier
+``intersect_scene_pallas`` on the full frame's camera rays.  Phase 10 drives
+the command line (``simplepathtracer_tpu_torch.cli.main`` in this process)
+on the cover preset at full width, each command with the launch counts set
+to 0 just before it: a render in two chunks with snapshots under
+``--trace`` (the trace must show the persistent kernel), a render stopped
+at 50 spp and resumed (bit for bit the first one's accumulation and BMP),
+``invert --preset cover`` with fit snapshots and the same command again
+(it must resume and run no step), ``--grad-accum 4`` with each group's
+peak memory, the small invert demo (fused kernels), ``fit(balance=True)``
+against the unbalanced hard fit (the CLI's CUDA default follows it), and
+a fit snapshot's round trip.  Comparisons of earlier
 phases against the plain versions run at cut depths or chunks where the
 plain versions' time would grow past the script's budget.  Every phase
 raises on failure.  The last lines are one JSON object with the kernels'
@@ -99,7 +109,9 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from io import StringIO
 
 import numpy as np
 import torch
@@ -2644,6 +2656,286 @@ def phase9_closest_hit(tpt, dev, wrappers, lib):
     return out
 
 
+# Phase 10, the command line: the cover preset through ``cli.main`` in this
+# process.  Render chunks and snapshot cadence (spp), invert steps, the
+# grad-accum groups; the balance measurement's steps per fit, and the share
+# of step time by which fit(balance=True) must win in both rounds to be the
+# CLI's default on CUDA; the fit snapshot check's steps and loss tolerance
+# (fit's docstring: the bucket's atomics change the order of its sums).
+CLI_CHUNK_SPP = 50
+CLI_INVERT_STEPS, CLI_ACCUM_STEPS, CLI_ACCUM_GROUPS, CLI_DEMO_STEPS = 3, 2, 4, 4
+BALANCE_STEPS, BALANCE_MIN_GAIN = 3, 0.03
+SNAPSHOT_STEPS, SNAPSHOT_RTOL = 2, 1e-4
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process; returns the Meter's records (the
+    JSON lines it writes to standard error).  A command that fails raises."""
+    from simplepathtracer_tpu_torch import cli
+
+    buf = StringIO()
+    with contextlib.redirect_stderr(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"phase10: cli {argv} returned {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines() if line.startswith("{")]
+
+
+def records_of(recs, phase):
+    return [r for r in recs if r["phase"] == phase]
+
+
+def trace_kernels(path, name):
+    """Device kernel events of a Chrome trace whose name holds ``name``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events if e.get("cat") == "kernel" and name in e.get("name", "")]
+
+
+def route_counts(wrappers):
+    """Launches of every kernel since the counts were reset (the persistent
+    kernel's too) and the plain versions' calls."""
+    from simplepathtracer_tpu_torch.ops import persistent
+
+    got = launch_counts(wrappers)
+    if persistent.render_block_persistent.launches:
+        got["persistent_render"] = persistent.render_block_persistent.launches
+    calls = {k: n for k, n in plain_calls(wrappers).items() if n}
+    if persistent.render_block_persistent_reference.calls:
+        calls["persistent_render"] = persistent.render_block_persistent_reference.calls
+    return got, calls
+
+
+def reset_all(wrappers):
+    from simplepathtracer_tpu_torch.ops import persistent
+
+    reset_counts(wrappers)
+    persistent.render_block_persistent.launches = 0
+    persistent.render_block_persistent_reference.calls = 0
+
+
+def cli_command(wrappers, argv, want, forbid=()):
+    """Run one CLI command with every count set to 0 just before it; the
+    kernels in ``want`` must have launched, those in ``forbid`` not, and no
+    plain version may have run.  Returns (records, launches, seconds)."""
+    reset_all(wrappers)
+    t0 = time.perf_counter()
+    recs = run_cli(argv)
+    seconds = time.perf_counter() - t0
+    got, calls = route_counts(wrappers)
+    missing = [k for k in want if not got.get(k)]
+    if missing or calls or any(got.get(k) for k in forbid):
+        raise RuntimeError(f"phase10: cli {argv} did not run through the kernels it needs "
+                           f"(launches {got}, plain calls {calls}, missing {missing})")
+    return recs, got, seconds
+
+
+def phase10_cli(tpt, dev, wrappers, render_s):
+    """The command line on the card at the cover preset's full width: (a) a
+    traced render in two chunks with snapshots, (b) a render stopped and
+    resumed, bit for bit against (a), (c) the preset invert, hard and soft
+    phases, with fit snapshots, then the same command resuming from them
+    and running no step, (d) the invert with the gradient-accumulated
+    estimator and each group's peak memory, (e) the small invert demo
+    (fused kernels), (f) fit(balance=True) against the unbalanced fit, (g)
+    a fit snapshot's round trip and a resumed fit."""
+    from simplepathtracer_tpu_torch import checkpoint, inverse
+
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="spt_cli_")
+    d = tmp.name
+    regen = ("regen_fwd", "regen_refwd", "regen_bwd", "bucket")
+
+    # (a) render --preset cover, traced, two chunks with snapshots.
+    a_npz, a_bmp, trace_dir = (os.path.join(d, n) for n in ("A.npz", "a.bmp", "trace"))
+    recs, got, sec = cli_command(wrappers, [
+        "render", "--preset", "cover", "--snapshot-every", str(CLI_CHUNK_SPP),
+        "--snapshot", a_npz, "-o", a_bmp, "--trace", trace_dir], ["persistent_render"])
+    chunks = records_of(recs, "render")
+    traced = trace_kernels(os.path.join(trace_dir, "trace.json"), "persistent_kernel")
+    paths = sum(r["paths"] for r in chunks)
+    busy = sum(r["elapsed_s"] for r in chunks)
+    done = records_of(recs, "done")[0]
+    out["render"] = {
+        "chunks": len(chunks), "launches": got["persistent_render"],
+        "traced_persistent_kernels": len(traced),
+        "traced_kernel_ms": [round(e["dur"] / 1e3, 3) for e in traced],
+        "meter_paths_per_sec": paths / busy, "meter_elapsed_s": [r["elapsed_s"] for r in chunks],
+        "render_s_phase3": render_s, "command_s": sec, "encoder": done["encoder"],
+    }
+    print(f"phase10 (a) cli render cover {done['spp']} spp in {len(chunks)} chunks (traced): Meter "
+          f"{paths / busy / 1e6:.2f} Mpaths/s over {busy:.4f} s against phase 3's render() "
+          f"{render_s:.4f} s ({paths / render_s / 1e6:.2f} Mpaths/s); command {sec:.2f} s; "
+          f"persistent launches {got['persistent_render']}, in the trace {len(traced)} "
+          f"({out['render']['traced_kernel_ms']} ms); BMP by the {done['encoder']} encoder")
+    if len(chunks) != 2 or got["persistent_render"] != 2 or len(traced) != 2:
+        raise RuntimeError("phase10 (a): the render did not launch the persistent kernel once "
+                           "per chunk, or the trace does not show it")
+
+    # (b) Stopped after 50 spp, resumed to 100: bit for bit the render of (a).
+    b_npz, b_bmp = os.path.join(d, "B.npz"), os.path.join(d, "b.bmp")
+    cli_command(wrappers, ["render", "--preset", "cover", "--spp", str(CLI_CHUNK_SPP),
+                           "--snapshot", b_npz, "--snapshot-every", str(CLI_CHUNK_SPP),
+                           "-o", os.path.join(d, "half.bmp")], ["persistent_render"])
+    recs, got, _ = cli_command(wrappers, ["render", "--resume", b_npz, "--spp", "100",
+                                          "--snapshot", b_npz, "-o", b_bmp],
+                               ["persistent_render"])
+    sa, sb = checkpoint.load(a_npz, device=dev)[0], checkpoint.load(b_npz, device=dev)[0]
+    with open(a_bmp, "rb") as fa, open(b_bmp, "rb") as fb:
+        same_file = fa.read() == fb.read()
+    resumed = records_of(recs, "render")[0]
+    out["resume"] = {"accum_equal": torch.equal(sa.accum, sb.accum), "bmp_equal": same_file,
+                     "samples": [sa.sample_count, sb.sample_count],
+                     "resumed_chunk_paths_per_sec": resumed["paths_per_sec"]}
+    print(f"phase10 (b) resumed at 50 spp to 100: accum equal {out['resume']['accum_equal']}, "
+          f"bmp byte-equal {same_file}; the resumed 50-spp chunk (untraced) "
+          f"{resumed['paths_per_sec'] / 1e6:.2f} Mpaths/s")
+    if not (out["resume"]["accum_equal"] and same_file and sa.sample_count == sb.sample_count == 100):
+        raise RuntimeError("phase10 (b): the resumed render differs from the uninterrupted one")
+
+    # (c) invert --preset cover with fit snapshots, then again: it resumes.
+    prefix = os.path.join(d, "P")
+    argv = ["invert", "--preset", "cover", "--steps", str(CLI_INVERT_STEPS), "--snapshot",
+            prefix, "--snapshot-every", "1"]
+    soft = ("regen_fwd_soft", "regen_refwd_soft", "regen_bwd_soft", "bucket_blocker")
+    recs, got, sec = cli_command(wrappers, argv, ("persistent_render",) + regen + soft)
+    inv = records_of(recs, "invert_done")[0]
+    steps = {ph: records_of(recs, f"invert_{ph}_steps")[0] for ph in ("albedo", "centers")}
+    print(f"phase10 (c) cli invert cover {inv['size']} {inv['spp']} spp: {sec:.2f} s, step s "
+          f"albedo (hard) {steps['albedo']['step_s']}, centers (soft) "
+          f"{steps['centers']['step_s']}; launches {got}")
+    print(f"phase10 (c) invert_done {json.dumps(inv)}")
+    pc = tpt.PRESETS["cover"].config
+    if not (inv["size"] == f"{pc.width}x{pc.height}" and inv["spp"] == pc.spp
+            and all(map(math.isfinite, (inv["loss_first"], inv["loss_last"])))
+            and [s["steps_run"] for s in steps.values()] == [1, CLI_INVERT_STEPS - 1]):
+        raise RuntimeError("phase10 (c): the preset invert did not run at full width with "
+                           "finite losses")
+    recs2, got2, sec2 = cli_command(wrappers, argv, ("persistent_render",),
+                                    forbid=("regen_bwd", "regen_bwd_soft"))
+    inv2 = records_of(recs2, "invert_done")[0]
+    ran = [records_of(recs2, f"invert_{ph}_steps")[0]["steps_run"] for ph in ("albedo", "centers")]
+    print(f"phase10 (c) the same command again: {sec2:.2f} s, steps run {ran}, same summary "
+          f"{json.dumps(inv2) == json.dumps(inv)}; launches {got2}")
+    if ran != [0, 0] or json.dumps(inv2) != json.dumps(inv):
+        raise RuntimeError("phase10 (c): the invert did not resume from its snapshots")
+    out["invert"] = {"s": sec, "step_s": {k: v["step_s"] for k, v in steps.items()},
+                     "launches": got, "done": inv, "resume_s": sec2, "resume_launches": got2}
+
+    # (d) The gradient-accumulated estimator, and each group's peak memory.
+    recs, got, sec = cli_command(wrappers, [
+        "invert", "--preset", "cover", "--steps", str(CLI_ACCUM_STEPS), "--grad-accum",
+        str(CLI_ACCUM_GROUPS)], ("persistent_render",) + regen + soft)
+    inv = records_of(recs, "invert_done")[0]
+    acc_steps = {ph: records_of(recs, f"invert_{ph}_steps")[0]["step_s"]
+                 for ph in ("albedo", "centers")}
+    if not all(map(math.isfinite, (inv["loss_first"], inv["loss_last"]))):
+        raise RuntimeError("phase10 (d): the grad-accum invert's losses are not finite")
+    truth, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    cfg = inverse.fit_config(cfg.replace(rr_start_depth=2), dev)
+    with torch.no_grad():
+        target = tpt.render_linear(truth, cam, cfg, tpt.make_key(7))
+    step = inverse.make_accum_grad_step(truth, target, cam, cfg, CLI_ACCUM_GROUPS, dev)
+    params = {"albedo": truth.albedo * 0.8}
+    ct = 2.0 * (step.image(params, tpt.make_key(8)) - target) / float(target.numel())
+    groups = []
+    for k in range(CLI_ACCUM_GROUPS):
+        sync(dev)
+        reset_peak(dev)
+        t0 = time.perf_counter()
+        g = step.group_grad(params, ct, tpt.make_key(9), k)
+        sync(dev)
+        groups.append({"s": round(time.perf_counter() - t0, 4), "peak_gb": round(peak_gb(dev), 3),
+                       "finite": bool(torch.isfinite(g["albedo"]).all())})
+    print(f"phase10 (d) cli invert --grad-accum {CLI_ACCUM_GROUPS}: {sec:.2f} s, step s "
+          f"{acc_steps}, losses {inv['loss_first']:.6g} -> {inv['loss_last']:.6g}; per group "
+          f"({step.sub_spp} spp each, spp_chunk {step.gcfg.spp_chunk}) {groups}")
+    if not all(g["finite"] for g in groups):
+        raise RuntimeError("phase10 (d): a group's gradient is not finite")
+    out["grad_accum"] = {"s": sec, "step_s": acc_steps, "launches": got, "done": inv,
+                         "groups": groups}
+
+    # (e) The small invert demo: the fused kernels.
+    recs, got, sec = cli_command(wrappers, ["invert", "--steps", str(CLI_DEMO_STEPS)],
+                                 ("grad_fwd", "grad_bwd", "grad_fwd_soft", "grad_bwd_soft",
+                                  "raygen"),
+                                 forbid=("regen_fwd", "regen_fwd_soft"))
+    inv = records_of(recs, "invert_done")[0]
+    print(f"phase10 (e) cli invert demo, {CLI_DEMO_STEPS} steps: {sec:.2f} s, {json.dumps(inv)}; "
+          f"launches {got}")
+    if not all(map(math.isfinite, (inv["loss_first"], inv["loss_last"]))):
+        raise RuntimeError("phase10 (e): the demo's losses are not finite")
+    out["demo"] = {"s": sec, "launches": got, "done": inv}
+
+    # (f) fit(balance=True) against the unbalanced fit: phase 6's hard fit,
+    # of the smooth leaves (albedo, sky): a leaf whose gradient is near zero
+    # (fuzz, ior) can take Adam steps of opposite sign from one run to the
+    # next, as the bucket's atomics order its sums, and part two runs
+    # further.  The kernels run the same work for any set of leaves.
+    scene, cam, cfg = tpt.PRESETS["cover"].build(0, device=dev)
+    key = tpt.make_key(0)
+    with torch.no_grad():
+        target = tpt.render_linear(scene, cam, cfg, tpt.fold_in(key, 1000))
+    start = scene.replace(albedo=scene.albedo * ALBEDO_START,
+                          sky_lo=scene.sky_lo * SKY_START, sky_hi=scene.sky_hi * SKY_START)
+    fit_kw = dict(lr=FIT_LR, softness=0.0, leaves=("albedo", "sky_lo", "sky_hi"), device=dev)
+    runs = []
+    for balance in (False, True, True, False):
+        sync(dev)
+        t0 = time.perf_counter()
+        _, losses = tpt.fit(start, target, cam, cfg, key, steps=BALANCE_STEPS, balance=balance,
+                            **fit_kw)
+        sync(dev)
+        runs.append((balance, (time.perf_counter() - t0) / BALANCE_STEPS, losses))
+    off = [s for b, s, _ in runs if not b]
+    on = [s for b, s, _ in runs if b]
+    # Rounds: (off, on) first and (on, off) second, each compared in its turn.
+    wins = [on[0] < off[0] * (1 - BALANCE_MIN_GAIN), on[1] < off[1] * (1 - BALANCE_MIN_GAIN)]
+    decision = "on" if all(wins) else "off"
+    losses_off, losses_on = runs[0][2], runs[1][2]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses_on, losses_off))
+    print(f"phase10 (f) fit balance, {BALANCE_STEPS} steps each (off, on, on, off): s per step "
+          f"{[round(s, 4) for _, s, _ in runs]}; balanced faster by "
+          f"{[round(1 - a / b, 4) for a, b in zip(on, off)]}; losses rel diff {rel:.2e}; "
+          f"measured decision for CUDA: {decision} (needs >= {BALANCE_MIN_GAIN:.0%} in both rounds)")
+    if rel > 1e-4:
+        raise RuntimeError("phase10 (f): the balanced fit's losses differ from the unbalanced")
+    out["balance"] = {"s_per_step": [[b, s] for b, s, _ in runs], "loss_rel": rel,
+                      "decision": decision}
+
+    # (g) A fit snapshot's round trip on the card, and a resumed fit.
+    snap, again = os.path.join(d, "fit.npz"), os.path.join(d, "again.npz")
+    whole = [tpt.fit(start, target, cam, cfg, key, steps=2 * SNAPSHOT_STEPS, **fit_kw)[1]
+             for _ in range(2)]
+    fitted, head = tpt.fit(start, target, cam, cfg, key, steps=SNAPSHOT_STEPS, snapshot_path=snap,
+                           snapshot_every=SNAPSHOT_STEPS, **fit_kw)
+    params, opt = inverse.init(start, FIT_LR, fit_kw["leaves"])
+    restored = inverse._load_fit_state(snap, params, opt) == (SNAPSHOT_STEPS, head)
+    leaves_equal = all(torch.equal(v, getattr(fitted, k)) for k, v in params.items())
+    inverse._save_fit_state(again, params, opt, SNAPSHOT_STEPS, head)
+    with np.load(snap) as z1, np.load(again) as z2:
+        files_equal = z1.files == z2.files and all(
+            z1[k].dtype == z2[k].dtype and np.array_equal(z1[k], z2[k]) for k in z1.files)
+    _, resumed = tpt.fit(start, target, cam, cfg, key, steps=2 * SNAPSHOT_STEPS,
+                         snapshot_path=snap, snapshot_every=SNAPSHOT_STEPS, **fit_kw)
+
+    def rel_diff(xs, ys):
+        return max(abs(a - b) / abs(b) for a, b in zip(xs, ys))
+
+    rel, spread = rel_diff(resumed, whole[0]), rel_diff(whole[1], whole[0])
+    print(f"phase10 (g) fit snapshot on the card: restored {restored}, leaves bit-exact "
+          f"{leaves_equal}, rewritten file bit-exact {files_equal}; resumed losses {resumed} "
+          f"against uninterrupted {whole[0]}: rel diff {rel:.2e} (tolerance {SNAPSHOT_RTOL}; "
+          f"two uninterrupted fits {spread:.2e})")
+    if not (restored and leaves_equal and files_equal and resumed[:SNAPSHOT_STEPS] == head
+            and rel <= SNAPSHOT_RTOL):
+        raise RuntimeError("phase10 (g): the fit snapshot's round trip or resume failed")
+    out["fit_snapshot"] = {"round_trip_bit_exact": True, "resumed_loss_rel": rel,
+                           "uninterrupted_spread": spread}
+    tmp.cleanup()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
@@ -2973,6 +3265,10 @@ def main(argv=None):
         "closest_hit": {"rays": main9d["n_rays"], "hit_share": main9d["hit_share"]},
     }))
 
+    # ---- phase 10: the command line ---------------------------------------
+    cli10 = phase10_cli(tpt, dev, wrappers, seconds)
+    phase_done("phase10")
+
     # The bucket at every shape the main paths give it (one launch per chunk
     # of the hard, default and plane fits; the fused scene-leaf step's
     # launches summed; the hits route's launch per bounce) and its key
@@ -3164,6 +3460,7 @@ def main(argv=None):
     print(f"step times (s): hard fit {main6['step_s']:.4f}, default soft fit "
           f"{main7['step_s']:.4f}, fit_camera {main8c['step_s']:.4f}, fused scene-leaf "
           f"{main8b['step_s']:.4f}, hits fit {main9c['step_s']:.4f}, plane fit {plane_steps}")
+    report["cli"] = cli10
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (from the card's first use; "
           f"per phase {phase_s}); wall {time.perf_counter() - _T_IMPORT:.1f} s")
     print(json.dumps(report))

@@ -11,7 +11,10 @@ or, under ``use_pallas_hits``, the closest-hit kernels
 per-bounce fused gradient kernels (``csrc/grad.cu``), all built with nvcc
 at first use; on CPU tensors the same functions run as plain PyTorch.
 Entry points that create tensors run on ``cuda`` unless the caller passes
-``device``.
+``device``.  The command line (``python -m simplepathtracer_tpu_torch.cli``)
+renders and fits presets, with render snapshots (``checkpoint``), fit
+snapshots, a live HTTP preview (``preview``) and JSON-line metrics
+(``metrics``).
 """
 
 from .types import Camera, Material, RenderConfig, RenderState, Scene, make_camera
@@ -28,6 +31,7 @@ from .scenes import (
 from .ops.sampling import fold_in, make_key
 from .render import (
     accumulate,
+    balanced_pixel_perm,
     grad_safe_config,
     init_state,
     render,
@@ -39,6 +43,7 @@ from .inverse import (
     camera_pixel_loss,
     fit,
     fit_camera,
+    make_accum_grad_step,
     merge_camera,
     merge_params,
     pixel_loss,
@@ -75,7 +80,9 @@ __all__ = [
     "render_pixels",
     "trace_rays",
     "grad_safe_config",
+    "balanced_pixel_perm",
     "fit",
+    "make_accum_grad_step",
     "fit_camera",
     "camera_pixel_loss",
     "CAMERA_LEAVES",

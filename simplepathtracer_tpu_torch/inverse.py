@@ -16,21 +16,23 @@ lookat, vfov) the same way through ``camera_pixel_loss``: on CUDA the fused
 gradient kernels, whose backward returns the rays' cotangents, under the
 differentiable ray generation.
 
-Not ported yet, and raising ``NotImplementedError`` rather than being
-ignored: cost-balanced pixel order (``balance``), the gradient-accumulated
-estimator (``grad_accum``, ``make_accum_grad_step``) and fit snapshots
-(``snapshot_path``), each under its item of ROADMAP queue A
-(``balanced_pixel_perm``, ``make_accum_grad_step``, ``checkpoint``).
+``fit`` also takes the JAX ``fit``'s cost-balanced pixel order
+(``balance``, ``render.balanced_pixel_perm``), the gradient-accumulated
+estimator (``grad_accum``, ``make_accum_grad_step``) and snapshots of the
+fit's state (``snapshot_path``; the port's own file format).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
+import numpy as np
 import torch
 
+from .checkpoint import atomic_savez
 from .ops.sampling import fold_in
-from .render import grad_safe_config, render_sample_batch
+from .render import balanced_pixel_perm, grad_safe_config, render_sample_batch
 from .types import Camera, RenderConfig, Scene, resolve_device
 
 # Leaves that receive gradients; ``plane`` is absent on sphere-only scenes,
@@ -134,12 +136,79 @@ def fit_config(config: RenderConfig, device=None) -> RenderConfig:
     return config
 
 
-def make_accum_grad_step(*args, **kwargs):
-    """The gradient-accumulated estimator: not ported yet."""
-    raise NotImplementedError(
-        "make_accum_grad_step (grad_accum) is not ported yet "
-        "(ROADMAP queue A: make_accum_grad_step)"
-    )
+class AccumGradStep:
+    """The gradient-accumulated estimator of ``make_accum_grad_step``:
+    ``step(params, key) -> (loss, grads)``.
+
+    ``image`` is the forward-only image; ``group_grad`` is one group's
+    pullback of a pixel cotangent.  Each group's graph is freed before the
+    next one is built, so one group's residuals are alive at a time.
+    """
+
+    def __init__(self, static_scene, target, camera, config, n_groups, device=None):
+        if n_groups < 1 or config.spp % n_groups:
+            raise ValueError(f"n_groups={n_groups} must divide spp={config.spp}")
+        dev = resolve_device(device)
+        _check_device(dev, static_scene.centers, target)
+        self.static_scene, self.target, self.camera = static_scene, target, camera
+        self.spp, self.n_groups = config.spp, n_groups
+        self.sub_spp = config.spp // n_groups
+        self.gcfg = grad_safe_config(config, dev)
+        # The image must come from the groups' estimator: the forward-only
+        # persistent kernel renders hard silhouettes only.
+        self.fwd_cfg = (
+            config if config.use_pallas and config.silhouette_softness == 0.0 else self.gcfg
+        )
+
+    def image(self, params, key):
+        """Forward-only linear image [H, W, 3] of all spp."""
+        with torch.no_grad():
+            scene = merge_params({k: v.detach() for k, v in params.items()},
+                                 self.static_scene)
+            return render_linear(scene, self.camera, self.fwd_cfg, key)
+
+    def group_grad(self, params, ct, key, k):
+        """{leaf: d(ct . image_k)} of group ``k``: samples [k sub_spp,
+        (k + 1) sub_spp), each weighted 1 / spp as in the full image."""
+        leaves = {n: v.detach().requires_grad_(True) for n, v in params.items()}
+        scene = merge_params(leaves, self.static_scene)
+        acc = render_sample_batch(
+            scene, self.camera, self.gcfg.replace(spp=self.sub_spp), key,
+            k * self.sub_spp, self.sub_spp,
+        )
+        out = acc.reshape(self.target.shape) / self.spp
+        grads = torch.autograd.grad(out, list(leaves.values()), grad_outputs=ct,
+                                    allow_unused=True)
+        return {n: torch.zeros_like(v) if g is None else g
+                for (n, v), g in zip(leaves.items(), grads)}
+
+    def __call__(self, params, key):
+        img = self.image(params, fold_in(key, 7777))
+        loss = torch.mean((img - self.target) ** 2)
+        ct = 2.0 * (img - self.target) / float(self.target.numel())
+        grads = None
+        for k in range(self.n_groups):
+            g = self.group_grad(params, ct, key, k)
+            grads = g if grads is None else {n: grads[n] + g[n] for n in grads}
+        return loss, grads
+
+
+def make_accum_grad_step(static_scene, target, camera, config, n_groups: int,
+                         device=None) -> AccumGradStep:
+    """Gradient-accumulated loss and gradient for spp beyond one call's
+    budget: ``step(params, key) -> (loss, grads)``.
+
+    One forward-only render of all spp (under ``torch.no_grad()``; with
+    ``use_pallas`` and hard silhouettes the persistent kernel, else
+    ``grad_safe_config``'s route) with the independent key ``fold_in(key,
+    7777)`` gives the image and the pixel cotangent ct = 2 (img - target) /
+    N.  The gradient is the sum over ``n_groups`` disjoint sample ranges of
+    each range's pullback of ct, one ``torch.autograd.grad`` per group.
+    Residual and differentiated samples are independent, so the estimator
+    is unbiased for the gradient of the expected image's loss; its values
+    are not ``pixel_loss``'s (another estimator, the same minimizer).
+    ``device`` as in ``pixel_loss``."""
+    return AccumGradStep(static_scene, target, camera, config, n_groups, device)
 
 
 def make_optimizer(params, lr: float = 1e-2) -> torch.optim.Optimizer:
@@ -152,6 +221,63 @@ def init(scene: Scene, lr: float = 1e-2, leaves=DIFF_LEAVES):
     params, _ = split_params(scene, leaves)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
     return params, make_optimizer(params, lr)
+
+
+# Version of the port's fit snapshot format.
+_FIT_SNAPSHOT_VERSION = 1
+
+
+def _save_fit_state(path, params, opt, step, losses):
+    """Atomically write a fit's state: each leaf's value and its Adam state
+    (``step``, ``exp_avg``, ``exp_avg_sq``, each with its dtype), the step
+    count and the losses so far."""
+    payload = {
+        "version": np.int64(_FIT_SNAPSHOT_VERSION),
+        "step": np.int64(step),
+        "losses": np.asarray(losses, np.float64),
+        "leaves": np.asarray(list(params)),
+    }
+    for name, p in params.items():
+        payload[f"param.{name}"] = p.detach().cpu().numpy()
+        for field, value in opt.state.get(p, {}).items():
+            payload[f"adam.{name}.{field}"] = value.detach().cpu().numpy()
+    atomic_savez(path, payload)
+
+
+def _load_fit_state(path, params, opt):
+    """Restore a fit snapshot into ``params`` (in place) and ``opt``;
+    returns (step, losses).  Raises ``ValueError`` on a snapshot this port
+    did not write or whose leaves differ."""
+    with np.load(path) as z:
+        if "n_leaves" in z:
+            raise ValueError(
+                f"{path!r} is a fit snapshot of the JAX package (an optax pytree), "
+                "which the port cannot restore: delete it to start the fit fresh"
+            )
+        version = int(z["version"])
+        if version != _FIT_SNAPSHOT_VERSION:
+            raise ValueError(
+                f"unsupported fit snapshot version {version} in {path!r} (expected "
+                f"{_FIT_SNAPSHOT_VERSION}): stale or corrupt; delete it to start the fit fresh"
+            )
+        names = [str(n) for n in z["leaves"]]
+        if names != list(params):
+            raise ValueError(f"{path!r} holds the leaves {names}, this fit fits {list(params)}")
+        state = {}
+        for i, name in enumerate(names):
+            with torch.no_grad():
+                params[name].copy_(torch.as_tensor(z[f"param.{name}"]))
+            prefix = f"adam.{name}."
+            fields = {k[len(prefix):]: torch.as_tensor(z[k]) for k in z.files
+                      if k.startswith(prefix)}
+            if fields:
+                state[i] = fields
+        step = int(z["step"])
+        losses = [float(x) for x in z["losses"]]
+    # load_state_dict casts exp_avg / exp_avg_sq to each leaf's dtype and
+    # device and keeps ``step`` as saved, as Adam keeps it.
+    opt.load_state_dict({"state": state, "param_groups": opt.state_dict()["param_groups"]})
+    return step, losses
 
 
 def fit(
@@ -183,26 +309,31 @@ def fit(
     fits.
     ``param_mask``: optional {leaf: 0/1 tensor} freezing entries -- their
     gradients are zeroed before the update and their values held at
-    ``scene_init``'s.  Returns (scene, losses).  ``device`` as in
-    ``pixel_loss``.  The options of the JAX ``fit`` that are not ported
-    raise ``NotImplementedError``.
+    ``scene_init``'s.
+
+    ``grad_accum=K`` > 0: each step takes the gradient-accumulated estimator
+    (``make_accum_grad_step``, K groups of spp / K samples); it renders in
+    image order, so it excludes ``balance``.
+    ``balance``: every step renders the pixels in the cost-balanced order of
+    ``render.balanced_pixel_perm`` (the loss up to the order of its sum),
+    probed with ``key`` on ``scene_init`` and again on the current scene
+    every ``rebalance_every`` steps (0: never) with ``fold_in(key, 100_000
+    + i)``.
+    ``snapshot_path`` + ``snapshot_every``: every ``snapshot_every`` steps
+    the leaves, the Adam state, the step and the losses are written
+    atomically to ``snapshot_path``; a fit that finds the file resumes from
+    it.  The file is the port's own format (version 1); the JAX package's
+    fit snapshots raise ``ValueError``.  On the CPU a resumed fit is bit-
+    identical to an uninterrupted one.  On CUDA the snapshot's round trip
+    is bit-exact, but the gradient kernels' bucket sums rows with shared-
+    memory atomics whose order changes from run to run, so a resumed fit
+    follows an uninterrupted one as two uninterrupted fits follow each
+    other: on the cover preset's albedo and sky, within rtol 1e-4 over four
+    steps.  A leaf whose gradient is near zero (fuzz, ior) can take Adam
+    steps of opposite sign in two runs and part them further.
+
+    Returns (scene, losses).  ``device`` as in ``pixel_loss``.
     """
-    del rebalance_every, snapshot_every
-    if balance:
-        raise NotImplementedError(
-            "fit(balance=True): balanced_pixel_perm is not ported yet "
-            "(ROADMAP queue A: balanced_pixel_perm)"
-        )
-    if grad_accum:
-        raise NotImplementedError(
-            "fit(grad_accum=...): make_accum_grad_step is not ported yet "
-            "(ROADMAP queue A: make_accum_grad_step)"
-        )
-    if snapshot_path:
-        raise NotImplementedError(
-            "fit(snapshot_path=...): fit snapshots are not ported yet "
-            "(ROADMAP queue A: checkpoint)"
-        )
     dev = resolve_device(device)
     if softness and any(k in leaves for k in _GEOMETRY_LEAVES):
         config = config.replace(silhouette_softness=float(softness))
@@ -210,12 +341,26 @@ def fit(
     loss_fn = pixel_loss_decoupled if config.silhouette_softness > 0.0 else pixel_loss
     params, opt = init(scene_init, lr, leaves)
     static_scene = scene_init
-    losses = []
-    for i in range(steps):
+    balance = balance and not grad_accum
+    pixel_perm = balanced_pixel_perm(scene_init, camera, config, key) if balance else None
+    accum_step = (make_accum_grad_step(static_scene, target, camera, config, grad_accum, dev)
+                  if grad_accum else None)
+    losses, start = [], 0
+    if snapshot_path and os.path.exists(snapshot_path):
+        start, losses = _load_fit_state(snapshot_path, params, opt)
+    for i in range(start, steps):
+        if balance and rebalance_every and i > start and (i - start) % rebalance_every == 0:
+            current = merge_params({k: v.detach() for k, v in params.items()}, static_scene)
+            pixel_perm = balanced_pixel_perm(current, camera, config, fold_in(key, 100_000 + i))
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(params, static_scene, target, camera, config,
-                       fold_in(key, i), leaves, device=dev)
-        loss.backward()
+        if accum_step is not None:
+            loss, grads = accum_step(params, fold_in(key, i))
+            for k, g in grads.items():
+                params[k].grad = g
+        else:
+            loss = loss_fn(params, static_scene, target, camera, config,
+                           fold_in(key, i), leaves, pixel_perm=pixel_perm, device=dev)
+            loss.backward()
         with torch.no_grad():
             if param_mask is not None:
                 for k, m in param_mask.items():
@@ -229,6 +374,8 @@ def fit(
         losses.append(loss.item())
         if callback is not None:
             callback(i, losses[-1], params)
+        if snapshot_path and snapshot_every and (i + 1) % snapshot_every == 0:
+            _save_fit_state(snapshot_path, params, opt, i + 1, losses)
     final = {k: v.detach() for k, v in params.items()}
     return merge_params(final, static_scene), losses
 

@@ -1,5 +1,8 @@
-"""Image file output (counterpart of the JAX package's ``io.py``), with the
-pure-Python encoders only: BMP by hand, PNG through zlib."""
+"""Image file I/O (counterpart of the JAX package's ``io.py``).
+
+BMP files go through the native encoder (``native.py``) where it loads,
+else the pure-Python one; PNG through zlib in Python, as in the JAX
+package.  ``encoder`` names the encoder that writes a path."""
 
 from __future__ import annotations
 
@@ -9,6 +12,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from . import native
 
 
 def to_u8(image_float) -> np.ndarray:
@@ -24,6 +29,9 @@ def write_bmp(path: str, u8_image: np.ndarray) -> None:
     img = np.asarray(u8_image)
     if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
         raise ValueError("write_bmp takes an [H, W, 3] u8 image")
+    if native.available():
+        native.write_bmp(path, img)
+        return
     h, w, _ = img.shape
     bgr = img[::-1, :, ::-1]
     row_size = (w * 3 + 3) & ~3
@@ -72,11 +80,47 @@ def write_png(path: str, u8_image: np.ndarray) -> None:
         f.write(encode_png(u8_image))
 
 
+def read_bmp(path: str) -> np.ndarray:
+    """Read a 24-bit uncompressed BMP -> [H, W, 3] u8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] != b"BM":
+        raise ValueError(f"{path} is not a BMP file")
+    offset = struct.unpack_from("<I", data, 10)[0]
+    w = struct.unpack_from("<i", data, 18)[0]
+    h = struct.unpack_from("<i", data, 22)[0]
+    bpp = struct.unpack_from("<H", data, 28)[0]
+    if bpp != 24:
+        raise ValueError(f"only 24-bit BMP is supported, got {bpp}")
+    flip = h > 0
+    h = abs(h)
+    row_size = (w * 3 + 3) & ~3
+    img = np.frombuffer(data, np.uint8, row_size * h, offset)
+    img = img.reshape(h, row_size)[:, : w * 3].reshape(h, w, 3)
+    img = img[:, :, ::-1]  # BGR -> RGB
+    return img[::-1] if flip else img
+
+
+def _is_png(path: str) -> bool:
+    return os.path.splitext(path)[1].lower() == ".png"
+
+
 def save_image(path: str, image_float) -> str:
     """Quantize and save by extension (.png, else .bmp). Returns the path."""
     u8 = to_u8(image_float)
-    if os.path.splitext(path)[1].lower() == ".png":
+    if _is_png(path):
         write_png(path, u8)
     else:
         write_bmp(path, u8)
     return path
+
+
+def encoder(path: str) -> str:
+    """The encoder ``save_image`` writes ``path`` with: "native" (a BMP
+    while the native library loads) or "python"."""
+    return "native" if not _is_png(path) and native.available() else "python"
+
+
+def default_filename(config, prefix: str = "output", ext: str = "bmp") -> str:
+    """File name keyed by the config: ``output{spp}s{depth}b_{W}x{H}.bmp``."""
+    return f"{prefix}{config.spp}s{config.max_depth}b_{config.width}x{config.height}.{ext}"

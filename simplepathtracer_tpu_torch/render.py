@@ -486,6 +486,22 @@ def _balanced_perm(counts, n_banks: int = GPU_BANKS):
     return order[rank]
 
 
+def balanced_pixel_perm(scene, camera, config, key, probe_spp=2):
+    """Cost-balanced pixel order for the gradient routes (``fit(balance=
+    True)``): a probe of ``probe_spp`` spp through the persistent kernel
+    (its plain version on the CPU) counts each pixel's bounce iterations,
+    and ``_balanced_perm`` orders the pixels by them.  The probe runs under
+    ``torch.no_grad()`` and its radiance is discarded; ``accumulate``
+    balances itself through ``balance_probe_spp``."""
+    pixel_ids = torch.arange(config.num_pixels, device=scene.device)
+    pcfg = config.replace(use_pallas=True, use_pallas_grad=False, use_pallas_hits=False)
+    with torch.no_grad():
+        _, counts = _render_block_pallas(
+            scene, camera, pcfg, key, pixel_ids, 0, probe_spp, return_counts=True
+        )
+    return _balanced_perm(counts)
+
+
 def _requires_grad(scene, camera=None) -> bool:
     """Whether a scene leaf (or, given a camera, a camera leaf) needs a
     gradient."""

@@ -279,24 +279,37 @@ def test_regen_variant_names_the_kernel_instantiation(softness, plane, want):
 
 
 @pytest.mark.parametrize(
-    "option,match",
-    [
-        (dict(softness=0.0, balance=True), "balance"),
-        (dict(softness=0.0, grad_accum=2), "grad_accum"),
-        (dict(softness=0.0, snapshot_path="fit.npz"), "checkpoint"),
-    ],
+    "option",
+    [dict(balance=True, rebalance_every=1), dict(grad_accum=2), dict(snapshot_every=1)],
     ids=["balance", "grad_accum", "snapshot_path"],
 )
-def test_unported_fit_options_raise(option, match):
+def test_fit_options_run(option, tmp_path):
+    """The JAX ``fit``'s options that once raised here run on the CPU:
+    finite losses, the leaves moved, and the snapshot written each step."""
     scene, cam, cfg, target = _tiny()
-    with pytest.raises(NotImplementedError, match=match):
-        tpt.fit(scene, target, cam, cfg, tpt.make_key(0), steps=1, device="cpu", **option)
+    if "snapshot_every" in option:
+        option = dict(option, snapshot_path=str(tmp_path / "fit.npz"))
+    fitted, losses = tpt.fit(scene, target, cam, cfg, tpt.make_key(0), steps=2, softness=0.0,
+                             leaves=("albedo",), device="cpu", **option)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert not torch.equal(fitted.albedo, scene.albedo)
+    if "snapshot_path" in option:
+        with np.load(option["snapshot_path"]) as z:
+            assert int(z["step"]) == 2 and list(z["losses"]) == losses
 
 
-@pytest.mark.parametrize("fn", ["make_accum_grad_step"])
-def test_unported_inverse_functions_raise(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(inverse, fn)()
+def test_make_accum_grad_step_runs():
+    """The gradient-accumulated estimator runs on the CPU: a finite loss and a
+    gradient for every leaf, the groups' sum."""
+    scene, cam, cfg, target = _tiny()
+    params = inverse.split_params(scene)[0]
+    step = inverse.make_accum_grad_step(scene, target, cam, cfg, 2, device="cpu")
+    loss, grads = step(params, tpt.make_key(0))
+    assert torch.isfinite(loss) and set(grads) == set(params)
+    assert all(torch.isfinite(g).all() for g in grads.values())
+    assert grads["albedo"].abs().max() > 0
+    with pytest.raises(ValueError, match="divide"):
+        inverse.make_accum_grad_step(scene, target, cam, cfg, 3, device="cpu")
 
 
 def test_fit_camera_runs_on_the_cpu():
