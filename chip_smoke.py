@@ -103,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import math
 import os
@@ -110,6 +111,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from io import StringIO
 
@@ -175,6 +177,9 @@ BWD_OPS_PER_ITER_SOFT = 750
 N_RES_PLANES_SOFT = 30
 N_CT_PLANES_SOFT = 13
 N_BLK_PLANES = 4
+# Steps of the default soft fit timed with SIL_FRESNEL on and off again
+# (phase 7).
+FRESNEL_STEPS = 2
 
 _SRC = "simplepathtracer_tpu_torch/csrc/"
 _JAX = "simplepathtracer_tpu/ops/"
@@ -432,6 +437,28 @@ def lane_shares(cnt, counters):
 _LAP = [0.0]
 
 
+@contextlib.contextmanager
+def sil_fresnel(on=True):
+    """``intersect.SIL_FRESNEL`` of the port set to ``on`` inside (the
+    gradient calls read it when they are built)."""
+    from simplepathtracer_tpu_torch.ops import intersect
+
+    was = intersect.SIL_FRESNEL
+    intersect.SIL_FRESNEL = on
+    try:
+        yield
+    finally:
+        intersect.SIL_FRESNEL = was
+
+
+def fresnel_call(call):
+    """``call`` (a regen or fused call) with the SIL_FRESNEL flag of its
+    constants on, as ``scene_block`` sets it with the switch on."""
+    consts = call.consts.clone()
+    consts[-1] = 1.0
+    return call._replace(consts=consts)
+
+
 def lap(label=None):
     """Print the seconds since the previous lap under ``label`` (where a
     phase spends its time); with no label, only start a lap."""
@@ -477,8 +504,6 @@ HITS_ROUTE = ("closest_hit_attrs", "bucket")
 
 def grad_wrappers():
     """{name: (kernel wrapper, plain version)} of the gradient kernels."""
-    import importlib
-
     out = {}
     for name, (mod, kernel, plain) in WRAPPER_SITES.items():
         m = importlib.import_module(f"simplepathtracer_tpu_torch.ops.{mod}")
@@ -521,8 +546,6 @@ def plain_route(route=REGEN_ROUTE):
     so the plain versions stand in for them here.  Raises unless every
     plain version of the route ran inside and no kernel launched (the
     counts are reset on entry)."""
-    import importlib
-
     wrappers = grad_wrappers()
     sites = [(importlib.import_module(f"simplepathtracer_tpu_torch.ops.{WRAPPER_SITES[k][0]}"),
               WRAPPER_SITES[k][1], wrappers[k]) for k in route]
@@ -693,6 +716,12 @@ def phase5_kernels(tpt, dev):
         ("reference_37x13", reference, 37, 13, 4, 5, 0, 0.0, 2),
         ("cover_soft", cover, 64, 32, 4, 5, 0, 0.05, 2),
         ("three_sphere_plane_soft", trio_plane, 48, 24, 8, 5, 2, 0.05, 2),
+        # The soft instantiations with SIL_FRESNEL on (the backward adds
+        # the Schlick-coin ratio's score; no forward value changes), at half
+        # the width and height (the plane case at half the spp): the plain
+        # versions' time.
+        ("cover_soft_fresnel", cover, 32, 16, 4, 5, 0, 0.05, 2),
+        ("three_sphere_plane_soft_fresnel", trio_plane, 24, 12, 4, 5, 2, 0.05, 2),
     ]
     errs = {name: 0.0 for name, _, _ in GRAD_KERNELS + SOFT_KERNELS + SOFT_PLANE_KERNELS}
     plain_ms, kernel_ms, shapes = {}, {}, {}
@@ -700,121 +729,131 @@ def phase5_kernels(tpt, dev):
     key = tpt.make_key(3)
     lap()
     for name, build, w, h, spp, depth, rr, softness, chunk in cases:
-        scene, cam = build()
-        soft = softness > 0.0
-        cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
-                               silhouette_softness=softness)
-        inputs, cam19 = gr._trace_inputs(scene, cam, cfg)
-        pix = torch.arange(w * h, device=dev)
-        call = gr.regen_call(inputs[:11], inputs[11], inputs[12], cam19, key, pix,
-                             n_samples=spp, max_depth=depth, width=w, height=h,
-                             rr_start_depth=rr, softness=softness)
-        kn = kernel_names(gr.variant(call))
-        tag = f"phase5 {name} {w}x{h} spp={spp} depth={depth} rr={rr} soft={softness}"
-
-        # Recording forward, both modes: bit-exact.
-        rad_k, cnt_k, res_k = gr.regen_forward(call, 0, True)
-        sync(dev)
-        rad_p, cnt_p, res_p = gr.regen_fwd_reference(call, 0, True)
-        alive = res_p[0][9] > 0
-        full_ok = (torch.equal(rad_k, rad_p) and torch.equal(cnt_k, cnt_p)
-                   and equal_on_alive(res_k, res_p, alive))
-        radi_k, cnti_k, pk_k = gr.regen_forward(call, 0, False)
-        sync(dev)
-        radi_p, cnti_p, pk_p = gr.regen_fwd_reference(call, 0, False)
-        idx_ok = (torch.equal(radi_k, radi_p) and torch.equal(cnti_k, cnti_p)
-                  and torch.equal(pk_k, pk_p) and torch.equal(radi_k, rad_k))
-        errs[kn["regen_fwd"]] = max(errs[kn["regen_fwd"]], (rad_k - rad_p).abs().max().item(),
-                                    (radi_k - radi_p).abs().max().item())
-        extra = ""
-        if soft:
-            idx = res_p[1][3]
-            extra = (f", blockers {(res_p[1][5][alive] >= 0).sum().item()}, crossing-loser "
-                     f"plane wins {(idx[alive] == gr.PLANE_CROSS_IDX).sum().item()}")
-        print(f"{tag}: regen fwd full {'bit-exact' if full_ok else 'DIFFERS'}, idx-only "
-              f"{'bit-exact' if idx_ok else 'DIFFERS'} (n_iter={call.n_iter}, "
-              f"iterations={cnt_k.sum().item():.0f}, alive entries={alive.sum().item()}{extra})")
-        if not (full_ok and idx_ok):
-            raise RuntimeError(f"{tag}: regen forward kernel disagrees with its plain version")
-
-        # Scan-free re-forward from the kernel's packed words: the planes of
-        # the recording forward, bit for bit.
-        res_r = gr.regen_refwd(call, 0, pk_k)
-        sync(dev)
-        refwd_ok = equal_on_alive(res_r, res_k, alive)
-        res_rp = gr.regen_refwd_reference(call, 0, pk_k)
-        refwd_ok = refwd_ok and equal_on_alive(res_rp, res_k, alive)
-        errs[kn["regen_refwd"]] = max(errs[kn["regen_refwd"]],
-                                      (res_r[0][:, alive] - res_k[0][:, alive]).abs().max().item())
-        print(f"{tag}: re-forward planes {'bit-exact' if refwd_ok else 'DIFFER'} on alive entries")
-        if not refwd_ok:
-            raise RuntimeError(f"{tag}: re-forward kernel disagrees with the recording forward")
-
-        # Backward over the same residuals: expected bit-exact.
-        ct = torch.randn((w * h, 3), generator=gen).to(dev) * 1e-3
-        ctp_k, part_k = gr.regen_backward(call, 0, res_k[0], res_k[1], ct)
-        sync(dev)
-        ctp_p, part_p = gr.regen_bwd_reference(call, 0, res_k[0], res_k[1], ct)
-        (e1, d1), (e2, d2) = normwise_err(ctp_k, ctp_p), normwise_err(part_k, part_p)
-        errs[kn["regen_bwd"]] = max(errs[kn["regen_bwd"]], d1, d2)
-        print(f"{tag}: backward cotangent planes rel {e1:.3e} (max|d| {d1:.3e}), "
-              f"partials rel {e2:.3e} (max|d| {d2:.3e})")
-        if not (e1 <= BWD_RTOL and e2 <= BWD_RTOL and torch.isfinite(ctp_k).all()):
-            raise RuntimeError(f"{tag}: backward kernel disagrees with its plain version")
-
-        # Buckets against index_add_: the winners' 9 columns; soft, the
-        # blockers' 4 by blocker index.
-        s = call.n_spheres
-        cols = [("bucket", ctp_k[:9], res_k[1][3])]
-        if soft:
-            cols.append(("bucket_blocker", ctp_k[9:], res_k[1][5]))
-        for bname, c, idx in cols:
-            d_k = bucket.bucket_cols(c, idx, s)
-            sync(dev)
-            d_p = bucket.bucket_cols_reference(c, idx, s)
-            err_k, err_p, tol, top = bucket_errors(d_k, d_p, *bucket_rows(c, idx, s), s)
-            errs[bname] = max(errs[bname], err_k.max().item())
-            print(f"{tag}: {bname} ({c.shape[0]} columns) against float64 index_add_: max|d| "
-                  f"{err_k.max().item():.3e}, max |d| / tol {(err_k / tol).max().item():.3f} "
-                  f"(float32 index_add_ {err_p.max().item():.3e}, "
-                  f"{(err_p / tol).max().item():.3f}); table max {top:.3e}")
-            if not bool((err_k <= tol).all()):
-                raise RuntimeError(f"{tag}: {bname} kernel disagrees with index_add_")
-
-        # pixel_loss through the kernels against the plain route, streamed
-        # over several chunks.
-        gcfg = cfg.replace(use_pallas_grad=True, grad_regen=True, spp_chunk=chunk)
-        target = torch.full((h, w, 3), 0.25, device=dev)
-        l_k, g_k = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
-        with plain_route():
-            l_p, g_p = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
-        ok, worst = grads_close(list(g_k.values()), list(g_p.values()))
-        rel = abs(l_k.item() - l_p.item()) / abs(l_p.item())
-        print(f"{tag}: pixel_loss kernels {l_k.item():.9g} plain {l_p.item():.9g} (rel {rel:.2e}), "
-              f"gradients max|d| {worst:.3e} over {len(g_k)} leaves, {spp // chunk} chunks")
-        if not (ok and rel <= 1e-6):
-            raise RuntimeError(f"{tag}: pixel_loss through the kernels disagrees with the plain route")
-
-        if name in ("cover", "cover_soft", "three_sphere_plane_soft") and dev.type == "cuda":
-            shape = f"{name} {w}x{h}x{spp}spp depth {depth} rr {rr} soft {softness}"
-            bwd_args = (call, 0, res_k[0], res_k[1], ct)
-            timed = [
-                (kn["regen_fwd"], gr.regen_forward, gr.regen_fwd_reference, (call, 0, False)),
-                (kn["regen_refwd"], gr.regen_refwd, gr.regen_refwd_reference, (call, 0, pk_k)),
-                (kn["regen_bwd"], gr.regen_backward, gr.regen_bwd_reference, bwd_args),
-            ]
-            if name != "three_sphere_plane_soft":
-                for bname, c, idx in cols[-1:]:
-                    timed.append((bname, bucket.bucket_cols, bucket.bucket_cols_reference,
-                                  (c, idx, s)))
-            for kname, kern, plain, args in timed:
-                plain_ms[kname] = cuda_ms(lambda: plain(*args), reps=1, warm=False)
-                kernel_ms[kname] = cuda_ms(lambda: kern(*args), reps=10)
-                shapes[kname] = shape
-                print(f"phase5 {shape}: {kname} plain {plain_ms[kname]:.3f} ms, kernel "
-                      f"{kernel_ms[kname]:.3f} ms")
+        with sil_fresnel(name.endswith("_fresnel")):
+            phase5_case(tpt, dev, gr, bucket, errs, plain_ms, kernel_ms, shapes, gen, key,
+                        name, build, w, h, spp, depth, rr, softness, chunk)
         lap(f"phase5 {name}")
     return errs, plain_ms, kernel_ms, shapes
+
+
+def phase5_case(tpt, dev, gr, bucket, errs, plain_ms, kernel_ms, shapes, gen, key,
+                name, build, w, h, spp, depth, rr, softness, chunk):
+    """One case of phase 5 (the gradient kernels against their plain
+    versions), with the SIL_FRESNEL switch as it stands."""
+    scene, cam = build()
+    soft = softness > 0.0
+    cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
+                           silhouette_softness=softness)
+    inputs, cam19 = gr._trace_inputs(scene, cam, cfg)
+    pix = torch.arange(w * h, device=dev)
+    call = gr.regen_call(inputs[:11], inputs[11], inputs[12], cam19, key, pix,
+                         n_samples=spp, max_depth=depth, width=w, height=h,
+                         rr_start_depth=rr, softness=softness)
+    kn = kernel_names(gr.variant(call))
+    tag = (f"phase5 {name} {w}x{h} spp={spp} depth={depth} rr={rr} soft={softness} "
+           f"fresnel={gr.fresnel_on(call)}")
+
+    # Recording forward, both modes: bit-exact.
+    rad_k, cnt_k, res_k = gr.regen_forward(call, 0, True)
+    sync(dev)
+    rad_p, cnt_p, res_p = gr.regen_fwd_reference(call, 0, True)
+    alive = res_p[0][9] > 0
+    full_ok = (torch.equal(rad_k, rad_p) and torch.equal(cnt_k, cnt_p)
+               and equal_on_alive(res_k, res_p, alive))
+    radi_k, cnti_k, pk_k = gr.regen_forward(call, 0, False)
+    sync(dev)
+    radi_p, cnti_p, pk_p = gr.regen_fwd_reference(call, 0, False)
+    idx_ok = (torch.equal(radi_k, radi_p) and torch.equal(cnti_k, cnti_p)
+              and torch.equal(pk_k, pk_p) and torch.equal(radi_k, rad_k))
+    errs[kn["regen_fwd"]] = max(errs[kn["regen_fwd"]], (rad_k - rad_p).abs().max().item(),
+                                (radi_k - radi_p).abs().max().item())
+    extra = ""
+    if soft:
+        idx = res_p[1][3]
+        extra = (f", blockers {(res_p[1][5][alive] >= 0).sum().item()}, crossing-loser "
+                 f"plane wins {(idx[alive] == gr.PLANE_CROSS_IDX).sum().item()}")
+    print(f"{tag}: regen fwd full {'bit-exact' if full_ok else 'DIFFERS'}, idx-only "
+          f"{'bit-exact' if idx_ok else 'DIFFERS'} (n_iter={call.n_iter}, "
+          f"iterations={cnt_k.sum().item():.0f}, alive entries={alive.sum().item()}{extra})")
+    if not (full_ok and idx_ok):
+        raise RuntimeError(f"{tag}: regen forward kernel disagrees with its plain version")
+
+    # Scan-free re-forward from the kernel's packed words: the planes of
+    # the recording forward, bit for bit.
+    res_r = gr.regen_refwd(call, 0, pk_k)
+    sync(dev)
+    refwd_ok = equal_on_alive(res_r, res_k, alive)
+    res_rp = gr.regen_refwd_reference(call, 0, pk_k)
+    refwd_ok = refwd_ok and equal_on_alive(res_rp, res_k, alive)
+    errs[kn["regen_refwd"]] = max(errs[kn["regen_refwd"]],
+                                  (res_r[0][:, alive] - res_k[0][:, alive]).abs().max().item())
+    print(f"{tag}: re-forward planes {'bit-exact' if refwd_ok else 'DIFFER'} on alive entries")
+    if not refwd_ok:
+        raise RuntimeError(f"{tag}: re-forward kernel disagrees with the recording forward")
+
+    # Backward over the same residuals: expected bit-exact.
+    ct = torch.randn((w * h, 3), generator=gen).to(dev) * 1e-3
+    ctp_k, part_k = gr.regen_backward(call, 0, res_k[0], res_k[1], ct)
+    sync(dev)
+    ctp_p, part_p = gr.regen_bwd_reference(call, 0, res_k[0], res_k[1], ct)
+    (e1, d1), (e2, d2) = normwise_err(ctp_k, ctp_p), normwise_err(part_k, part_p)
+    errs[kn["regen_bwd"]] = max(errs[kn["regen_bwd"]], d1, d2)
+    print(f"{tag}: backward cotangent planes rel {e1:.3e} (max|d| {d1:.3e}), "
+          f"partials rel {e2:.3e} (max|d| {d2:.3e})")
+    if not (e1 <= BWD_RTOL and e2 <= BWD_RTOL and torch.isfinite(ctp_k).all()):
+        raise RuntimeError(f"{tag}: backward kernel disagrees with its plain version")
+
+    # Buckets against index_add_: the winners' 9 columns; soft, the
+    # blockers' 4 by blocker index.
+    s = call.n_spheres
+    cols = [("bucket", ctp_k[:9], res_k[1][3])]
+    if soft:
+        cols.append(("bucket_blocker", ctp_k[9:], res_k[1][5]))
+    for bname, c, idx in cols:
+        d_k = bucket.bucket_cols(c, idx, s)
+        sync(dev)
+        d_p = bucket.bucket_cols_reference(c, idx, s)
+        err_k, err_p, tol, top = bucket_errors(d_k, d_p, *bucket_rows(c, idx, s), s)
+        errs[bname] = max(errs[bname], err_k.max().item())
+        print(f"{tag}: {bname} ({c.shape[0]} columns) against float64 index_add_: max|d| "
+              f"{err_k.max().item():.3e}, max |d| / tol {(err_k / tol).max().item():.3f} "
+              f"(float32 index_add_ {err_p.max().item():.3e}, "
+              f"{(err_p / tol).max().item():.3f}); table max {top:.3e}")
+        if not bool((err_k <= tol).all()):
+            raise RuntimeError(f"{tag}: {bname} kernel disagrees with index_add_")
+
+    # pixel_loss through the kernels against the plain route, streamed
+    # over several chunks.
+    gcfg = cfg.replace(use_pallas_grad=True, grad_regen=True, spp_chunk=chunk)
+    target = torch.full((h, w, 3), 0.25, device=dev)
+    l_k, g_k = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
+    with plain_route():
+        l_p, g_p = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
+    ok, worst = grads_close(list(g_k.values()), list(g_p.values()))
+    rel = abs(l_k.item() - l_p.item()) / abs(l_p.item())
+    print(f"{tag}: pixel_loss kernels {l_k.item():.9g} plain {l_p.item():.9g} (rel {rel:.2e}), "
+          f"gradients max|d| {worst:.3e} over {len(g_k)} leaves, {spp // chunk} chunks")
+    if not (ok and rel <= 1e-6):
+        raise RuntimeError(f"{tag}: pixel_loss through the kernels disagrees with the plain route")
+
+    if name in ("cover", "cover_soft", "three_sphere_plane_soft") and dev.type == "cuda":
+        shape = f"{name} {w}x{h}x{spp}spp depth {depth} rr {rr} soft {softness}"
+        bwd_args = (call, 0, res_k[0], res_k[1], ct)
+        timed = [
+            (kn["regen_fwd"], gr.regen_forward, gr.regen_fwd_reference, (call, 0, False)),
+            (kn["regen_refwd"], gr.regen_refwd, gr.regen_refwd_reference, (call, 0, pk_k)),
+            (kn["regen_bwd"], gr.regen_backward, gr.regen_bwd_reference, bwd_args),
+        ]
+        if name != "three_sphere_plane_soft":
+            for bname, c, idx in cols[-1:]:
+                timed.append((bname, bucket.bucket_cols, bucket.bucket_cols_reference,
+                              (c, idx, s)))
+        for kname, kern, plain, args in timed:
+            plain_ms[kname] = cuda_ms(lambda: plain(*args), reps=1, warm=False)
+            kernel_ms[kname] = cuda_ms(lambda: kern(*args), reps=10)
+            shapes[kname] = shape
+            print(f"phase5 {shape}: {kname} plain {plain_ms[kname]:.3f} ms, kernel "
+                  f"{kernel_ms[kname]:.3f} ms")
 
 
 def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_counts, wrappers):
@@ -1156,6 +1195,16 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     gen = torch.Generator().manual_seed(3)
     ct = (torch.randn((p, 3), generator=gen) * 1e-6).to(call.pixel_ids.device)
     ms[kn["regen_bwd"]] = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2 * more)
+    if soft:
+        # The same launch with SIL_FRESNEL on, between two more with it off
+        # (the switch is a runtime flag of the constants).
+        call_f = fresnel_call(call)
+        on = cuda_ms(lambda: gr.regen_backward(call_f, 0, resf, resi, ct), reps=2 * more)
+        off = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2 * more)
+        res["fresnel_ms"] = {kn["regen_bwd"]: {"off": ms[kn["regen_bwd"]], "on": on,
+                                              "off_again": off}}
+        print(f"{tag} backward with SIL_FRESNEL off {ms[kn['regen_bwd']]:.3f} ms, on "
+              f"{on:.3f} ms, off again {off:.3f} ms")
     ct_planes, part = gr.regen_backward(call, 0, resf, resi, ct)
     # What the backward's schedule meets: the warps' live share (one thread
     # per lane, each warp walking back from its longest lane's count), and
@@ -1315,6 +1364,22 @@ def phase7_soft(tpt, dev, wrappers):
                            f"(launches {out['launches']}, per step wanted {want}, plain calls "
                            f"{out['plain_calls']})")
     out["per_step"] = want
+    # The same fit with SIL_FRESNEL on, between two runs with it off: the
+    # first loss is the same (no forward value changes), the step time
+    # beside the switch-off one.
+    out["fresnel_fit"] = {}
+    for label, on in (("on", True), ("off", False)):
+        with sil_fresnel(on):
+            sync(dev)
+            t0 = time.perf_counter()
+            _, l_f = tpt.fit(start, target, cam, cfg, key, steps=FRESNEL_STEPS, **fit_kw)
+            sync(dev)
+        out["fresnel_fit"][label] = dict(s_per_step=(time.perf_counter() - t0) / FRESNEL_STEPS,
+                                         losses=l_f)
+    print(f"phase7 fit with SIL_FRESNEL on / off, {FRESNEL_STEPS} steps: "
+          f"{json.dumps(out['fresnel_fit'])} (off before: {out['step_s']:.4f} s/step)")
+    if out["fresnel_fit"]["on"]["losses"][0] != losses[0]:
+        raise RuntimeError("phase7: SIL_FRESNEL changed the fit's first loss")
     lap("phase7 (a) default fit")
 
     # (b) Each soft kernel at that fit's chunk shape.
@@ -1552,123 +1617,128 @@ def phase8_kernels(tpt, dev):
         ("cover_soft", cover, 64, 32, 4, 10, 0, 0.05),
         ("three_sphere", trio, 48, 24, 8, 10, 2, 0.0),
         ("three_sphere_soft", trio, 48, 24, 8, 10, 2, 0.05),
+        # The soft instantiations with SIL_FRESNEL on.
+        ("cover_soft_fresnel", cover, 64, 32, 4, 10, 0, 0.05),
+        ("three_sphere_soft_fresnel", trio, 48, 24, 8, 10, 2, 0.05),
     ]
     errs = {name: 0.0 for name, _, _ in FUSED_KERNELS}
     plain_ms, kernel_ms, shapes = {}, {}, {}
     gen = torch.Generator().manual_seed(6)
     key = tpt.make_key(8)
     for name, build, w, h, spp, depth, rr, softness in cases:
-        scene, cam = build()
-        soft = softness > 0.0
-        sfx = "_soft" if soft else ""
-        cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
-                               silhouette_softness=softness)
-        tag = f"phase8 {name} {w}x{h}x{spp}spp depth {depth} rr {rr} soft {softness}"
-        keys = fused_keys(w, h, spp, key, dev)
-        n = keys.pixel.shape[0]
-        pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
+        with sil_fresnel(name.endswith("_fresnel")):
+            scene, cam = build()
+            soft = softness > 0.0
+            sfx = "_soft" if soft else ""
+            cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
+                                   silhouette_softness=softness)
+            tag = (f"phase8 {name} {w}x{h}x{spp}spp depth {depth} rr {rr} soft {softness} "
+                   f"fresnel={name.endswith('_fresnel')}")
+            keys = fused_keys(w, h, spp, key, dev)
+            n = keys.pixel.shape[0]
+            pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
 
-        rays = fg.raygen(cam, keys, cfg)
-        sync(dev)
-        rays_p = fg.raygen_reference(cam, keys, cfg)
-        rays_ok = torch.equal(rays, rays_p)
-        errs["raygen"] = max(errs["raygen"], (rays - rays_p).abs().max().item())
-        call = fused_call_for(fg, scene, keys, cfg)
-
-        # Forward, bounce by bounce: kernel and plain version on the same
-        # entry state, every output bit for bit.
-        state = torch.cat([rays, torch.ones((4, n), device=dev)]).contiguous()
-        rad = torch.zeros((3, n), device=dev)
-        prev = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
-        saved, fwd_ok = [], True
-        for b in range(depth):
-            rad_p = rad.clone()
-            got = fg.grad_forward(call, state, rad, prev, pix, samp, b)
-            want = fg.grad_fwd_reference(call, state, rad_p, prev, pix, samp, b)
+            rays = fg.raygen(cam, keys, cfg)
             sync(dev)
-            fwd_ok = fwd_ok and torch.equal(rad, rad_p) and all(
-                (g is None and x is None) or torch.equal(g, x) for g, x in zip(got, want))
-            errs["grad_fwd" + sfx] = max(errs["grad_fwd" + sfx], (rad - rad_p).abs().max().item(),
-                                         (got[0] - want[0]).abs().max().item())
-            saved.append((state, got[2], got[3]))
-            state, prev = got[0], got[1]
+            rays_p = fg.raygen_reference(cam, keys, cfg)
+            rays_ok = torch.equal(rays, rays_p)
+            errs["raygen"] = max(errs["raygen"], (rays - rays_p).abs().max().item())
+            call = fused_call_for(fg, scene, keys, cfg)
 
-        # Backward, bounce by bounce: carried and attribute cotangents bit for
-        # bit; the sky sums and the buckets against float64 sums.
-        ct_rad = (torch.randn((3, n), generator=gen) * 1e-3).to(dev)
-        carry = torch.zeros((9, n), device=dev)
-        bwd_ok, sky_ratio, bucket_ratio = True, 0.0, 0.0
-        s = call.n_spheres
-        for b in range(depth - 1, -1, -1):
-            st, idx, bidx = saved[b]
-            ck, ak, sk = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad)
-            sync(dev)
-            cp, ap, _ = fg.grad_bwd_reference(call, st, idx, bidx, pix, samp, b, carry, ct_rad)
-            bwd_ok = bwd_ok and torch.equal(ck, cp) and torch.equal(ak, ap)
-            err, tol = sum_errors(sk, sky_terms(fg, call, st, idx, bidx, pix, samp, b, carry,
-                                                ct_rad))
-            sky_ratio = max(sky_ratio, (err / tol).max().item())
-            errs["grad_bwd" + sfx] = max(errs["grad_bwd" + sfx], (ck - cp).abs().max().item(),
-                                         (ak - ap).abs().max().item(), err.max().item())
-            cols = [(ak[:9], idx)] + ([(ak[9:], bidx)] if soft else [])
-            for c, ix in cols:
-                d_k = bucket.bucket_cols(c, ix, s)
-                d_p = bucket.bucket_cols_reference(c, ix, s)
-                e_k, _, tol_b, _ = bucket_errors(d_k, d_p, *bucket_rows(c, ix, s), s)
-                bucket_ratio = max(bucket_ratio, (e_k / tol_b).max().item())
-            carry = ck
-        print(f"{tag}: raygen {'bit-exact' if rays_ok else 'DIFFERS'}, forward {depth} bounces "
-              f"{'bit-exact' if fwd_ok else 'DIFFER'} (alive after the last "
-              f"{int(saved[-1][0][9].sum().item())} of {n}), backward cotangents "
-              f"{'bit-exact' if bwd_ok else 'DIFFER'}, sky sums max |d| / tol {sky_ratio:.3f}, "
-              f"buckets max |d| / tol {bucket_ratio:.3f}")
-        if not (rays_ok and fwd_ok and bwd_ok and sky_ratio <= 1.0 and bucket_ratio <= 1.0
-                and torch.isfinite(carry).all()):
-            raise RuntimeError(f"{tag}: a fused kernel disagrees with its plain version")
+            # Forward, bounce by bounce: kernel and plain version on the same
+            # entry state, every output bit for bit.
+            state = torch.cat([rays, torch.ones((4, n), device=dev)]).contiguous()
+            rad = torch.zeros((3, n), device=dev)
+            prev = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
+            saved, fwd_ok = [], True
+            for b in range(depth):
+                rad_p = rad.clone()
+                got = fg.grad_forward(call, state, rad, prev, pix, samp, b)
+                want = fg.grad_fwd_reference(call, state, rad_p, prev, pix, samp, b)
+                sync(dev)
+                fwd_ok = fwd_ok and torch.equal(rad, rad_p) and all(
+                    (g is None and x is None) or torch.equal(g, x) for g, x in zip(got, want))
+                errs["grad_fwd" + sfx] = max(errs["grad_fwd" + sfx], (rad - rad_p).abs().max().item(),
+                                             (got[0] - want[0]).abs().max().item())
+                saved.append((state, got[2], got[3]))
+                state, prev = got[0], got[1]
 
-        # pixel_loss through the fused route against its plain route.
-        gcfg = cfg.replace(use_pallas_grad=True)
-        target = torch.full((h, w, 3), 0.25, device=dev)
-        l_k, g_k = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
-        with plain_route(FUSED_ROUTE):
-            l_p, g_p = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
-        ok, worst = grads_close(list(g_k.values()), list(g_p.values()))
-        print(f"{tag}: pixel_loss fused kernels {l_k.item():.9g} plain {l_p.item():.9g}, "
-              f"gradients max|d| {worst:.3e} over {len(g_k)} leaves")
-        if not (ok and torch.equal(l_k, l_p)):
-            raise RuntimeError(f"{tag}: pixel_loss through the fused kernels disagrees with "
-                               "the plain route")
+            # Backward, bounce by bounce: carried and attribute cotangents bit for
+            # bit; the sky sums and the buckets against float64 sums.
+            ct_rad = (torch.randn((3, n), generator=gen) * 1e-3).to(dev)
+            carry = torch.zeros((9, n), device=dev)
+            bwd_ok, sky_ratio, bucket_ratio = True, 0.0, 0.0
+            s = call.n_spheres
+            for b in range(depth - 1, -1, -1):
+                st, idx, bidx = saved[b]
+                ck, ak, sk = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad)
+                sync(dev)
+                cp, ap, _ = fg.grad_bwd_reference(call, st, idx, bidx, pix, samp, b, carry, ct_rad)
+                bwd_ok = bwd_ok and torch.equal(ck, cp) and torch.equal(ak, ap)
+                err, tol = sum_errors(sk, sky_terms(fg, call, st, idx, bidx, pix, samp, b, carry,
+                                                    ct_rad))
+                sky_ratio = max(sky_ratio, (err / tol).max().item())
+                errs["grad_bwd" + sfx] = max(errs["grad_bwd" + sfx], (ck - cp).abs().max().item(),
+                                             (ak - ap).abs().max().item(), err.max().item())
+                cols = [(ak[:9], idx)] + ([(ak[9:], bidx)] if soft else [])
+                for c, ix in cols:
+                    d_k = bucket.bucket_cols(c, ix, s)
+                    d_p = bucket.bucket_cols_reference(c, ix, s)
+                    e_k, _, tol_b, _ = bucket_errors(d_k, d_p, *bucket_rows(c, ix, s), s)
+                    bucket_ratio = max(bucket_ratio, (e_k / tol_b).max().item())
+                carry = ck
+            print(f"{tag}: raygen {'bit-exact' if rays_ok else 'DIFFERS'}, forward {depth} bounces "
+                  f"{'bit-exact' if fwd_ok else 'DIFFER'} (alive after the last "
+                  f"{int(saved[-1][0][9].sum().item())} of {n}), backward cotangents "
+                  f"{'bit-exact' if bwd_ok else 'DIFFER'}, sky sums max |d| / tol {sky_ratio:.3f}, "
+                  f"buckets max |d| / tol {bucket_ratio:.3f}")
+            if not (rays_ok and fwd_ok and bwd_ok and sky_ratio <= 1.0 and bucket_ratio <= 1.0
+                    and torch.isfinite(carry).all()):
+                raise RuntimeError(f"{tag}: a fused kernel disagrees with its plain version")
 
-        if name.startswith("cover") and dev.type == "cuda":
-            # Per-launch times of the whole chain at this shape.
-            shape = f"{name} {w}x{h}x{spp}spp depth {depth}"
+            # pixel_loss through the fused route against its plain route.
+            gcfg = cfg.replace(use_pallas_grad=True)
+            target = torch.full((h, w, 3), 0.25, device=dev)
+            l_k, g_k = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
+            with plain_route(FUSED_ROUTE):
+                l_p, g_p = loss_and_grads(tpt, scene, target, cam, gcfg, key, dev)
+            ok, worst = grads_close(list(g_k.values()), list(g_p.values()))
+            print(f"{tag}: pixel_loss fused kernels {l_k.item():.9g} plain {l_p.item():.9g}, "
+                  f"gradients max|d| {worst:.3e} over {len(g_k)} leaves")
+            if not (ok and torch.equal(l_k, l_p)):
+                raise RuntimeError(f"{tag}: pixel_loss through the fused kernels disagrees with "
+                                   "the plain route")
 
-            def chain(fwd):
-                st, rd = torch.cat([rays, torch.ones((4, n), device=dev)]), torch.zeros((3, n), device=dev)
-                pv = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
-                for b in range(depth):
-                    st, pv, _, _ = fwd(call, st, rd, pv, pix, samp, b)
+            if name in ("cover", "cover_soft") and dev.type == "cuda":
+                # Per-launch times of the whole chain at this shape.
+                shape = f"{name} {w}x{h}x{spp}spp depth {depth}"
 
-            def back(bwd):
-                c = torch.zeros((9, n), device=dev)
-                for b in range(depth - 1, -1, -1):
-                    st, idx, bidx = saved[b]
-                    c = bwd(call, st, idx, bidx, pix, samp, b, c, ct_rad)[0]
+                def chain(fwd):
+                    st, rd = torch.cat([rays, torch.ones((4, n), device=dev)]), torch.zeros((3, n), device=dev)
+                    pv = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
+                    for b in range(depth):
+                        st, pv, _, _ = fwd(call, st, rd, pv, pix, samp, b)
 
-            timed = [("grad_fwd" + sfx, lambda: chain(fg.grad_forward),
-                      lambda: chain(fg.grad_fwd_reference), depth),
-                     ("grad_bwd" + sfx, lambda: back(fg.grad_backward),
-                      lambda: back(fg.grad_bwd_reference), depth)]
-            if not soft:
-                cam19 = camera_constants(cam, w, h).detach().contiguous()
-                timed.append(("raygen", lambda: fg._raygen_launch(cam19, keys, w, h),
-                              lambda: fg.raygen_reference(cam, keys, cfg), 1))
-            for kname, kern, plain, per in timed:
-                plain_ms[kname] = cuda_ms(plain, reps=1, warm=False) / per
-                kernel_ms[kname] = cuda_ms(kern, reps=5) / per
-                shapes[kname] = shape
-                print(f"phase8 {shape}: {kname} per launch plain {plain_ms[kname]:.3f} ms, "
-                      f"kernel {kernel_ms[kname]:.3f} ms")
+                def back(bwd):
+                    c = torch.zeros((9, n), device=dev)
+                    for b in range(depth - 1, -1, -1):
+                        st, idx, bidx = saved[b]
+                        c = bwd(call, st, idx, bidx, pix, samp, b, c, ct_rad)[0]
+
+                timed = [("grad_fwd" + sfx, lambda: chain(fg.grad_forward),
+                          lambda: chain(fg.grad_fwd_reference), depth),
+                         ("grad_bwd" + sfx, lambda: back(fg.grad_backward),
+                          lambda: back(fg.grad_bwd_reference), depth)]
+                if not soft:
+                    cam19 = camera_constants(cam, w, h).detach().contiguous()
+                    timed.append(("raygen", lambda: fg._raygen_launch(cam19, keys, w, h),
+                                  lambda: fg.raygen_reference(cam, keys, cfg), 1))
+                for kname, kern, plain, per in timed:
+                    plain_ms[kname] = cuda_ms(plain, reps=1, warm=False) / per
+                    kernel_ms[kname] = cuda_ms(kern, reps=5) / per
+                    shapes[kname] = shape
+                    print(f"phase8 {shape}: {kname} per launch plain {plain_ms[kname]:.3f} ms, "
+                          f"kernel {kernel_ms[kname]:.3f} ms")
     return errs, plain_ms, kernel_ms, shapes
 
 
@@ -1759,11 +1829,18 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
     s = call.n_spheres
     bucket_ms, bucket_bound, bucket_lib_ms, bucket_ratio, bucket_rows_n = 0.0, [0.0, 0.0], 0.0, 0.0, 0
     bwd_ms = [0.0] * depth
+    call_f = fresnel_call(call) if soft else None
+    fresnel_ms = 0.0
     for b in range(depth - 1, -1, -1):
         st, idx, bidx = saved[b]
         bwd_ms[b] = cuda_ms(
             lambda: fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad, want_attr),
             reps=2)
+        if soft:
+            # The same launch with SIL_FRESNEL on (a runtime flag).
+            fresnel_ms += cuda_ms(lambda: fg.grad_backward(call_f, st, idx, bidx, pix, samp, b,
+                                                           carry, ct_rad, want_attr),
+                                  reps=2) / depth
         ms["grad_bwd" + sfx] += bwd_ms[b] / depth
         ck, ak, _ = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad, want_attr)
         bound["grad_bwd" + sfx][0] += (live[b] * (BWD_OPS_PER_ITER_SOFT if soft else BWD_OPS_PER_ITER)
@@ -1806,6 +1883,10 @@ def fused_full_width(tpt, fg, bucket, scene, cam, cfg, key, spp, rows, want_attr
            "bwd_ns_per_live_ray_bounce": bwd_ns,
            "bound_ms": {k: max(v) * 1e3 for k, v in bound.items()},
            "bound_by": {k: "operations" if v[0] >= v[1] else "bytes" for k, v in bound.items()}}
+    if soft:
+        res["fresnel_ms"] = {"grad_bwd" + sfx: {"off": ms["grad_bwd" + sfx], "on": fresnel_ms}}
+        print(f"kernel grad_bwd{sfx} per launch with SIL_FRESNEL off {ms['grad_bwd' + sfx]:.3f} "
+              f"ms, on {fresnel_ms:.3f} ms")
     if want_attr:
         res["bucket"] = dict(ms=bucket_ms, bound_ms=bucket_bound[1] * 1e3,
                              index_add_ms=bucket_lib_ms, rows=bucket_rows_n, ratio=bucket_ratio)
@@ -2936,6 +3017,308 @@ def phase10_cli(tpt, dev, wrappers, render_s):
     return out
 
 
+# Phase 11, the sharded path (parallel/ on torch.distributed): two ranks on
+# the one card over gloo (NCCL refuses two ranks on one device), each job
+# joined within SHARD_TIMEOUT seconds.  (a) render_sharded of the
+# cover_multihost preset (1200x800, 2000 spp, depth 10) on a 2x1 and a 1x2
+# mesh; (b) loss_and_grad_sharded on the cover preset at SHARD_GRAD_SPP spp,
+# hard and soft; (c) a 2x1 render snapshotted after SHARD_HALF spp, loaded
+# and finished; (d) SHARD_FIT_STEPS steps of fit_sharded.
+SHARD_RANKS, SHARD_TIMEOUT = 2, 120.0
+SHARD_MESHES = ((2, 1), (1, 2))
+SHARD_HALF, SHARD_GRAD_SPP, SHARD_FIT_STEPS = 1000, 100, 2
+# A samples split adds per-rank partial sums, each pixel's 2000 samples in
+# another association: a float32 sum of n non-negative terms in any order
+# is within (n - 1) 2^-24 of their sum relative, so two orders differ by
+# at most 2 (n - 1) 2^-24 of the mean (SHARD_SUM_ROUNDINGS of them are
+# held; the max difference is reported beside the 1e-5 that
+# tests/test_sharding.py:47 holds at 8 spp); the sharded loss within 1e-6 relative of the single
+# process's, the smooth leaves' gradients within rtol 1e-4 (atol 1e-6 of the
+# leaf's largest entry), the geometry leaves' at cosine >= 0.999 (the same
+# winners per ray, the sums in another order).
+SHARD_SUM_ROUNDINGS, SHARD_LOSS_RTOL = 2, 1e-6
+SHARD_SMOOTH_RTOL, SHARD_GEOM_COS = 1e-4, 0.999
+SHARD_SMOOTH = ("albedo", "sky_lo", "sky_hi", "plane")
+SHARD_GEOMETRY = ("centers", "radii")
+
+
+def shard_target(cfg, dev):
+    """The target of phase 11 (b): a constant linear image."""
+    return torch.full((cfg.height, cfg.width, 3), 0.25, device=dev)
+
+
+def shard_rank(rank, world, out):
+    """One rank of phase 11 (cuda:0, shared with its peer): a warm-up at a
+    small shape, then -- once the parent's references are done (the file
+    ``out``/references_done) -- (a)-(d), each part with every launch count
+    set to 0 just before it and read just after.  Writes its readings to
+    ``out``/rank{rank}.json and rank 0's tensors to ``out``/rank0.pt."""
+    import torch.distributed as dist
+
+    import simplepathtracer_tpu_torch as tpt
+    from simplepathtracer_tpu_torch import checkpoint, parallel
+    from simplepathtracer_tpu_torch.inverse import fit_sharded
+    from simplepathtracer_tpu_torch.ops.cuda_build import load_library
+
+    dev = torch.device("cuda")
+    load_library()  # the parent's build, from its cache
+    wrappers = grad_wrappers()
+    res = {"parts": {}}
+    tensors = {}
+
+    def part(label, fn, want):
+        """Run ``fn`` with the counts at 0; its time (both ranks started and
+        ended together), this rank's peak memory and launches.  The kernels
+        in ``want`` must have launched and no plain version run."""
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_all(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        dist.barrier()
+        got, calls = route_counts(wrappers)
+        res["parts"][label] = {"s": time.perf_counter() - t0, "launches": got,
+                               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        missing = [k for k in want if not got.get(k)]
+        if missing or calls:
+            raise RuntimeError(f"phase11 {label}: rank {rank} did not run through the kernels "
+                               f"(launches {got}, plain calls {calls}, missing {missing})")
+        return r
+
+    scene, cam, cfg = tpt.PRESETS["cover_multihost"].build(0, device=dev)
+    key = tpt.make_key(0)
+    meshes = {f"{t}x{s}": parallel.make_mesh(t, s) for t, s in SHARD_MESHES}
+    # Warm-up at 64x32 (each kernel's first launch in this process, Adam's
+    # first step), timed apart.
+    # The first gradient and the first optimizer step of a process import
+    # modules for seconds (torch.optim imports torch._dynamo).
+    small = tpt.PRESETS["cover"].config.replace(width=64, height=32, spp=4)
+    res["warm"] = {}
+    for name, fn in (
+            ("render", lambda: parallel.render_sharded(scene, cam, small, key, meshes["1x2"])),
+            ("grad", lambda: parallel.loss_and_grad_sharded(scene, shard_target(small, dev), cam,
+                                                            small, key, meshes["1x2"])),
+            ("fit_step", lambda: fit_sharded(scene, shard_target(small, dev), cam, small, key,
+                                             meshes["1x2"], steps=1, leaves=("albedo",),
+                                             device=dev))):
+        before, t0 = set(sys.modules), time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        new = sorted({m.split(".")[0] for m in set(sys.modules) - before})
+        res["warm"][name] = {"s": time.perf_counter() - t0, "new_modules": len(set(sys.modules) - before),
+                             "new_top_level": new[:12]}
+    go = os.path.join(out, "references_done")
+    deadline = time.monotonic() + SHARD_TIMEOUT
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase11: the parent's references did not end")
+        time.sleep(0.02)
+    # (a) The sharded render on each mesh: the image through render_sharded
+    # on 2x1; on 1x2 the sums render_sharded gathers, the image formed from
+    # them as it forms it.
+    tensors["a_2x1"] = part("a_render_2x1", lambda: parallel.render_sharded(
+        scene, cam, cfg, key, meshes["2x1"]), ["persistent_render"])
+    acc12 = part("a_render_1x2", lambda: parallel.gather_tiles(parallel.render_accum_sharded(
+        scene, cam, cfg, key, meshes["1x2"]), cfg, meshes["1x2"]), ["persistent_render"])
+    tensors["a_1x2_linear"] = acc12 / float(cfg.spp)
+    tensors["a_1x2"] = gamma_image(acc12, cfg.spp).reshape(cfg.height, cfg.width, 3)
+    # (c) Snapshot after SHARD_HALF spp on 2x1, load, finish.
+    mesh = meshes["2x1"]
+    prefix = os.path.join(out, "shard_snap")
+
+    def resume():
+        acc = parallel.render_accum_sharded(scene, cam, cfg, key, mesh, 0, SHARD_HALF)
+        checkpoint.save_sharded(prefix, acc, SHARD_HALF, key, scene, cfg, mesh, cam)
+        acc_l, done, key_l, scene_l, cfg_l, cam_l = checkpoint.load_sharded(prefix, mesh)
+        if done != SHARD_HALF or cfg_l != cfg or not torch.equal(acc_l, acc):
+            raise RuntimeError("phase11 (c): the sharded snapshot did not round-trip")
+        more = parallel.render_accum_sharded(scene_l, cam_l, cfg_l, key_l, mesh, done,
+                                             cfg.spp - done)
+        return parallel.gather_tiles(acc_l + more, cfg, mesh)
+
+    acc_c = part("c_snapshot_resume_2x1", resume, ["persistent_render"])
+    tensors["c_2x1_linear"] = acc_c / float(cfg.spp)
+    tensors["c_2x1"] = gamma_image(acc_c, cfg.spp).reshape(cfg.height, cfg.width, 3)
+    # (b) The sharded gradient, hard then soft, on each mesh.
+    gcfg = tpt.PRESETS["cover"].config.replace(spp=SHARD_GRAD_SPP)
+    target = shard_target(gcfg, dev)
+    regen = ["regen_fwd", "regen_refwd", "regen_bwd", "bucket"]
+    for soft in (0.0, DEFAULT_SOFTNESS):
+        c = gcfg.replace(silhouette_softness=soft)
+        sfx = "" if soft == 0.0 else "_soft"
+        for tag, mesh in meshes.items():
+            loss, grads = part(f"b_grad{sfx}_{tag}",
+                               lambda: parallel.loss_and_grad_sharded(scene, target, cam, c, key,
+                                                                      mesh),
+                               [k + sfx for k in regen[:3]] + ["bucket"])
+            tensors[f"b{sfx}_{tag}"] = {"loss": loss, **grads}
+    # (d) fit_sharded from dimmed albedo and sky on 1x2, hard.
+    mesh = meshes["1x2"]
+    with torch.no_grad():
+        lin = parallel.gather_tiles(parallel.render_accum_sharded(
+            scene, cam, gcfg.replace(use_pallas=True), tpt.fold_in(key, 999), mesh), gcfg, mesh)
+    fit_target = (lin / gcfg.spp).reshape(gcfg.height, gcfg.width, 3)
+    start = scene.replace(albedo=scene.albedo * ALBEDO_START, sky_lo=scene.sky_lo * SKY_START,
+                          sky_hi=scene.sky_hi * SKY_START)
+    stamps = []
+
+    def stamp(*_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    fitted, losses = part("d_fit_sharded_1x2", lambda: (stamp(), fit_sharded(
+        start, fit_target, cam, gcfg, key, mesh, steps=SHARD_FIT_STEPS, lr=FIT_LR,
+        leaves=("albedo", "sky_lo", "sky_hi"), callback=stamp, device=dev))[1], regen)
+    res["fit"] = {"losses": losses, "step_s": [b - a for a, b in zip(stamps, stamps[1:])],
+                  "albedo_err": [(start.albedo - scene.albedo).abs().mean().item(),
+                                 (fitted.albedo - scene.albedo).abs().mean().item()]}
+    tensors["d_albedo"] = fitted.albedo
+    # Every rank must hold the same results: checksums beside rank 0's tensors.
+    res["checksums"] = {k: float(sum(x.double().sum().item() for x in
+                                     (v.values() if isinstance(v, dict) else [v])))
+                        for k, v in tensors.items()}
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    if rank == 0:
+        torch.save({k: ({n: x.cpu() for n, x in v.items()} if isinstance(v, dict) else v.cpu())
+                    for k, v in tensors.items()}, os.path.join(out, "rank0.pt"))
+
+
+def cosine(a, b):
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return (a @ b / (a.norm() * b.norm() + 1e-300)).item()
+
+
+def phase11_sharded(tpt, dev):
+    """Phase 11: the two-rank job (``shard_rank``), started first; the
+    single process's references meanwhile; the comparisons.  Returns the
+    readings."""
+    from simplepathtracer_tpu_torch import parallel
+
+    # The job starts first: its processes start, import and warm up while
+    # this process renders the references; they wait for them before
+    # their timed parts.
+    tmp = tempfile.TemporaryDirectory(prefix="spt_shard_")
+    job = {}
+
+    def run_job():
+        t_job = time.perf_counter()
+        try:
+            parallel.spawn_local(shard_rank, SHARD_RANKS, (tmp.name,),
+                                 init_method=f"file://{os.path.join(tmp.name, 'store')}",
+                                 backend="gloo", timeout=SHARD_TIMEOUT)
+        except BaseException as e:  # raised below, in this thread
+            job["error"] = e
+        job["s"] = time.perf_counter() - t_job
+
+    thread = threading.Thread(target=run_job)
+    thread.start()
+    preset = tpt.PRESETS["cover_multihost"]
+    scene, cam, cfg = preset.build(0, device=dev)
+    key = tpt.make_key(0)
+    t0 = time.perf_counter()
+    # render()'s image and the sums it forms it from.
+    one = tpt.accumulate(tpt.init_state(cfg, key, device=dev), scene, cam, cfg, cfg.spp)
+    ref, ref_linear = one.image(cfg.gamma), one.accum / float(cfg.spp)
+    st = tpt.accumulate(tpt.init_state(cfg, key, device=dev), scene, cam, cfg, SHARD_HALF)
+    ref_two = tpt.accumulate(st, scene, cam, cfg, cfg.spp - SHARD_HALF).image(cfg.gamma)
+    gcfg = tpt.PRESETS["cover"].config.replace(spp=SHARD_GRAD_SPP)
+    target = shard_target(gcfg, dev)
+    ref_grads = {}
+    for soft in (0.0, DEFAULT_SOFTNESS):
+        c = gcfg.replace(silhouette_softness=soft)
+        params, _ = tpt.split_params(scene)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        loss = tpt.pixel_loss(leaves, scene, target, cam, c, key, device=dev)
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        ref_grads["" if soft == 0.0 else "_soft"] = {"loss": loss.detach(), **dict(zip(leaves, g))}
+    sync(dev)
+    ref_s = time.perf_counter() - t0
+    del st
+    torch.cuda.empty_cache()
+    open(os.path.join(tmp.name, "references_done"), "w").close()
+    print(f"phase11 single-process references ({cfg.width}x{cfg.height}x{cfg.spp}spp render, "
+          f"the same in two chunks of {SHARD_HALF}, pixel_loss gradients at {SHARD_GRAD_SPP} spp "
+          f"hard and soft {DEFAULT_SOFTNESS}): {ref_s:.2f} s")
+
+    thread.join()
+    if "error" in job:
+        raise RuntimeError("phase11: the sharded job failed") from job["error"]
+    job_s = job["s"]
+    ranks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(tmp.name, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+    got = torch.load(os.path.join(tmp.name, "rank0.pt"))
+    tmp.cleanup()
+    if any(r["checksums"] != ranks[0]["checksums"] for r in ranks[1:]):
+        raise RuntimeError("phase11: the ranks do not hold the same results")
+
+    out = {"job_s": job_s, "reference_s": ref_s, "ranks": SHARD_RANKS, "backend": "gloo",
+           "warm_per_rank": [r["warm"] for r in ranks],
+           "parts": {k: {"s": ranks[0]["parts"][k]["s"],
+                         "peak_gb_per_rank": [r["parts"][k]["peak_gb"] for r in ranks],
+                         "launches_per_rank": [r["parts"][k]["launches"] for r in ranks]}
+                     for k in ranks[0]["parts"]},
+           "fit": ranks[0]["fit"]}
+    ref_c, ref_lin = ref.cpu(), ref_linear.cpu().reshape(-1, 3)
+    tol = SHARD_SUM_ROUNDINGS * (cfg.spp - 1) * 2.0 ** -24 * ref_lin
+
+    def linear(x):
+        """Max |d| of the mean radiance, and its largest share of ``tol``."""
+        d = (x - ref_lin).abs()
+        return {"max_abs": d.max().item(),
+                "max_over_tol": (d / tol.clamp_min(1e-30)).max().item()}
+
+    # (a) 2x1 bit for bit; 1x2 to the samples bound on the mean radiance.
+    d21 = (got["a_2x1"] - ref_c).abs().max().item()
+    d12 = linear(got["a_1x2_linear"])
+    # (c) bit for bit the single process's two chunks; within the bound of
+    # (a)'s one pass.
+    dc = (got["c_2x1"] - ref_two.cpu()).abs().max().item()
+    dca = linear(got["c_2x1_linear"])
+    out["render"] = {"max_abs_2x1": d21, "linear_1x2": d12,
+                     "max_abs_gamma_1x2": (got["a_1x2"] - ref_c).abs().max().item(),
+                     "resume_vs_two_chunks": dc, "linear_resume_vs_one_pass": dca,
+                     "max_abs_gamma_resume_vs_one_pass": (got["c_2x1"] - ref_c).abs().max().item()}
+    ok = (d21 == 0.0 and d12["max_over_tol"] <= 1.0 and dc == 0.0
+          and dca["max_over_tol"] <= 1.0)
+    # (b) against the single process's pixel_loss.
+    out["grad"] = {}
+    for sfx, want in ref_grads.items():
+        for t, s_ in SHARD_MESHES:
+            tag = f"{t}x{s_}"
+            g = got[f"b{sfx}_{tag}"]
+            rel = abs(g["loss"].item() - want["loss"].item()) / abs(want["loss"].item())
+            row = {"loss_rel": rel}
+            good = rel <= SHARD_LOSS_RTOL
+            for k, w in want.items():
+                if k == "loss":
+                    continue
+                w = w.cpu()
+                if k in SHARD_SMOOTH:
+                    err = ((g[k] - w).abs() - SHARD_SMOOTH_RTOL * w.abs()).max().item()
+                    row[k] = {"max_abs": (g[k] - w).abs().max().item(),
+                              "max_rel": ((g[k] - w).abs() / w.abs().clamp_min(1e-30)).max().item()}
+                    good = good and err <= 1e-6 * w.abs().max().item()
+                else:
+                    row[k] = {"cosine": cosine(g[k], w)}
+                    if k in SHARD_GEOMETRY:
+                        good = good and row[k]["cosine"] >= SHARD_GEOM_COS
+            out["grad"][f"{tag}{sfx}"] = row
+            ok = ok and good
+    losses = out["fit"]["losses"]
+    ok = ok and len(losses) == SHARD_FIT_STEPS and all(map(math.isfinite, losses))
+    out["ok"] = ok
+    print("phase11 sharded (two ranks share one card over gloo: these times are not a "
+          "multi-GPU scaling figure): " + json.dumps(out))
+    if not ok:
+        raise RuntimeError("phase11: the sharded path disagrees with the single process")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", action="store_true",
@@ -2968,9 +3351,14 @@ def main(argv=None):
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    # torch.optim's first step imports torch._dynamo (seconds of Python):
+    # import it while nvcc builds the kernels.
+    importer = threading.Thread(target=importlib.import_module, args=("torch._dynamo",))
+    importer.start()
     t0 = time.perf_counter()
     lib = load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {lib.build_seconds:.2f} s) -> {lib.path.name}")
+    importer.join()
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("---") or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
@@ -3177,6 +3565,7 @@ def main(argv=None):
         "peak_gb": main7["fit_peak_gb"], "losses": main7["losses"],
         "center_x_err": main7["center_x_err"], "radius_err": main7["radius_err"],
         "launches_per_step": main7["per_step"], "plane_fit": main7["plane_fit"],
+        "sil_fresnel_fit": main7["fresnel_fit"],
         "plane_launches": main7["plane_launches"], "adfd": main7["adfd"],
     }))
 
@@ -3269,6 +3658,10 @@ def main(argv=None):
     cli10 = phase10_cli(tpt, dev, wrappers, seconds)
     phase_done("phase10")
 
+    # ---- phase 11: the sharded path ----------------------------------------
+    sharded11 = phase11_sharded(tpt, dev)
+    phase_done("phase11")
+
     # The bucket at every shape the main paths give it (one launch per chunk
     # of the hard, default and plane fits; the fused scene-leaf step's
     # launches summed; the hits route's launch per bounce) and its key
@@ -3327,6 +3720,12 @@ def main(argv=None):
                 "ptxas_full": ptxas_usage(lib.log, f"regen_kernelILi0ELi{v}EE"),
                 "lane_share": res["lane_share"], "full_ms": res["full_ms"]}
 
+    def fresnel_extra(name, res):
+        """The kernel's time with SIL_FRESNEL on beside its time with it
+        off, where the row has one (the soft backwards)."""
+        t = res.get("fresnel_ms", {}).get(name)
+        return {"sil_fresnel_ms": t} if t else {}
+
     for name, source, replaces in GRAD_KERNELS:
         report["kernels"].append({
             "name": name,
@@ -3366,6 +3765,7 @@ def main(argv=None):
             "launches_over_fit_steps": FIT_STEPS,
             **regen_fwd_extra(name, main7, 1),
             **bucket_extra(name),
+            **fresnel_extra(name, main7),
         })
     for name, source, replaces in SOFT_PLANE_KERNELS:
         report["kernels"].append({
@@ -3386,6 +3786,7 @@ def main(argv=None):
             "launches_over_fit_steps": FIT_STEPS,
             "launches_over_fits": [f["spp_chunk"] for f in plane_fit["fits"]],
             **regen_fwd_extra(name, plane_k, 2),
+            **fresnel_extra(name, plane_k),
         })
     for name, source, replaces in FUSED_KERNELS:
         res = main8c if name.endswith("_soft") else main8b
@@ -3420,6 +3821,7 @@ def main(argv=None):
             "kernel_ms_at_plain_shape": fused_small_ms[name],
             "launches_over_steps": FUSED_STEPS if res is main8b else FIT_STEPS,
             **fwd,
+            **fresnel_extra(name, res),
         })
     explicit = {"bounce_step": (main9b, f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth "
                                         f"{cfg.max_depth}, per launch (render_pixels)"),
@@ -3461,6 +3863,7 @@ def main(argv=None):
           f"{main7['step_s']:.4f}, fit_camera {main8c['step_s']:.4f}, fused scene-leaf "
           f"{main8b['step_s']:.4f}, hits fit {main9c['step_s']:.4f}, plane fit {plane_steps}")
     report["cli"] = cli10
+    report["sharded"] = sharded11
     print(f"smoke seconds: {time.perf_counter() - t_start:.1f} (from the card's first use; "
           f"per phase {phase_s}); wall {time.perf_counter() - _T_IMPORT:.1f} s")
     print(json.dumps(report))

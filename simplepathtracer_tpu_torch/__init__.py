@@ -14,7 +14,9 @@ Entry points that create tensors run on ``cuda`` unless the caller passes
 ``device``.  The command line (``python -m simplepathtracer_tpu_torch.cli``)
 renders and fits presets, with render snapshots (``checkpoint``), fit
 snapshots, a live HTTP preview (``preview``) and JSON-line metrics
-(``metrics``).
+(``metrics``).  ``parallel`` splits renders, gradients and fits
+(``inverse.fit_sharded``) over a (tiles, samples) mesh of processes on
+``torch.distributed``, one device each.
 """
 
 from .types import Camera, Material, RenderConfig, RenderState, Scene, make_camera

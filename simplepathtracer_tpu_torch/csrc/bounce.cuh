@@ -88,6 +88,27 @@ struct Bounce {
   float sw, capped, t_raw;
 };
 
+// The dielectric's Schlick terms from eta and cos_t: total internal
+// reflection, r0 = ((1 - eta) / (1 + eta))^2 and reflect_prob = r0 +
+// (1 - r0) (1 - cos_t)^5 with its intermediates (the forward and the
+// SIL_FRESNEL adjoint compute them alike).
+struct Schlick {
+  bool cannot;
+  float r0s, r0, omc, omc2, refl_p;
+};
+
+__device__ __forceinline__ Schlick schlick(float eta, float cos_t) {
+  Schlick s;
+  const float sin2 = fmaxf(1.0f - cos_t * cos_t, 0.0f);
+  s.cannot = eta * eta * sin2 > 1.0f;
+  s.r0s = (1.0f - eta) / (1.0f + eta);
+  s.r0 = s.r0s * s.r0s;
+  s.omc = 1.0f - cos_t;
+  s.omc2 = s.omc * s.omc;
+  s.refl_p = s.r0 + (1.0f - s.r0) * s.omc2 * s.omc2 * s.omc;
+  return s;
+}
+
 __device__ __forceinline__ void normalize_or(const float* v, const float* nf,
                                              float& n2, float& mx, float& inv,
                                              bool& deg, float* out) {
@@ -212,14 +233,8 @@ __device__ void bounce_forward(Bounce& f, const float* sky, float t_min,
     scattered = dot3(f.sd, f.nf) > 0.0f;
   } else if (f.is_diel) {
     f.eta = f.front ? 1.0f / f.io : f.io;
-    const float sin2 = fmaxf(1.0f - f.cos_t * f.cos_t, 0.0f);
-    const bool cannot = f.eta * f.eta * sin2 > 1.0f;
-    const float r0s = (1.0f - f.eta) / (1.0f + f.eta);
-    const float r0 = r0s * r0s;
-    const float omc = 1.0f - f.cos_t;
-    const float omc2 = omc * omc;
-    const float refl_p = r0 + (1.0f - r0) * omc2 * omc2 * omc;
-    f.do_refl = cannot || f.u[5] < refl_p;
+    const Schlick sc = schlick(f.eta, f.cos_t);
+    f.do_refl = sc.cannot || f.u[5] < sc.refl_p;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       f.inner[c] = f.d[c] + f.cos_t * f.nf[c];
@@ -288,10 +303,37 @@ __device__ __forceinline__ float sign_of(float x) {
 }
 
 // Soft constants: f32(softness), f32(softness * 8) (the silhouette
-// scale's factor), f32(softness * 0.1) (the validity scale).
+// scale's factor), f32(softness * 0.1) (the validity scale), and 1 where
+// the detached Schlick-coin ratio (intersect.SIL_FRESNEL) is on, else 0.
 struct SoftK {
-  float soft, sil_c, sigv;
+  float soft, sil_c, sigv, fresnel;
 };
+
+// Cotangents of (cos_t, eta) through a dielectric hit's attenuation
+// p / stop_grad(p), p = max(p_evt, floor), p_evt = reflect_prob on a
+// reflection (1 under total internal reflection), else 1 - reflect_prob,
+// from its cotangent g_att (ops/bounce.py:_fresnel_adjoint).
+__device__ __forceinline__ void fresnel_adjoint(const Bounce& f, float g_att,
+                                                float& g_cos, float& g_eta) {
+  const Schlick sc = schlick(f.eta, f.cos_t);
+  const float pevt = f.do_refl ? (sc.cannot ? 1.0f : sc.refl_p) : 1.0f - sc.refl_p;
+  const float pf = fmaxf(pevt, kPFloor);
+  const float g_pevt = (g_att / pf) * wmax(pevt, kPFloor);
+  const float g_rp = f.do_refl ? (sc.cannot ? 0.0f : g_pevt) : -g_pevt;
+  const float omr0 = 1.0f - sc.r0;
+  const float a1 = omr0 * sc.omc2;
+  const float a2 = a1 * sc.omc2;
+  const float g_a2 = g_rp * sc.omc;
+  float g_omc = g_rp * a2;
+  const float g_a1 = g_a2 * sc.omc2;
+  const float g_omc2 = g_a2 * a1 + g_a1 * omr0;
+  const float g_r0 = g_rp - g_a1 * sc.omc2;
+  g_omc = g_omc + 2.0f * (g_omc2 * sc.omc);
+  const float g_r0s = 2.0f * (g_r0 * sc.r0s);
+  const float den = 1.0f + f.eta;
+  g_eta = -(g_r0s / den) + ((-g_r0s) * (1.0f - f.eta)) * (1.0f / (den * den));
+  g_cos = -g_omc;
+}
 
 // Cotangent of r through silhouette_scale = ((r r) c) / (R0 + |r|).
 __device__ __forceinline__ float scale_adj(float g, float r, const SoftK& k) {
@@ -573,12 +615,12 @@ __device__ void bounce_adjoint(const Bounce& f, bool rr_on,
   }
 
   // Throughput and attenuation.
-  float g_alb[3], g_sd[3], g_p[3];
+  float g_alb[3], g_sd[3], g_p[3], g_at[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     g_tp[c] = f.surv0 ? g_nt[c] * f.at[c] : g_nt[c];
-    const float g_at = f.surv0 ? g_nt[c] * f.tp[c] : 0.0f;
-    g_alb[c] = f.is_diel ? 0.0f : g_at;
+    g_at[c] = f.surv0 ? g_nt[c] * f.tp[c] : 0.0f;
+    g_alb[c] = f.is_diel ? 0.0f : g_at[c];
     g_sky[c] = 0.0f;
     g_sky[c + 3] = 0.0f;
     g_o[c] = 0.0f;
@@ -647,6 +689,15 @@ __device__ void bounce_adjoint(const Bounce& f, bool rr_on,
       for (int c = 0; c < 3; ++c) {
         g_nf[c] = -(g_g[c] * f.par) + g_in[c] * f.cos_t;
         g_d[c] = g_d[c] + g_in[c];
+      }
+    }
+    if constexpr (V != kHard) {
+      if (k.fresnel != 0.0f) {
+        // SIL_FRESNEL: the Schlick-coin ratio, shared by the three channels.
+        float g_cos_f, g_eta_f;
+        fresnel_adjoint(f, (g_at[0] + g_at[1]) + g_at[2], g_cos_f, g_eta_f);
+        g_dnf = g_dnf + (-(g_cos_f * wmin(-f.dnf, 1.0f)));
+        g_io = g_io + (f.front ? (-g_eta_f) * (1.0f / (f.io * f.io)) : g_eta_f);
       }
     }
   } else {

@@ -94,7 +94,7 @@ constexpr int kRingRay = 0, kRingIdx = 1, kRingBidx = 2, kRingPix = 3,
 // Shared memory of the backward's rings (every warp's).
 constexpr size_t kRingBytes = (kThreads / 32) * (kRingF + kRingI) * kQueue * 4;
 
-// consts: sky lo/hi 0:6, soft constants 6:9 (SoftK; zeros when hard).
+// consts: sky lo/hi 0:6, soft constants 6:10 (SoftK; zeros when hard).
 struct FusedConsts {
   float sky[6];
   SoftK soft;
@@ -107,6 +107,7 @@ __device__ __forceinline__ void load_fused_consts(const float* __restrict__ src,
   k.soft.soft = src[6];
   k.soft.sil_c = src[7];
   k.soft.sigv = src[8];
+  k.soft.fresnel = src[9];
 }
 
 // The winner's attributes, for a sphere index or a miss (no plane codes on

@@ -136,7 +136,7 @@ struct Consts {
 };
 
 // consts: sky lo/hi 0:6, plane 6:13 (normal, offset, albedo), camera 13:32,
-// soft constants 32:35 (SoftK; zeros when hard).
+// soft constants 32:36 (SoftK; zeros when hard).
 __device__ __forceinline__ void load_consts(const float* __restrict__ src,
                                             Consts& k) {
 #pragma unroll
@@ -148,6 +148,7 @@ __device__ __forceinline__ void load_consts(const float* __restrict__ src,
   k.soft.soft = src[32];
   k.soft.sil_c = src[33];
   k.soft.sigv = src[34];
+  k.soft.fresnel = src[35];
 }
 
 __device__ __forceinline__ uint32_t lane_pixel(const int* __restrict__ ids,

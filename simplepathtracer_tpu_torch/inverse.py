@@ -20,6 +20,7 @@ differentiable ray generation.
 (``balance``, ``render.balanced_pixel_perm``), the gradient-accumulated
 estimator (``grad_accum``, ``make_accum_grad_step``) and snapshots of the
 fit's state (``snapshot_path``; the port's own file format).
+``fit_sharded`` runs the fit over a ``parallel`` mesh of processes.
 """
 
 from __future__ import annotations
@@ -280,6 +281,22 @@ def _load_fit_state(path, params, opt):
     return step, losses
 
 
+def _masked_step(opt, params, param_mask, scene_init):
+    """One optimizer step on ``params``' gradients; ``param_mask`` ({leaf:
+    0/1 tensor}) zeroes the frozen entries' gradients first and holds
+    their values at ``scene_init``'s after."""
+    with torch.no_grad():
+        if param_mask is not None:
+            for k, m in param_mask.items():
+                if k in params and params[k].grad is not None:
+                    params[k].grad.mul_(m)
+        opt.step()
+        if param_mask is not None:
+            for k, m in param_mask.items():
+                if k in params:
+                    params[k].copy_(torch.where(m > 0, params[k], getattr(scene_init, k)))
+
+
 def fit(
     scene_init: Scene,
     target,
@@ -361,16 +378,7 @@ def fit(
             loss = loss_fn(params, static_scene, target, camera, config,
                            fold_in(key, i), leaves, pixel_perm=pixel_perm, device=dev)
             loss.backward()
-        with torch.no_grad():
-            if param_mask is not None:
-                for k, m in param_mask.items():
-                    if k in params and params[k].grad is not None:
-                        params[k].grad.mul_(m)
-            opt.step()
-            if param_mask is not None:
-                for k, m in param_mask.items():
-                    if k in params:
-                        params[k].copy_(torch.where(m > 0, params[k], getattr(scene_init, k)))
+        _masked_step(opt, params, param_mask, scene_init)
         losses.append(loss.item())
         if callback is not None:
             callback(i, losses[-1], params)
@@ -378,6 +386,66 @@ def fit(
             _save_fit_state(snapshot_path, params, opt, i + 1, losses)
     final = {k: v.detach() for k, v in params.items()}
     return merge_params(final, static_scene), losses
+
+
+def fit_sharded(
+    scene_init: Scene,
+    target,
+    camera: Camera,
+    config: RenderConfig,
+    key,
+    mesh,
+    steps: int = 100,
+    lr: float = 1e-2,
+    leaves=DIFF_LEAVES,
+    callback=None,
+    param_mask=None,
+    snapshot_path=None,
+    snapshot_every: int = 0,
+    device=None,
+):
+    """Adam fit over a ``parallel`` mesh: the distributed training loop.
+
+    Each step runs ``parallel.loss_and_grad_sharded`` (the sharded render,
+    its pullback on every rank, the gradients summed over the mesh) with
+    the key ``fold_in(key, i)``, then the same Adam update on every rank
+    (``torch.optim.Adam``, as ``fit``).  The loss and gradients are the
+    same on every rank, so every rank holds the same leaves and optimizer
+    state.  As in the JAX package there is no ``softness`` argument: the
+    config's ``silhouette_softness`` rules.  ``param_mask`` works as in
+    ``fit``.  Snapshots are ``fit``'s format, written by rank 0 alone (the
+    state is replicated; two writers of one path could collide on the
+    temporary file); every rank resumes from the same path.  Returns
+    (scene, losses).  ``device`` as in ``pixel_loss``; the scene and
+    target lie there on every rank.
+    """
+    import torch.distributed as dist
+
+    from .parallel.sharding import loss_and_grad_sharded
+
+    dev = resolve_device(device)
+    _check_device(dev, scene_init.centers, target)
+    config = grad_safe_config(config, dev)
+    params, opt = init(scene_init, lr, leaves)
+    losses, start = [], 0
+    if snapshot_path and os.path.exists(snapshot_path):
+        start, losses = _load_fit_state(snapshot_path, params, opt)
+    for i in range(start, steps):
+        opt.zero_grad(set_to_none=True)
+        scene = merge_params({k: v.detach() for k, v in params.items()}, scene_init)
+        loss, grads = loss_and_grad_sharded(scene, target, camera, config, fold_in(key, i),
+                                            mesh)
+        for k, p in params.items():
+            p.grad = grads[k]
+        _masked_step(opt, params, param_mask, scene_init)
+        losses.append(loss.item())
+        if callback is not None:
+            callback(i, losses[-1], params)
+        if (snapshot_path and snapshot_every and (i + 1) % snapshot_every == 0
+                and dist.get_rank() == 0):
+            _save_fit_state(snapshot_path, params, opt, i + 1, losses)
+    final = {k: v.detach() for k, v in params.items()}
+    return merge_params(final, scene_init), losses
 
 
 # Camera leaves fitted by ``fit_camera``: pose and field of view.  vup stays

@@ -65,7 +65,7 @@ def _dot(a, b):
 
 def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
              rr_on, plane_mask, softness=0.0, blocker=None, plane4=None,
-             cross_loser=None):
+             cross_loser=None, fresnel=False):
     """The forward with every intermediate the adjoint reads."""
     f = SimpleNamespace()
     ox, oy, oz = o3
@@ -162,11 +162,11 @@ def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
     f.eta = torch.where(front, 1.0 / io, io)
     f.io = io
     sin2 = torch.maximum(1.0 - f.cos_t * f.cos_t, _c(zm, 0.0))
-    cannot = f.eta * f.eta * sin2 > 1.0
-    r0s = (1.0 - f.eta) / (1.0 + f.eta)
-    r0 = r0s * r0s
-    omc = 1.0 - f.cos_t
-    omc2 = omc * omc
+    f.cannot = cannot = f.eta * f.eta * sin2 > 1.0
+    f.r0s = r0s = (1.0 - f.eta) / (1.0 + f.eta)
+    f.r0 = r0 = r0s * r0s
+    f.omc = omc = 1.0 - f.cos_t
+    f.omc2 = omc2 = omc * omc
     refl_p = r0 + (1.0 - r0) * omc2 * omc2 * omc
     f.do_refl = cannot | (u[5] < refl_p)
     f.inner = tuple(di + f.cos_t * ni for di, ni in zip(d3, nf))
@@ -185,8 +185,16 @@ def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
     f.is_diel = mat == int(Material.DIELECTRIC)
     sd = tuple(torch.where(f.is_diel, c, torch.where(f.is_metal, b, a))
                for a, b, c in zip(lam, met, die))
-    one_t = torch.ones_like(ar)
-    f.at = tuple(torch.where(f.is_diel, one_t, a) for a in (ar, ag, ab))
+    diel_at = torch.ones_like(ar)
+    f.fresnel = fresnel
+    if fresnel:
+        # Detached Schlick-coin ratio p / stop_grad(p) == 1 on dielectric
+        # lanes: p = max(p_evt, SIL_P_FLOOR), p_evt the realized branch's
+        # probability (1 under total internal reflection).
+        f.pevt = torch.where(f.do_refl, torch.where(cannot, 1.0, refl_p), 1.0 - refl_p)
+        f.pf = torch.maximum(f.pevt, _c(zm, SIL_P_FLOOR))
+        diel_at = f.pf / f.pf.detach()
+    f.at = tuple(torch.where(f.is_diel, diel_at, a) for a in (ar, ag, ab))
     scattered = metal_ok | ~f.is_metal
 
     # Sky miss shader.
@@ -335,7 +343,7 @@ def _soft_forward(f, hit, alive, softness, blocker, plane4, cross_loser,
 def bounce_tile(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, *,
                 t_min: float, t_max: float, rr_on: bool, plane_mask=None,
                 softness: float = 0.0, blocker=None, plane4=None,
-                cross_loser=None):
+                cross_loser=None, fresnel: bool = False):
     """One differentiable bounce.  Returns (o'3, d'3, tp'3, rad3, surv_f):
     next origin, direction and throughput, this bounce's radiance (sky on a
     live miss) and 1.0 where the path goes on.
@@ -347,10 +355,15 @@ def bounce_tile(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, *,
     ``plane4`` = (unit normal x, y, z, offset k; the offset differentiable)
     and ``cross_loser`` = the lanes whose blocker is the sphere that lost
     the plane crossing coin (the others' blockers are rejected front
-    spheres)."""
+    spheres).
+
+    ``fresnel`` (soft configs with ``intersect.SIL_FRESNEL`` on): a
+    dielectric hit's attenuation is the detached Schlick-coin ratio
+    p / stop_grad(p) (the JAX package's ``scatter_tiles(fresnel_score=)``),
+    1 in value, whose gradient is the realized coin outcome's score."""
     return _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
                     t_min, t_max, rr_on, plane_mask, softness, blocker,
-                    plane4, cross_loser)[1]
+                    plane4, cross_loser, fresnel)[1]
 
 
 def _wmax(a, b):
@@ -402,6 +415,29 @@ def _xscale_adj(g, r, softness):
     g_num = g / den
     g_den = ((-g) * num) * (1.0 / (den * den))
     return ((g_num * _f32(_SIL_R0)) * _f32(softness) + g_den) * torch.sign(r)
+
+
+def _fresnel_adjoint(f, g_att):
+    """Cotangents of (cos_t, eta) through the dielectric attenuation
+    p / stop_grad(p) from its cotangent ``g_att``: p = max(p_evt, floor),
+    p_evt = reflect_prob on a reflection (1 under total internal
+    reflection) or 1 - reflect_prob on a refraction, reflect_prob =
+    r0 + (1 - r0) (1 - cos_t)^5, r0 = ((1 - eta) / (1 + eta))^2."""
+    g_pevt = (g_att / f.pf) * _wmax(f.pevt, f.pevt.new_tensor(SIL_P_FLOOR))
+    g_rp = torch.where(f.do_refl, torch.where(f.cannot, 0.0, g_pevt), -g_pevt)
+    omr0 = 1.0 - f.r0
+    a1 = omr0 * f.omc2
+    a2 = a1 * f.omc2
+    g_a2 = g_rp * f.omc
+    g_omc = g_rp * a2
+    g_a1 = g_a2 * f.omc2
+    g_omc2 = g_a2 * a1 + g_a1 * omr0
+    g_r0 = g_rp - g_a1 * f.omc2
+    g_omc = g_omc + 2.0 * (g_omc2 * f.omc)
+    g_r0s = 2.0 * (g_r0 * f.r0s)
+    den = 1.0 + f.eta
+    g_eta = -(g_r0s / den) + ((-g_r0s) * (1.0 - f.eta)) * (1.0 / (den * den))
+    return -g_omc, g_eta
 
 
 def _soft_adjoint(f, g_srat, t_min):
@@ -500,7 +536,7 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
                         ct_o3, ct_d3, ct_tp3, ct_rad3, *, t_min: float,
                         t_max: float, rr_on: bool, plane_mask=None,
                         softness: float = 0.0, blocker=None, plane4=None,
-                        cross_loser=None) -> BounceCotangents:
+                        cross_loser=None, fresnel: bool = False) -> BounceCotangents:
     """Hand-written reverse pass of ``bounce_tile``: the cotangents of
     (o3, d3, tp3, a9, sky6) and, under soft silhouettes, of the blocker's
     attributes and the plane offset, from those of (o'3, d'3, tp'3, rad3).
@@ -508,7 +544,7 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
     Dead lanes (``alive`` False) pass the carried cotangents through."""
     f, _ = _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
                     t_min, t_max, rr_on, plane_mask, softness, blocker,
-                    plane4, cross_loser)
+                    plane4, cross_loser, fresnel)
     zero = torch.zeros_like(f.r)
 
     # Russian roulette: nt2 = boost ? nt / q : nt, q = clip(max3(nt)).
@@ -601,6 +637,13 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
         g_rf[c] = g_rf[c] + _sel(refl, g_g[c])
         g_nf[c] = g_nf[c] + _sel(refr, -(g_g[c] * f.par) + g_in[c] * f.cos_t)
         g_d[c] = g_d[c] + _sel(refr, g_in[c])
+    if f.fresnel:
+        # The Schlick-coin ratio on every dielectric hit (its three channels
+        # share it).
+        g_cos, g_eta = _fresnel_adjoint(f, (g_at[0] + g_at[1]) + g_at[2])
+        g_dnf = g_dnf + _sel(f.is_diel, -(g_cos * _wmin(-f.dnf, f.dnf.new_tensor(1.0))))
+        g_io = g_io + _sel(f.is_diel, torch.where(
+            f.front, (-g_eta) * (1.0 / (f.io * f.io)), g_eta))
 
     # Mirror direction rf = d - two_dn * nf, two_dn = 2 (d . nf).
     g_two_dn = -_dot(g_rf, nf)

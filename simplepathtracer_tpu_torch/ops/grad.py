@@ -52,6 +52,7 @@ from .grad_regen import (
     _scan_soft,
     _scan_winner,
     _winner,
+    fresnel_on,
     scene_block,
     scene_inputs,
 )
@@ -69,7 +70,7 @@ _VARIANTS = {"hard": 0, "soft": 1}
 
 class FusedCall(NamedTuple):
     """What a fused kernel launch reads besides the rays: the [S_pad, 10]
-    sphere table, the f32[9] constants (sky 0:6, soft constants 6:9; see
+    sphere table, the f32[10] constants (sky 0:6, soft constants 6:10; see
     ``grad_regen.scene_block``), the soft scan's [S_pad, 4] table (soft
     only), the key words and the static options.  ``use_plane`` is always
     False (the route is sphere-only); the plain scan helpers of
@@ -92,11 +93,11 @@ class FusedCall(NamedTuple):
 def fused_call(tables, sky6, k0, k1, *, max_depth, t_min=1e-3, t_max=3.0e7,
                rr_start_depth=0, softness=0.0) -> FusedCall:
     """A ``FusedCall`` from the 11 sphere tables, sky f32[6] and the key
-    words (values only).  Raises for ``SIL_FRESNEL`` under soft
-    silhouettes, as the regeneration route does."""
-    tab, sky, soft3, soft_tab = scene_block(tables, sky6, softness)
+    words (values only).  Under soft silhouettes the constants carry
+    ``intersect.SIL_FRESNEL`` as ``grad_regen.scene_block`` reads it."""
+    tab, sky, soft4, soft_tab = scene_block(tables, sky6, softness)
     return FusedCall(
-        tab=tab, consts=torch.cat([sky, soft3]).contiguous(), soft_tab=soft_tab,
+        tab=tab, consts=torch.cat([sky, soft4]).contiguous(), soft_tab=soft_tab,
         k0=int(k0), k1=int(k1), n_spheres=tables[0].shape[0],
         max_depth=int(max_depth), t_min=float(t_min), t_max=float(t_max),
         rr_start_depth=int(rr_start_depth), softness=float(softness),
@@ -130,8 +131,8 @@ def _check_cuda(call: FusedCall, n: int, *tensors):
     per_sphere = _SMEM_PER_SPHERE + (_SMEM_SOFT_PER_SPHERE if call.softness > 0.0 else 0)
     if s_pad == 0 or s_pad * per_sphere > _MAX_SMEM or call.tab.shape[1] != 10:
         raise ValueError(f"a [{s_pad}, 10] table does not fit a block's shared memory")
-    if call.consts.shape != (9,):
-        raise ValueError("consts must be f32[9]")
+    if call.consts.shape != (10,):
+        raise ValueError("consts must be f32[10]")
     if (call.softness > 0.0) != (call.soft_tab is not None):
         raise ValueError("soft_tab must be given exactly when softness > 0")
 
@@ -289,7 +290,8 @@ def _bounce_kwargs(call, bidx):
     if call.softness <= 0.0:
         return {}
     b = bidx.to(torch.int64)
-    return dict(softness=call.softness, blocker=(b >= 0, *_blocker(call, b)))
+    return dict(softness=call.softness, blocker=(b >= 0, *_blocker(call, b)),
+                fresnel=fresnel_on(call))
 
 
 def grad_fwd_reference(call: FusedCall, state, rad, prev, pix, samp, bounce: int):

@@ -143,9 +143,8 @@ def _n_planes(call):
 class RegenCall(NamedTuple):
     """What one launch of the regen kernels reads, besides the sample
     offset: pixel ids, the [S_pad, 10] sphere table (cx cy cz r albedo rgb
-    fuzz ior material), the f32[35] constants (sky 0:6, plane 6:13, camera
-    13:32; softness, softness x 8 and softness x 0.1 at 32:35, each rounded
-    to float32 once), the key words and the static shape of the lane
+    fuzz ior material), the f32[36] constants (sky 0:6, plane 6:13, camera
+    13:32; the soft constants of ``scene_block`` at 32:36), the key words and the static shape of the lane
     layout.  Under soft silhouettes (``softness`` > 0) also the soft scan's
     [S_pad, 4] table ``soft_tab`` (the JAX package's ``soft_scan_tables``:
     silhouette scale, 1 / r^2, validity scale, -30 x validity scale),
@@ -176,28 +175,27 @@ class RegenCall(NamedTuple):
 def scene_block(tables, sky6, softness=0.0):
     """What the gradient kernels read of the scene, values only: the
     [S_pad, 10] table (``closest_hit.sphere_table``), the sky and the soft
-    constants (f32[6] and f32[3]: softness, softness x 8 and softness x 0.1,
-    each rounded to float32
-    once, as the plain versions round them) and, under soft silhouettes,
-    the soft scan's [S_pad, 4] table (the JAX package's
-    ``soft_scan_tables``: silhouette scale, 1 / r^2, validity scale, -30 x
-    validity scale), computed once here so the kernels and their plain
-    versions read the same thresholds.  Raises for ``SIL_FRESNEL``, which
-    the kernels do not port."""
+    constants (f32[6] and f32[4]: softness, softness x 8 and softness x 0.1,
+    each rounded to float32 once, as the plain versions round them, and the
+    ``SIL_FRESNEL`` flag, 1.0 or 0.0) and, under soft silhouettes, the soft
+    scan's [S_pad, 4] table (the JAX package's ``soft_scan_tables``:
+    silhouette scale, 1 / r^2, validity scale, -30 x validity scale),
+    computed once here so the kernels and their plain versions read the
+    same thresholds.
+
+    The flag is ``intersect.SIL_FRESNEL``, read here, when the call is
+    built (the JAX package reads it when it traces the kernel), and holds
+    only under soft silhouettes: the backward then adds the detached
+    Schlick-coin ratio's score (``ops/bounce.py:_fresnel_adjoint``); no
+    forward value changes."""
     f32 = torch.float32
     softness = float(softness)
-    if softness > 0.0 and intersect.SIL_FRESNEL:
-        raise NotImplementedError(
-            "intersect.SIL_FRESNEL=True: the detached Schlick-coin ratio is "
-            "not ported to the gradient kernels (ROADMAP queue A: SIL_FRESNEL in "
-            "the gradient kernels); "
-            "the eager route (use_pallas_grad=False) honours it"
-        )
+    fresnel = softness > 0.0 and bool(intersect.SIL_FRESNEL)
     tab = sphere_table(tables)
     with torch.no_grad():
-        soft3 = tab.new_tensor([
+        soft4 = tab.new_tensor([
             _f32(softness), _f32(softness * intersect._SIL_R0),
-            _f32(softness * intersect._SIG_V0),
+            _f32(softness * intersect._SIG_V0), 1.0 if fresnel else 0.0,
         ])
         soft_tab = None
         if softness > 0.0:
@@ -209,7 +207,13 @@ def scene_block(tables, sky6, softness=0.0):
                 [intersect.silhouette_scale(softness, r), 1.0 / (r * r), sigv, -30.0 * sigv],
                 dim=1,
             ).contiguous()
-    return tab, sky6.detach().to(f32), soft3, soft_tab
+    return tab, sky6.detach().to(f32), soft4, soft_tab
+
+
+def fresnel_on(call) -> bool:
+    """Whether a regen or fused call's constants turn ``SIL_FRESNEL`` on
+    (their last entry, set by ``scene_block``)."""
+    return bool(call.consts[-1] > 0.0)
 
 
 def regen_call(tables, sky6, plane7, cam19, key, pixel_ids, *, n_samples,
@@ -221,11 +225,11 @@ def regen_call(tables, sky6, plane7, cam19, key, pixel_ids, *, n_samples,
     differentiated)."""
     f32 = torch.float32
     softness = float(softness)
-    tab, sky, soft3, soft_tab = scene_block(tables, sky6, softness)
+    tab, sky, soft4, soft_tab = scene_block(tables, sky6, softness)
     with torch.no_grad():
         plane = (plane7.detach() if plane7 is not None
                  else torch.zeros(7, dtype=f32, device=tab.device))
-        consts = torch.cat([sky, plane.to(f32), cam19.detach().to(f32), soft3]).contiguous()
+        consts = torch.cat([sky, plane.to(f32), cam19.detach().to(f32), soft4]).contiguous()
     p = pixel_ids.shape[0]
     nb, n_lanes = bank_geometry(p, n_banks)
     budget = nb * int(n_samples) * int(max_depth)
@@ -284,8 +288,8 @@ def _check_cuda(call: RegenCall, *tensors):
             f"{s_pad} sphere slots exceed the {IDX_PACK_MAX_SPHERES} the "
             "10-bit winner code holds"
         )
-    if call.consts.shape != (35,) or call.tab.shape[1] != 10:
-        raise ValueError("consts must be f32[35] and the table [S, 10]")
+    if call.consts.shape != (36,) or call.tab.shape[1] != 10:
+        raise ValueError("consts must be f32[36] and the table [S, 10]")
     if not 0 < call.max_depth <= 30 or call.n_samples < 1:
         raise ValueError("need 0 < max_depth <= 30 and n_samples >= 1")
 
@@ -624,6 +628,7 @@ def _replay(call: RegenCall, sample_offset, mode: str, packed_in=None):
     plane4 = None
     if call.use_plane:
         plane4 = tuple(call.consts[6 + j] for j in range(4))
+    fresnel = fresnel_on(call)
     soff = int(sample_offset)
     for it in range(b_total):
         regen = ~alive & (kb < nb)
@@ -693,7 +698,8 @@ def _replay(call: RegenCall, sample_offset, mode: str, packed_in=None):
         pm = is_plane(idx) if call.use_plane else None
         kw = {}
         if soft:
-            kw = dict(softness=call.softness, blocker=(bidx >= 0, *blk4))
+            kw = dict(softness=call.softness, blocker=(bidx >= 0, *blk4),
+                      fresnel=fresnel)
             if call.use_plane:
                 kw.update(plane4=plane4, cross_loser=idx == PLANE_CROSS_IDX)
         o, d, tp, rad3, surv_f = bounce_tile(
@@ -762,6 +768,7 @@ def regen_bwd_reference(call: RegenCall, sample_offset, resf, resi, ct_rad):
     sky_part, pl_part = (zero,) * 6, (zero,) * 4
     ct_planes = torch.zeros((_n_planes(call)[2], b_total, n), dtype=f32, device=dev)
     plane4 = tuple(call.consts[6 + j] for j in range(4)) if call.use_plane else None
+    fresnel = fresnel_on(call)
     soff = int(sample_offset)
     for it in range(b_total - 1, -1, -1):
         alive = resf[9, it] > 0.0
@@ -778,7 +785,8 @@ def regen_bwd_reference(call: RegenCall, sample_offset, resf, resi, ct_rad):
         if soft:
             bval = resi[_I_BLK, it] >= 0
             kw = dict(softness=call.softness,
-                      blocker=(bval, *(resf[_F_BLK + j, it] for j in range(4))))
+                      blocker=(bval, *(resf[_F_BLK + j, it] for j in range(4))),
+                      fresnel=fresnel)
             if call.use_plane:
                 kw.update(plane4=plane4, cross_loser=idx == PLANE_CROSS_IDX)
         ctr = tuple(ctb[kb, lanes, c] for c in range(3))

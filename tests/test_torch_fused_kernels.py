@@ -100,7 +100,14 @@ def _flat(x, n):
 
 @pytest.fixture(scope="module", params=list(CASES))
 def case(request):
-    sname, w, h, spp, depth, rr, soft = CASES[request.param]
+    return build_case(request.param)
+
+
+def build_case(name):
+    """Both packages' forward and backward of the case ``name`` (the JAX
+    kernels in interpret mode, the port's plain versions) on the same rays;
+    the ``SIL_FRESNEL`` switches are read as they stand."""
+    sname, w, h, spp, depth, rr, soft = CASES[name]
     scene, cam = _scene(sname)
     p = w * h
     pids = np.tile(np.arange(p, dtype=np.int32), spp)
@@ -161,12 +168,28 @@ def case(request):
                            silhouette_softness=soft)
     out = fg.trace_rays_fused(og, dg, keys, scene_t, cfg)
     grads = torch.autograd.grad(out, [og, dg, *params.values()], torch.as_tensor(ct))
-    return dict(name=request.param, n=n, soft=soft, depth=depth, call=call, keep=keep,
+    return dict(name=name, n=n, soft=soft, depth=depth, call=call, keep=keep,
                 j_res=j_res, j_rad=j_rad, t_res=t_res, rad=rad.T.numpy(), out=out.detach(),
-                j_bwd=j_bwd, grads=grads, params=list(params), spp=spp)
+                j_bwd=j_bwd, grads=grads, params=list(params), spp=spp,
+                port_inputs=(origins, dirs, keys, ts, cfg, torch.as_tensor(ct)))
+
+
+def port_grads(case):
+    """The port's fused trace of ``case``'s rays again: (radiance, the
+    gradients of the rays' origins and directions and of the scene's
+    leaves), as ``build_case`` takes them."""
+    origins, dirs, keys, ts, cfg, ct = case["port_inputs"]
+    params = {k: v.clone().requires_grad_(True) for k, v in tpt.split_params(ts)[0].items()}
+    og, dg = origins.clone().requires_grad_(True), dirs.clone().requires_grad_(True)
+    out = fg.trace_rays_fused(og, dg, keys, ts.replace(**params), cfg)
+    return out.detach(), torch.autograd.grad(out, [og, dg, *params.values()], ct)
 
 
 def test_fused_forward_matches_jax(case):
+    check_forward(case)
+
+
+def check_forward(case):
     keep, j, n = case["keep"], case["j_res"], case["n"]
     assert (~keep).mean() <= MAX_DIVERGED, np.nonzero(~keep)
     call = case["call"]
@@ -198,6 +221,10 @@ def _rel_l2(got, want):
 
 
 def test_fused_backward_matches_jax(case):
+    check_backward(case)
+
+
+def check_backward(case):
     n, keep = case["n"], case["keep"]
     j = case["j_bwd"]
     g_o, g_d, *g_leaves = (g.numpy() for g in case["grads"])

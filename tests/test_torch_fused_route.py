@@ -13,8 +13,7 @@ through the plain versions' call counters on the CPU:
 * a camera leaf that requires a gradient without ``camera_grad`` makes
   the chunks rematerialize wherever the route differentiates through the
   camera (the eager route), and not where it detaches it (the regeneration
-  kernels, the fused route's raygen);
-* ``SIL_FRESNEL`` raises on the fused route as on the regeneration route.
+  kernels, the fused route's raygen).
 """
 
 import importlib
@@ -24,7 +23,7 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
-from simplepathtracer_tpu_torch.ops import bucket, grad as fg, grad_regen, intersect
+from simplepathtracer_tpu_torch.ops import bucket, grad as fg, grad_regen
 from simplepathtracer_tpu_torch.ops.sampling import ray_keys
 
 port_render = importlib.import_module("simplepathtracer_tpu_torch.render")
@@ -153,15 +152,6 @@ def test_camera_leaf_remat_follows_the_route(route, remat, monkeypatch):
     if remat:
         (g,) = torch.autograd.grad(rad.sum(), [cam.origin])
         assert torch.isfinite(g).all() and g.abs().max() > 0
-
-
-def test_sil_fresnel_raises_on_the_fused_route(monkeypatch):
-    scene, cam, cfg, target = _setup(silhouette_softness=0.05)
-    monkeypatch.setattr(intersect, "SIL_FRESNEL", True)
-    loss, _ = _camera_grads(scene, cam, cfg, target)
-    assert torch.isfinite(loss)
-    with pytest.raises(NotImplementedError, match="SIL_FRESNEL"):
-        _camera_grads(scene, cam, cfg.replace(use_pallas_grad=True), target)
 
 
 def test_fused_wrappers_refuse_other_devices():

@@ -180,22 +180,6 @@ def test_soft_silhouette_paths_run(path):
         assert torch.isfinite(loss) and torch.isfinite(g).all() and g.abs().max() > 0
 
 
-def test_sil_fresnel_raises_on_the_kernel_route(monkeypatch):
-    """The detached Schlick-coin ratio (``SIL_FRESNEL``, off by default) is
-    honoured by the eager route and not ported to the kernels: there it
-    raises instead of being ignored."""
-    scene, cam, cfg, target = _tiny()
-    cfg = cfg.replace(silhouette_softness=0.05)
-    monkeypatch.setattr(intersect, "SIL_FRESNEL", True)
-    params = tpt.split_params(scene)[0]
-    assert torch.isfinite(tpt.pixel_loss(params, scene, target, cam, cfg, tpt.make_key(0),
-                                         device="cpu"))
-    with pytest.raises(NotImplementedError, match="SIL_FRESNEL"):
-        tpt.pixel_loss(params, scene, target, cam,
-                       cfg.replace(use_pallas_grad=True, grad_regen=True), tpt.make_key(0),
-                       device="cpu")
-
-
 def test_regen_config_is_accepted():
     cfg = tpt.RenderConfig(use_pallas_grad=True, grad_regen=True, grad_regen_banks=2,
                            grad_regen_stream=False)
