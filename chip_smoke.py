@@ -422,16 +422,17 @@ def warp_live_share(cnt):
     return c.sum().item() / (32.0 * warps.amax(dim=1).sum().item())
 
 
-def lane_shares(cnt, counters):
+def lane_shares(cnt, counts):
     """How a regen forward launch shared out its lanes' iterations: the
     fixed map's live-lane share (lanes 32 w .. 32 w + 31 in warp w, each
     warp running until its longest lane ends) and the lane fetch's
     (lane-iterations over the thread-iterations the kernel counted), with
-    the resident grid's blocks (the ``counters`` of ``regen_forward``)."""
+    the resident grid's blocks (``counts``: the launch's span counts,
+    ``tracing``)."""
     total = cnt.double().sum().item()
     return dict(fixed_map=warp_live_share(cnt),
-                fetch=total / counters[1].item(), lane_iterations=total,
-                thread_iterations=counters[1].item(), grid_blocks=counters[2].item())
+                fetch=total / counts["thread_iters"], lane_iterations=total,
+                thread_iterations=counts["thread_iters"], grid_blocks=counts["blocks"])
 
 
 _LAP = [0.0]
@@ -511,32 +512,49 @@ def grad_wrappers():
     return out
 
 
-def reset_counts(wrappers):
-    for kernel, plain in wrappers.values():
-        kernel.launches.clear()
-        plain.calls = 0
+# The program's counters (``tracing.counts()``) when the counts were last
+# reset: the reports count from there.
+_COUNT_BASE = [None]
 
 
-def launch_counts(wrappers):
+def reset_counts():
+    from simplepathtracer_tpu_torch import tracing
+
+    _COUNT_BASE[0] = tracing.counts()
+
+
+def counts_since_reset():
+    from simplepathtracer_tpu_torch import tracing
+
+    return tracing.counts() - _COUNT_BASE[0]
+
+
+def launch_counts():
     """Launches since the counts were reset, by report name: each regen and
     fused kernel by variant, the bucket by column count, the others by
-    name."""
+    name (the persistent kernel's apart, ``route_counts``)."""
+    names = {"regen_forward": "regen_fwd", "regen_refwd": "regen_refwd",
+             "regen_backward": "regen_bwd", "grad_forward": "grad_fwd",
+             "grad_backward": "grad_bwd"}
     out = {}
-    for k in ("regen_fwd", "regen_refwd", "regen_bwd"):
-        for v, n in wrappers[k][0].launches.items():
-            out[kernel_names(v)[k]] = n
-    for k in ("grad_fwd", "grad_bwd"):
-        for v, n in wrappers[k][0].launches.items():
-            out[k + VARIANT_SUFFIX[v]] = n
-    for k in ("raygen", "bounce_step", "closest_hit_attrs", "closest_hit"):
-        out[k] = wrappers[k][0].launches[k]
-    for cols, n in wrappers["bucket"][0].launches.items():
-        out[BUCKET_NAMES[cols]] = n
-    return {k: n for k, n in out.items() if n}
+    for key, n in counts_since_reset().items():
+        parts = key.split(".")
+        if parts[0] != "launch" or parts[1] == "persistent":
+            continue
+        if parts[1] == "bucket":
+            out[BUCKET_NAMES[int(parts[2])]] = n
+        elif parts[1].startswith("regen"):
+            out[kernel_names(parts[2])[names[parts[1]]]] = n
+        elif parts[1] in names:
+            out[names[parts[1]] + VARIANT_SUFFIX[parts[2]]] = n
+        else:
+            out[parts[1]] = n
+    return out
 
 
 def plain_calls(wrappers):
-    return {k: plain.calls for k, (_, plain) in wrappers.items()}
+    got = counts_since_reset()
+    return {k: got[f"plain.{plain.__name__}"] for k, (_, plain) in wrappers.items()}
 
 
 @contextlib.contextmanager
@@ -551,13 +569,13 @@ def plain_route(route=REGEN_ROUTE):
               WRAPPER_SITES[k][1], wrappers[k]) for k in route]
     for m, attr, (_, plain) in sites:
         setattr(m, attr, plain)
-    reset_counts(wrappers)
+    reset_counts()
     try:
         yield
     finally:
         for m, attr, (kernel, _) in sites:
             setattr(m, attr, kernel)
-    launches = launch_counts(wrappers)
+    launches = launch_counts()
     calls = plain_calls(wrappers)
     if launches or not all(calls[k] for k in route):
         raise RuntimeError(f"plain route did not take the plain versions only: kernel "
@@ -950,14 +968,14 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
     tpt.fit(start, target, cam, cfg, key, steps=1, **fit_kw)
     sync(dev)
     lap("phase6 (d) warm fit step")
-    reset_counts(wrappers)
+    reset_counts()
     reset_peak(dev)
     t0 = time.perf_counter()
     fitted, losses = tpt.fit(start, target, cam, cfg, key, steps=FIT_STEPS, **fit_kw)
     sync(dev)
     out["step_s"] = (time.perf_counter() - t0) / FIT_STEPS
     out["fit_peak_gb"] = peak_gb(dev)
-    out["launches"] = launch_counts(wrappers)
+    out["launches"] = launch_counts()
     out["plain_calls"] = plain_calls(wrappers)
     out["losses"] = losses
     err_alb = (fitted.albedo - scene.albedo).abs().mean().item()
@@ -1085,6 +1103,8 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     its bound from this run's data, index_add_'s time on each bucket's rows,
     and the chunk's winner codes from the full-residual forward (plane hits,
     crossing-loser plane wins, blockers).  Raises on a mismatch."""
+    from simplepathtracer_tpu_torch import tracing
+
     if call.n_banks != 1:
         raise RuntimeError("full_width_kernels needs one bank (lane = pixel)")
     soft = call.softness > 0.0
@@ -1128,9 +1148,9 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     del resf_f, resi_f, idx_f, res_fp
 
     ms[kn["regen_fwd"]] = cuda_ms(lambda: gr.regen_forward(call, 0, False), reps=2 * more)
-    counters = torch.zeros((3,), dtype=torch.int64, device=cnt_f.device)
-    rad, cnt, packed = gr.regen_forward(call, 0, False, counters)
-    res["lane_share"] = sh = lane_shares(cnt, counters)
+    with tracing.enabled(), tracing.span("chip_smoke.regen_forward"):
+        rad, cnt, packed = gr.regen_forward(call, 0, False)
+    res["lane_share"] = sh = lane_shares(cnt, tracing.spans()[0]["counts"])
     print(f"{tag} regen fwd lanes: live-lane share {sh['fixed_map']:.4f} on the fixed map (one "
           f"thread per lane), {sh['fetch']:.4f} on the lane fetch (lane-iterations "
           f"{sh['lane_iterations']:.0f} / thread-iterations {sh['thread_iterations']}); resident "
@@ -1327,14 +1347,14 @@ def phase7_soft(tpt, dev, wrappers):
     fit_kw = dict(lr=FIT_LR, param_mask=mask, device=dev)
     tpt.fit(start, target, cam, cfg, key, steps=1, **fit_kw)
     sync(dev)
-    reset_counts(wrappers)
+    reset_counts()
     reset_peak(dev)
     t0 = time.perf_counter()
     fitted, losses = tpt.fit(start, target, cam, cfg, key, steps=FIT_STEPS, **fit_kw)
     sync(dev)
     out["step_s"] = (time.perf_counter() - t0) / FIT_STEPS
     out["fit_peak_gb"] = peak_gb(dev)
-    out["launches"] = launch_counts(wrappers)
+    out["launches"] = launch_counts()
     out["plain_calls"] = plain_calls(wrappers)
     out["losses"] = losses
     err_x = (fitted.centers[1:4, 0] - scene.centers[1:4, 0]).abs().mean().item()
@@ -1409,7 +1429,7 @@ def phase7_soft(tpt, dev, wrappers):
     start_p = scene_p.replace(plane=plane)
     chunk_p, n_p = decoupled_chunks(cfg_p, gcfg_p)
     stream_chunk = chunk_p // 4
-    reset_counts(wrappers)
+    reset_counts()
     fits = []
     for spp_chunk in (cfg_p.spp_chunk, stream_chunk):
         t0 = time.perf_counter()
@@ -1420,7 +1440,7 @@ def phase7_soft(tpt, dev, wrappers):
         fits.append(dict(spp_chunk=spp_chunk, losses=losses_p,
                          s_per_step=(time.perf_counter() - t0) / FIT_STEPS,
                          offset=fitted_p.plane[3].item()))
-    launches_p = launch_counts(wrappers)
+    launches_p = launch_counts()
     plain_p = plain_calls(wrappers)
     for f in fits:
         print(f"phase7 three_sphere_plane {cfg_p.width}x{cfg_p.height}x{cfg_p.spp}spp depth "
@@ -1482,7 +1502,7 @@ def phase7_soft(tpt, dev, wrappers):
     with torch.no_grad():
         target_b = tpt.render_linear(pert, cam_b, g_cfg, tpt.make_key(99))
     params, _ = tpt.split_params(scene_b)
-    reset_counts(wrappers)
+    reset_counts()
 
     def loss_b(radii):
         p = dict(params, radii=radii)
@@ -1496,7 +1516,7 @@ def phase7_soft(tpt, dev, wrappers):
     with torch.no_grad():
         fd = (loss_b(r + ADFD_EPS * v).item() - loss_b(r - ADFD_EPS * v).item()) / (2 * ADFD_EPS)
     ratio = ad / fd if fd else float("nan")
-    launches_b = launch_counts(wrappers)
+    launches_b = launch_counts()
     plain_b = plain_calls(wrappers)
     print(f"phase7 AD/FD, half-buried sphere's radius (48x24, 512 spp, depth 3, soft "
           f"{ADFD_SOFTNESS}, eps {ADFD_EPS}): AD {ad:.6e}, FD {fd:.6e}, AD/FD {ratio:.4f} "
@@ -2008,14 +2028,14 @@ def phase8_fused_route(tpt, dev, wrappers, lib):
                           sky_hi=scene.sky_hi * SKY_START)
     loss_and_grads(tpt, start, target, cam, fcfg, key, dev)
     sync(dev)
-    reset_counts(wrappers)
+    reset_counts()
     reset_peak(dev)
     t0 = time.perf_counter()
     for _ in range(FUSED_STEPS):
         l_f, g_f = loss_and_grads(tpt, start, target, cam, fcfg, key, dev)
     sync(dev)
     out = {"step_s": (time.perf_counter() - t0) / FUSED_STEPS, "peak_gb": peak_gb(dev)}
-    launches = launch_counts(wrappers)
+    launches = launch_counts()
     calls = plain_calls(wrappers)
     out["launches"] = launches
     per_step = {k: v / FUSED_STEPS for k, v in launches.items()}
@@ -2127,14 +2147,14 @@ def phase8_fit_camera(tpt, dev, wrappers, extra_adfd=False):
                         vfov_deg=cam.vfov_deg + CAM_VFOV_START)
     tpt.fit_camera(scene, target, start, cfg, key, steps=1, device=dev)
     sync(dev)
-    reset_counts(wrappers)
+    reset_counts()
     reset_peak(dev)
     t0 = time.perf_counter()
     fitted, losses = tpt.fit_camera(scene, target, start, cfg, key, steps=FIT_STEPS, device=dev)
     sync(dev)
     out = {"step_s": (time.perf_counter() - t0) / FIT_STEPS, "peak_gb": peak_gb(dev),
            "losses": losses}
-    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    launches, calls = launch_counts(), plain_calls(wrappers)
     gcfg = tpt.grad_safe_config(cfg.replace(silhouette_softness=DEFAULT_SOFTNESS,
                                             camera_grad=True), dev)
     chunk, n = decoupled_chunks(cfg, gcfg)
@@ -2210,7 +2230,7 @@ def phase8_adfd(tpt, dev, wrappers):
         target = tpt.render_linear(scene, cam.replace(vfov_deg=torch.tensor(62.0, device=dev)),
                                    cfg, tpt.make_key(99))
     params, cam0 = tpt.split_camera(cam)
-    reset_counts(wrappers)
+    reset_counts()
 
     def loss(p):
         return tpt.camera_pixel_loss(p, cam0, scene, target, cfg, tpt.make_key(3), device=dev)
@@ -2223,7 +2243,7 @@ def phase8_adfd(tpt, dev, wrappers):
               - loss(dict(params, vfov_deg=params["vfov_deg"] - eps)).item()) / (2 * eps)
     ad = g.item()
     ratio = ad / fd if fd else float("nan")
-    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    launches, calls = launch_counts(), plain_calls(wrappers)
     print(f"phase8 AD/FD of vfov_deg (Lambertian three_sphere 48x24, 256 spp, depth 3, soft 0.05, "
           f"eps {eps}): AD {ad:.6e}, FD {fd:.6e}, AD/FD {ratio:.4f} (bound {VFOV_ADFD_BOUNDS}); "
           f"launches {launches}, plain calls {calls}")
@@ -2385,12 +2405,12 @@ def phase9_explicit_forward(tpt, dev, wrappers):
     small = fused_keys(64, 32, 1, key, dev)
     tpt.render_pixels(scene, cam, cfg, key, small.pixel, small.sample)
     sync(dev)
-    reset_counts(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     rad = tpt.render_pixels(scene, cam, cfg, key, keys.pixel, keys.sample)
     sync(dev)
     out = {"s": time.perf_counter() - t0}
-    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    launches, calls = launch_counts(), plain_calls(wrappers)
     out["launches"] = launches
     print(f"phase9 main path 1: render_pixels cover {cfg.width}x{cfg.height}x{spp}spp "
           f"({n} rays) depth {depth}, use_pallas: {out['s']:.4f} s, "
@@ -2520,14 +2540,14 @@ def phase9_hits_fit(tpt, dev, wrappers):
     tpt.fit(start, target, cam, hcfg, key, steps=1, **fit_kw)
     sync(dev)
     lap("phase9 (c) warm fit step")
-    reset_counts(wrappers)
+    reset_counts()
     reset_peak(dev)
     t0 = time.perf_counter()
     fitted, losses = tpt.fit(start, target, cam, hcfg, key, steps=FIT_STEPS, **fit_kw)
     sync(dev)
     out = {"step_s": (time.perf_counter() - t0) / FIT_STEPS, "peak_gb": peak_gb(dev),
            "losses": losses, "chunk": chunk, "n_chunks": n_chunks}
-    out["launches"] = launch_counts(wrappers)
+    out["launches"] = launch_counts()
     calls = plain_calls(wrappers)
     per_step = {k: v / FIT_STEPS for k, v in out["launches"].items()}
     out["per_step"] = per_step
@@ -2585,8 +2605,6 @@ def phase9_hits_fit(tpt, dev, wrappers):
         recorded.append((o, d, alive))
         return kernel(o, d, alive, tabs, t_min, t_max, **kw)
 
-    # The wrapper counts its launches on the module's name: keep the count.
-    record.launches = kernel.launches
     ch.closest_hit_attrs = record
     try:
         with torch.no_grad():
@@ -2680,10 +2698,10 @@ def phase9_closest_hit(tpt, dev, wrappers, lib):
     o, d = camera_rays(cam, keys, cfg.width, cfg.height)
     n = o.shape[0]
     alive = torch.ones(n, dtype=torch.bool, device=dev)
-    reset_counts(wrappers)
+    reset_counts()
     hit = intersect.intersect_scene_pallas(o, d, alive, scene, cfg.t_min, cfg.t_max)
     sync(dev)
-    launches, calls = launch_counts(wrappers), plain_calls(wrappers)
+    launches, calls = launch_counts(), plain_calls(wrappers)
     ms = cuda_ms(lambda: ch.closest_hit(o, d, alive, scene.centers, scene.radii,
                                         cfg.t_min, cfg.t_max), reps=5)
     # The kernel alone: the wrapper's table (cx, cy, cz, r^2) and outputs
@@ -2776,30 +2794,22 @@ def trace_kernels(path, name):
 def route_counts(wrappers):
     """Launches of every kernel since the counts were reset (the persistent
     kernel's too) and the plain versions' calls."""
-    from simplepathtracer_tpu_torch.ops import persistent
-
-    got = launch_counts(wrappers)
-    if persistent.render_block_persistent.launches:
-        got["persistent_render"] = persistent.render_block_persistent.launches
+    since = counts_since_reset()
+    got = launch_counts()
+    if since["launch.persistent"]:
+        got["persistent_render"] = since["launch.persistent"]
     calls = {k: n for k, n in plain_calls(wrappers).items() if n}
-    if persistent.render_block_persistent_reference.calls:
-        calls["persistent_render"] = persistent.render_block_persistent_reference.calls
+    if since["plain.render_block_persistent_reference"]:
+        calls["persistent_render"] = since["plain.render_block_persistent_reference"]
     return got, calls
 
-
-def reset_all(wrappers):
-    from simplepathtracer_tpu_torch.ops import persistent
-
-    reset_counts(wrappers)
-    persistent.render_block_persistent.launches = 0
-    persistent.render_block_persistent_reference.calls = 0
 
 
 def cli_command(wrappers, argv, want, forbid=()):
     """Run one CLI command with every count set to 0 just before it; the
     kernels in ``want`` must have launched, those in ``forbid`` not, and no
     plain version may have run.  Returns (records, launches, seconds)."""
-    reset_all(wrappers)
+    reset_counts()
     t0 = time.perf_counter()
     recs = run_cli(argv)
     seconds = time.perf_counter() - t0
@@ -3072,7 +3082,7 @@ def shard_rank(rank, world, out):
         in ``want`` must have launched and no plain version run."""
         torch.cuda.synchronize()
         dist.barrier()
-        reset_all(wrappers)
+        reset_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         r = fn()
@@ -3443,13 +3453,14 @@ def main(argv=None):
     warm = cfg.replace(width=64, height=32, spp=2)
     tpt.render(scene, cam, warm, key)
     torch.cuda.synchronize()
-    kernel.launches = 0
-    plain.calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     img = tpt.render(scene, cam, cfg, key)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, plain_calls = kernel.launches, plain.calls
+    since = counts_since_reset()
+    launches = since["launch.persistent"]
+    plain_calls = since["plain.render_block_persistent_reference"]
     paths = cfg.num_pixels * cfg.spp
     print(f"phase3 cover {cfg.width}x{cfg.height} spp={cfg.spp} depth={cfg.max_depth} "
           f"spheres={scene.num_spheres}: {seconds:.4f} s, {paths / seconds / 1e6:.2f} Mpaths/s, "

@@ -14,11 +14,14 @@ Entry points that create tensors run on ``cuda`` unless the caller passes
 ``device``.  The command line (``python -m simplepathtracer_tpu_torch.cli``)
 renders and fits presets, with render snapshots (``checkpoint``), fit
 snapshots, a live HTTP preview (``preview``) and JSON-line metrics
-(``metrics``).  ``parallel`` splits renders, gradients and fits
-(``inverse.fit_sharded``) over a (tiles, samples) mesh of processes on
-``torch.distributed``, one device each.
+(``metrics``).  ``tracing`` marks the layers' phases with spans (recorded
+while a ``torch.profiler`` profile runs) and counts kernel launches.
+``parallel`` splits renders, gradients and fits (``inverse.fit_sharded``)
+over a (tiles, samples) mesh of processes on ``torch.distributed``, one
+device each.
 """
 
+from . import tracing
 from .types import Camera, Material, RenderConfig, RenderState, Scene, make_camera
 from .scenes import (
     SCENES,

@@ -420,7 +420,7 @@ def main(argv=None) -> int:
     )
     r.add_argument("--resume", default=None, help="resume from snapshot")
     r.add_argument("--trace", default=None,
-                   help="torch.profiler trace directory (writes trace.json)")
+                   help="torch.profiler trace directory (writes trace.json and spans.json)")
     r.add_argument("-q", "--quiet", action="store_true")
     _add_device(r)
     r.set_defaults(fn=cmd_render)

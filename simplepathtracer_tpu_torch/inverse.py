@@ -31,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from . import tracing
 from .checkpoint import atomic_savez
 from .ops.sampling import fold_in
 from .render import balanced_pixel_perm, grad_safe_config, render_sample_batch
@@ -369,17 +370,24 @@ def fit(
         if balance and rebalance_every and i > start and (i - start) % rebalance_every == 0:
             current = merge_params({k: v.detach() for k, v in params.items()}, static_scene)
             pixel_perm = balanced_pixel_perm(current, camera, config, fold_in(key, 100_000 + i))
-        opt.zero_grad(set_to_none=True)
-        if accum_step is not None:
-            loss, grads = accum_step(params, fold_in(key, i))
-            for k, g in grads.items():
-                params[k].grad = g
-        else:
-            loss = loss_fn(params, static_scene, target, camera, config,
-                           fold_in(key, i), leaves, pixel_perm=pixel_perm, device=dev)
-            loss.backward()
-        _masked_step(opt, params, param_mask, scene_init)
-        losses.append(loss.item())
+        with tracing.span("spt.fit.step", step=i):
+            opt.zero_grad(set_to_none=True)
+            if accum_step is not None:
+                # The accumulated estimator takes its groups' pullbacks itself.
+                with tracing.span("spt.fit.loss"):
+                    loss, grads = accum_step(params, fold_in(key, i))
+                for k, g in grads.items():
+                    params[k].grad = g
+            else:
+                with tracing.span("spt.fit.loss"):
+                    loss = loss_fn(params, static_scene, target, camera, config,
+                                   fold_in(key, i), leaves, pixel_perm=pixel_perm, device=dev)
+                with tracing.span("spt.fit.backward"):
+                    loss.backward()
+            with tracing.span("spt.fit.update"):
+                _masked_step(opt, params, param_mask, scene_init)
+            with tracing.span("spt.fit.sync"):
+                losses.append(loss.item())
         if callback is not None:
             callback(i, losses[-1], params)
         if snapshot_path and snapshot_every and (i + 1) % snapshot_every == 0:
@@ -431,14 +439,19 @@ def fit_sharded(
     if snapshot_path and os.path.exists(snapshot_path):
         start, losses = _load_fit_state(snapshot_path, params, opt)
     for i in range(start, steps):
-        opt.zero_grad(set_to_none=True)
-        scene = merge_params({k: v.detach() for k, v in params.items()}, scene_init)
-        loss, grads = loss_and_grad_sharded(scene, target, camera, config, fold_in(key, i),
-                                            mesh)
-        for k, p in params.items():
-            p.grad = grads[k]
-        _masked_step(opt, params, param_mask, scene_init)
-        losses.append(loss.item())
+        with tracing.span("spt.fit.step", step=i):
+            opt.zero_grad(set_to_none=True)
+            scene = merge_params({k: v.detach() for k, v in params.items()}, scene_init)
+            # The sharded loss takes its pullback and the gradients' all-reduce.
+            with tracing.span("spt.fit.loss"):
+                loss, grads = loss_and_grad_sharded(scene, target, camera, config,
+                                                    fold_in(key, i), mesh)
+            for k, p in params.items():
+                p.grad = grads[k]
+            with tracing.span("spt.fit.update"):
+                _masked_step(opt, params, param_mask, scene_init)
+            with tracing.span("spt.fit.sync"):
+                losses.append(loss.item())
         if callback is not None:
             callback(i, losses[-1], params)
         if (snapshot_path and snapshot_every and (i + 1) % snapshot_every == 0
@@ -523,12 +536,17 @@ def fit_camera(
     decoupled = config.silhouette_softness > 0.0
     losses = []
     for i in range(steps):
-        opt.zero_grad(set_to_none=True)
-        loss = camera_pixel_loss(params, camera0, scene, target, config, fold_in(key, i),
-                                 decoupled=decoupled, device=dev)
-        loss.backward()
-        opt.step()
-        losses.append(loss.item())
+        with tracing.span("spt.fit.step", step=i):
+            opt.zero_grad(set_to_none=True)
+            with tracing.span("spt.fit.loss"):
+                loss = camera_pixel_loss(params, camera0, scene, target, config,
+                                         fold_in(key, i), decoupled=decoupled, device=dev)
+            with tracing.span("spt.fit.backward"):
+                loss.backward()
+            with tracing.span("spt.fit.update"):
+                opt.step()
+            with tracing.span("spt.fit.sync"):
+                losses.append(loss.item())
         if callback is not None:
             callback(i, losses[-1], params)
     final = {k: v.detach() for k, v in params.items()}

@@ -23,11 +23,11 @@ part of the contract.
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..types import Material
 from .closest_hit import sphere_attrs_plain, sphere_table
 from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
@@ -114,18 +114,14 @@ def bounce_step(call: BounceCall, state, pix, samp, bounce: int):
         )
     if err != 0:
         raise RuntimeError(f"bounce-step kernel launch failed: CUDA error {err}")
-    bounce_step.launches["bounce_step"] += 1
+    tracing.count("launch.bounce_step")
     return nxt
-
-
-# Launches of the kernel.
-bounce_step.launches = Counter()
 
 
 def bounce_step_reference(call: BounceCall, state, pix, samp, bounce: int):
     """Plain version of ``bounce_step``: the same next state, in the
     kernel's operations over all N rays at once."""
-    bounce_step_reference.calls += 1
+    tracing.count("plain.bounce_step_reference")
     tab = call.tab
     o = [state[c] for c in range(3)]
     d = [state[3 + c] for c in range(3)]
@@ -181,6 +177,3 @@ def bounce_step_reference(call: BounceCall, state, pix, samp, bounce: int):
     out = torch.where(alive[None, :], new, state)
     out[_ALIVE] = (alive & surv).to(torch.float32)
     return out
-
-
-bounce_step_reference.calls = 0

@@ -26,10 +26,9 @@ changes from run to run, so it agrees with the plain version to rounding
 
 from __future__ import annotations
 
-from collections import Counter
-
 import torch
 
+from .. import tracing
 from .cuda_build import load_library
 
 # Column counts the kernel is built for: the 9 winner-attribute cotangents
@@ -65,23 +64,16 @@ def bucket_cols(cols, idx, n_buckets: int):
         )
     if err != 0:
         raise RuntimeError(f"bucket kernel launch failed: CUDA error {err}")
-    bucket_cols.launches[k] += 1
+    tracing.count(f"launch.bucket.{k}")
     return out
-
-
-# Launches of the kernel, by column count K.
-bucket_cols.launches = Counter()
 
 
 def bucket_cols_reference(cols, idx, n_buckets: int):
     """Plain version of ``bucket_cols``: ``index_add_`` over the rows whose
     index names a bucket."""
-    bucket_cols_reference.calls += 1
+    tracing.count("plain.bucket_cols_reference")
     cols = cols.reshape(cols.shape[0], -1)
     idx = idx.reshape(-1).to(torch.int64)
     keep = (idx >= 0) & (idx < n_buckets)
     out = torch.zeros((n_buckets, cols.shape[0]), dtype=torch.float32, device=idx.device)
     return out.index_add_(0, idx[keep], cols[:, keep].T)
-
-
-bucket_cols_reference.calls = 0

@@ -31,10 +31,9 @@ rays get the same answer either way.
 
 from __future__ import annotations
 
-from collections import Counter
-
 import torch
 
+from .. import tracing
 from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
 from .persistent import _MAX_SMEM, _SMEM_PER_SPHERE, closest_hit_plain, pad_scene_tables
 
@@ -106,11 +105,8 @@ def closest_hit(origins, dirs, alive, centers, radii, t_min=1e-3, t_max=3.0e7):
         )
     if err != 0:
         raise RuntimeError(f"closest-hit kernel launch failed: CUDA error {err}")
-    closest_hit.launches["closest_hit"] += 1
+    tracing.count("launch.closest_hit")
     return idx, t
-
-
-closest_hit.launches = Counter()
 
 
 def closest_hit_attrs(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7, *, tab=None):
@@ -148,11 +144,8 @@ def closest_hit_attrs(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7, *, 
         )
     if err != 0:
         raise RuntimeError(f"closest-hit-attributes kernel launch failed: CUDA error {err}")
-    closest_hit_attrs.launches["closest_hit_attrs"] += 1
+    tracing.count("launch.closest_hit_attrs")
     return idx, tuple(attr.unbind(0)), mat
-
-
-closest_hit_attrs.launches = Counter()
 
 
 # --------------------------------------------------------------------------
@@ -173,7 +166,7 @@ def sphere_attrs_plain(tab, idx):
 def closest_hit_reference(origins, dirs, alive, centers, radii, t_min=1e-3, t_max=3.0e7):
     """Plain version of ``closest_hit``: the [N, S] scan, nearest valid
     root (disc > 0, t > t_min, t < t_max), first index on ties."""
-    closest_hit_reference.calls += 1
+    tracing.count("plain.closest_hit_reference")
     with torch.no_grad():
         o, d = origins.detach(), dirs.detach()
         c = centers.detach()
@@ -196,14 +189,11 @@ def closest_hit_reference(origins, dirs, alive, centers, radii, t_min=1e-3, t_ma
         return idx, torch.where(hit, bt, torch.full_like(bt, t_max))
 
 
-closest_hit_reference.calls = 0
-
-
 def closest_hit_attrs_reference(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7, *,
                                 tab=None):
     """Plain version of ``closest_hit_attrs``: ``persistent.closest_hit_plain``
     (the kernels' scan) and the winner's row of the table."""
-    closest_hit_attrs_reference.calls += 1
+    tracing.count("plain.closest_hit_attrs_reference")
     with torch.no_grad():
         if tab is None:
             tab = sphere_table(tables)
@@ -215,6 +205,3 @@ def closest_hit_attrs_reference(origins, dirs, alive, tables, t_min=1e-3, t_max=
         idx = torch.where(alive & hit, bi, -1).to(torch.int32)
         attr, mat = sphere_attrs_plain(tab, idx)
         return idx, tuple(attr.unbind(0)), mat
-
-
-closest_hit_attrs_reference.calls = 0

@@ -36,11 +36,11 @@ the camera through ``camera.generate_rays`` (``camera_grad``).
 from __future__ import annotations
 
 import dataclasses
-from collections import Counter
 from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
 from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
@@ -176,12 +176,8 @@ def grad_forward(call: FusedCall, state, rad, prev, pix, samp, bounce: int):
         )
     if err != 0:
         raise RuntimeError(f"fused forward kernel launch failed: CUDA error {err}")
-    grad_forward.launches[variant(call)] += 1
+    tracing.count(f"launch.grad_forward.{variant(call)}")
     return nxt, prev_out, idx, bidx
-
-
-# Launches of the kernel, by variant.
-grad_forward.launches = Counter()
 
 
 def grad_backward(call: FusedCall, state, idx, bidx, pix, samp, bounce: int,
@@ -225,11 +221,8 @@ def grad_backward(call: FusedCall, state, idx, bidx, pix, samp, bounce: int,
         )
     if err != 0:
         raise RuntimeError(f"fused backward kernel launch failed: CUDA error {err}")
-    grad_backward.launches[variant(call)] += 1
+    tracing.count(f"launch.grad_backward.{variant(call)}")
     return ct_out, attr, sky
-
-
-grad_backward.launches = Counter()
 
 
 def raygen(camera, keys, config):
@@ -264,12 +257,8 @@ def _raygen_launch(cam19, keys, width: int, height: int):
         )
     if err != 0:
         raise RuntimeError(f"raygen kernel launch failed: CUDA error {err}")
-    raygen.launches["raygen"] += 1
+    tracing.count("launch.raygen")
     return rays
-
-
-# Launches of the kernel (counted in _raygen_launch).
-raygen.launches = Counter()
 
 
 # --------------------------------------------------------------------------
@@ -297,7 +286,7 @@ def _bounce_kwargs(call, bidx):
 def grad_fwd_reference(call: FusedCall, state, rad, prev, pix, samp, bounce: int):
     """Plain version of ``grad_forward`` (same outputs; ``rad`` in place):
     the scan of ``ops/grad_regen.py`` and ``ops/bounce.py:bounce_tile``."""
-    grad_fwd_reference.calls += 1
+    tracing.count("plain.grad_fwd_reference")
     o, d, tp, alive, u = _bounce_inputs(call, state, pix, samp, bounce)
     bidx = None
     if call.softness > 0.0:
@@ -324,14 +313,11 @@ def grad_fwd_reference(call: FusedCall, state, rad, prev, pix, samp, bounce: int
     return nxt, torch.where(hit, idx, -1).to(i32), idx.to(i32), bidx.to(i32)
 
 
-grad_fwd_reference.calls = 0
-
-
 def grad_bwd_reference(call: FusedCall, state, idx, bidx, pix, samp, bounce: int,
                        ct_carry, ct_rad, want_attr: bool = True):
     """Plain version of ``grad_backward``: ``bounce_tile_adjoint`` with the
     winner's attributes read from the table by index."""
-    grad_bwd_reference.calls += 1
+    tracing.count("plain.grad_bwd_reference")
     o, d, tp, alive, u = _bounce_inputs(call, state, pix, samp, bounce)
     idx = idx.to(torch.int64)
     a9, mat = _winner(call, idx)
@@ -356,21 +342,15 @@ def grad_bwd_reference(call: FusedCall, state, idx, bidx, pix, samp, bounce: int
     return carry, attr, torch.stack(g.sky).sum(dim=1)
 
 
-grad_bwd_reference.calls = 0
-
-
 def raygen_reference(camera, keys, config):
     """Plain version of ``raygen``: ``persistent.camera_ray_plain`` as
     [6, N].  The ids are cast to int64, which ``camera_ray_plain`` takes
     (its ``sid << 8`` and threefry words hold u32 values), since
     ``trace_pixels_fused`` passes int32 ids."""
-    raygen_reference.calls += 1
+    tracing.count("plain.raygen_reference")
     cam19 = camera_constants(camera, config.width, config.height).detach()
     return torch.stack(camera_ray_plain(cam19, keys.k0, keys.k1, keys.pixel.long(),
                                         keys.sample.long(), config.width, config.height))
-
-
-raygen_reference.calls = 0
 
 
 # --------------------------------------------------------------------------
@@ -405,59 +385,61 @@ class _FusedTrace(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, origins, dirs, *inputs):
-        call = spec.call(inputs[:11], inputs[11])
-        soft = call.softness > 0.0
-        n = origins.shape[0]
-        f32 = torch.float32
-        dev = origins.device
-        state = torch.empty((STATE_PLANES, n), dtype=f32, device=dev)
-        state[0:3] = origins.detach().t()
-        state[3:6] = dirs.detach().t()
-        state[6:10] = 1.0
-        rad = torch.zeros((3, n), dtype=f32, device=dev)
-        prev = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
-        keep = any(ctx.needs_input_grad)
-        saved = []
-        for b in range(call.max_depth):
-            nxt, prev, idx, bidx = grad_forward(call, state, rad, prev, spec.pix, spec.samp, b)
+        with tracing.span("spt.fused.forward"):
+            call = spec.call(inputs[:11], inputs[11])
+            soft = call.softness > 0.0
+            n = origins.shape[0]
+            f32 = torch.float32
+            dev = origins.device
+            state = torch.empty((STATE_PLANES, n), dtype=f32, device=dev)
+            state[0:3] = origins.detach().t()
+            state[3:6] = dirs.detach().t()
+            state[6:10] = 1.0
+            rad = torch.zeros((3, n), dtype=f32, device=dev)
+            prev = torch.full((n,), -1, dtype=torch.int32, device=dev) if soft else None
+            keep = any(ctx.needs_input_grad)
+            saved = []
+            for b in range(call.max_depth):
+                nxt, prev, idx, bidx = grad_forward(call, state, rad, prev, spec.pix, spec.samp, b)
+                if keep:
+                    saved += [state, idx] + ([bidx] if soft else [])
+                state = nxt
             if keep:
-                saved += [state, idx] + ([bidx] if soft else [])
-            state = nxt
-        if keep:
-            ctx.save_for_backward(*saved)
-        ctx.call, ctx.spec = call, spec
-        return rad.t().contiguous()
+                ctx.save_for_backward(*saved)
+            ctx.call, ctx.spec = call, spec
+            return rad.t().contiguous()
 
     @staticmethod
     def backward(ctx, g_rad):
-        call, spec = ctx.call, ctx.spec
-        soft = call.softness > 0.0
-        saved = ctx.saved_tensors
-        per = 3 if soft else 2
-        n = spec.pix.shape[0]
-        dev = spec.pix.device
-        f32 = torch.float32
-        ct_rad = g_rad.to(f32).t().contiguous()
-        carry = torch.zeros((CARRY_PLANES, n), dtype=f32, device=dev)
-        # Inputs: spec, origins, dirs, the 11 tables (3:14), sky6.
-        want_tab = any(ctx.needs_input_grad[3:14])
-        s = call.n_spheres
-        d_tab = torch.zeros((s, 9), dtype=f32, device=dev)
-        d_sky = torch.zeros(6, dtype=f32, device=dev)
-        for b in range(call.max_depth - 1, -1, -1):
-            state, idx = saved[per * b], saved[per * b + 1]
-            bidx = saved[per * b + 2] if soft else None
-            carry, attr, sky = grad_backward(call, state, idx, bidx, spec.pix, spec.samp, b,
-                                             carry, ct_rad, want_attr=want_tab)
-            d_sky = d_sky + sky
-            if want_tab:
-                d_tab = d_tab + _bucket.bucket_cols(attr[:9], idx, s)
-                if soft:
-                    d_blk = _bucket.bucket_cols(attr[9:], bidx, s)
-                    d_tab = d_tab + torch.cat([d_blk, d_blk.new_zeros((s, 5))], dim=1)
-        tab = (d_tab[:, 0], d_tab[:, 1], d_tab[:, 2], d_tab[:, 3], None,
-               d_tab[:, 4], d_tab[:, 5], d_tab[:, 6], None, d_tab[:, 7], d_tab[:, 8])
-        return (None, carry[0:3].t(), carry[3:6].t(), *tab, d_sky)
+        with tracing.span("spt.fused.backward"):
+            call, spec = ctx.call, ctx.spec
+            soft = call.softness > 0.0
+            saved = ctx.saved_tensors
+            per = 3 if soft else 2
+            n = spec.pix.shape[0]
+            dev = spec.pix.device
+            f32 = torch.float32
+            ct_rad = g_rad.to(f32).t().contiguous()
+            carry = torch.zeros((CARRY_PLANES, n), dtype=f32, device=dev)
+            # Inputs: spec, origins, dirs, the 11 tables (3:14), sky6.
+            want_tab = any(ctx.needs_input_grad[3:14])
+            s = call.n_spheres
+            d_tab = torch.zeros((s, 9), dtype=f32, device=dev)
+            d_sky = torch.zeros(6, dtype=f32, device=dev)
+            for b in range(call.max_depth - 1, -1, -1):
+                state, idx = saved[per * b], saved[per * b + 1]
+                bidx = saved[per * b + 2] if soft else None
+                carry, attr, sky = grad_backward(call, state, idx, bidx, spec.pix, spec.samp, b,
+                                                 carry, ct_rad, want_attr=want_tab)
+                d_sky = d_sky + sky
+                if want_tab:
+                    d_tab = d_tab + _bucket.bucket_cols(attr[:9], idx, s)
+                    if soft:
+                        d_blk = _bucket.bucket_cols(attr[9:], bidx, s)
+                        d_tab = d_tab + torch.cat([d_blk, d_blk.new_zeros((s, 5))], dim=1)
+            tab = (d_tab[:, 0], d_tab[:, 1], d_tab[:, 2], d_tab[:, 3], None,
+                   d_tab[:, 4], d_tab[:, 5], d_tab[:, 6], None, d_tab[:, 7], d_tab[:, 8])
+            return (None, carry[0:3].t(), carry[3:6].t(), *tab, d_sky)
 
 
 def trace_rays_fused(origins, dirs, keys, scene, config):

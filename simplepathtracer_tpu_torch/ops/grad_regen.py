@@ -49,11 +49,11 @@ plane won the crossing coin and the blocker slot holds the loser).
 from __future__ import annotations
 
 import dataclasses
-from collections import Counter
 from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
 from .closest_hit import sphere_attrs_plain, sphere_table
@@ -299,7 +299,7 @@ def _ptr(t):
 
 
 def _launch_forward(call, sample_offset, mode, idx_in, rad, cnt, resf, resi,
-                    packed, counters=None):
+                    packed, queue=None):
     lib = load_library()
     dev = call.pixel_ids.device
     with torch.cuda.device(dev):
@@ -312,7 +312,7 @@ def _launch_forward(call, sample_offset, mode, idx_in, rad, cnt, resf, resi,
             call.t_min, call.t_max, call.rr_start_depth, call.n_iter,
             _MODES[mode], call.softness, _ptr(call.soft_tab), _ptr(idx_in),
             _ptr(rad), _ptr(cnt), _ptr(resf), _ptr(resi), _ptr(packed),
-            _ptr(counters), torch.cuda.current_stream(dev).cuda_stream,
+            _ptr(queue), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"regen {mode} kernel launch failed: CUDA error {err}")
@@ -325,7 +325,7 @@ def _packed_shape(call: RegenCall):
     return (2, *shape) if call.softness > 0.0 else shape
 
 
-def regen_forward(call: RegenCall, sample_offset, emit_full: bool, counters=None):
+def regen_forward(call: RegenCall, sample_offset, emit_full: bool):
     """Recording forward over ``call.n_samples`` samples from
     ``sample_offset``.  Returns (radiance sums [P, 3], live iterations per
     lane [n_lanes] f32, residuals): ``(resf [20, n_iter, n_lanes] f32,
@@ -335,43 +335,34 @@ def regen_forward(call: RegenCall, sample_offset, emit_full: bool, counters=None
 
     Without ``emit_full`` the kernel's threads fetch lanes from a counter
     and write no word after a lane's end, so the words are zeroed here
-    first.  ``counters``, an int64 [3] tensor on the card that the caller
-    may pass for an idx-only launch, is zeroed and receives that launch's
-    counters: lanes fetched (n_lanes plus one per thread that found none),
+    first.  That launch's work queue (int64 [3]) also counts the lanes
+    fetched (n_lanes plus one per thread that found none), the
     thread-iterations (32 per loop trip of a warp; against the sum of the
     counts it gives the share of thread slots that ran a lane) and the
-    resident grid's blocks.  Without it the wrapper allocates its own."""
+    resident grid's blocks: the innermost open span (``tracing``) keeps
+    them as ``lanes_fetched``, ``thread_iters`` and ``blocks``, summed only
+    when the spans are read."""
     dev = _device(call)
     if dev.type == "cpu":
         return regen_fwd_reference(call, sample_offset, emit_full)
-    if counters is None:
-        _check_cuda(call)
-    elif emit_full or counters.shape != (3,) or counters.dtype != torch.int64:
-        raise ValueError("counters: int64 [3], for an idx-only launch")
-    else:
-        _check_cuda(call, counters)
+    _check_cuda(call)
     p, b, n = call.pixel_ids.shape[0], call.n_iter, call.n_lanes
     nf, ni, _ = _n_planes(call)
     rad = torch.zeros((p, 3), dtype=torch.float32, device=dev)
     cnt = torch.empty((n,), dtype=torch.float32, device=dev)
-    resf = resi = packed = None
+    resf = resi = packed = queue = None
     if emit_full:
         resf = torch.empty((nf, b, n), dtype=torch.float32, device=dev)
         resi = torch.empty((ni, b, n), dtype=torch.int32, device=dev)
     else:
         packed = torch.zeros(_packed_shape(call), dtype=torch.int32, device=dev)
-        if counters is None:
-            counters = torch.zeros((3,), dtype=torch.int64, device=dev)
-        else:
-            counters.zero_()
+        queue = torch.zeros((3,), dtype=torch.int64, device=dev)
     _launch_forward(call, sample_offset, "full" if emit_full else "idx", None,
-                    rad, cnt, resf, resi, packed, counters)
-    regen_forward.launches[variant(call)] += 1
+                    rad, cnt, resf, resi, packed, queue)
+    if queue is not None:
+        tracing.add(("lanes_fetched", "thread_iters", "blocks"), queue)
+    tracing.count(f"launch.regen_forward.{variant(call)}")
     return rad, cnt, ((resf, resi) if emit_full else packed)
-
-
-# Launches of the kernel, by variant.
-regen_forward.launches = Counter()
 
 
 def regen_refwd(call: RegenCall, sample_offset, packed):
@@ -389,11 +380,8 @@ def regen_refwd(call: RegenCall, sample_offset, packed):
     resi = torch.empty((ni, b, n), dtype=torch.int32, device=dev)
     _launch_forward(call, sample_offset, "refwd", packed, None, None, resf,
                     resi, None)
-    regen_refwd.launches[variant(call)] += 1
+    tracing.count(f"launch.regen_refwd.{variant(call)}")
     return resf, resi
-
-
-regen_refwd.launches = Counter()
 
 
 def regen_backward(call: RegenCall, sample_offset, resf, resi, ct_rad):
@@ -434,11 +422,8 @@ def regen_backward(call: RegenCall, sample_offset, resf, resi, ct_rad):
         )
     if err != 0:
         raise RuntimeError(f"regen backward kernel launch failed: CUDA error {err}")
-    regen_backward.launches[variant(call)] += 1
+    tracing.count(f"launch.regen_backward.{variant(call)}")
     return ct_planes, partials
-
-
-regen_backward.launches = Counter()
 
 
 # --------------------------------------------------------------------------
@@ -731,26 +716,20 @@ def _replay(call: RegenCall, sample_offset, mode: str, packed_in=None):
 
 def regen_fwd_reference(call: RegenCall, sample_offset, emit_full: bool):
     """Plain version of ``regen_forward`` (same outputs)."""
-    regen_fwd_reference.calls += 1
+    tracing.count("plain.regen_fwd_reference")
     return _replay(call, sample_offset, "full" if emit_full else "idx")
-
-
-regen_fwd_reference.calls = 0
 
 
 def regen_refwd_reference(call: RegenCall, sample_offset, packed):
     """Plain version of ``regen_refwd``."""
-    regen_refwd_reference.calls += 1
+    tracing.count("plain.regen_refwd_reference")
     return _replay(call, sample_offset, "refwd", packed)
-
-
-regen_refwd_reference.calls = 0
 
 
 def regen_bwd_reference(call: RegenCall, sample_offset, resf, resi, ct_rad):
     """Plain version of ``regen_backward``: the reverse walk over all lanes
     at once through ``bounce_tile_adjoint``."""
-    regen_bwd_reference.calls += 1
+    tracing.count("plain.regen_bwd_reference")
     dev = call.pixel_ids.device
     f32, i64 = torch.float32, torch.int64
     n, b_total, nb = call.n_lanes, call.n_iter, call.n_banks
@@ -817,9 +796,6 @@ def regen_bwd_reference(call: RegenCall, sample_offset, resf, resi, ct_rad):
         co, cd, ctp = (tuple(torch.where(regen, zero, x) for x in gs)
                        for gs in (g.o, g.d, g.tp))
     return ct_planes, torch.stack(sky_part + pl_part)
-
-
-regen_bwd_reference.calls = 0
 
 
 # --------------------------------------------------------------------------
@@ -894,7 +870,9 @@ class _RegenTrace(torch.autograd.Function):
     def forward(ctx, spec, *inputs):
         tables, sky6, plane7 = inputs[:11], inputs[11], inputs[12]
         call = spec.call(tables, sky6, plane7)
-        rad, cnt, (resf, resi) = regen_forward(call, spec.sample_offset, True)
+        with tracing.span("spt.regen.forward") as sp:
+            rad, cnt, (resf, resi) = regen_forward(call, spec.sample_offset, True)
+            sp.add("live_iters", cnt)
         ctx.save_for_backward(resf, resi)
         ctx.call, ctx.spec, ctx.has_plane = call, spec, plane7 is not None
         ctx.mark_non_differentiable(cnt)
@@ -905,28 +883,33 @@ class _RegenTrace(torch.autograd.Function):
         resf, resi = ctx.saved_tensors
         call = ctx.call
         g = _radiance_ct(g_rad, call.pixel_ids.shape[0], resf.device)
-        d = _bwd_from_residuals(call, ctx.spec.sample_offset, resf, resi, g)
+        with tracing.span("spt.regen.backward"):
+            d = _bwd_from_residuals(call, ctx.spec.sample_offset, resf, resi, g)
         return _input_grads(*d, ctx.has_plane)
 
 
 def _stream_forward(call, spec, keep_idx):
-    """Idx-only forward over every chunk: summed radiance and counts, and
-    the chunks' packed words when ``keep_idx``."""
+    """Idx-only forward over every chunk (phase A): summed radiance and
+    counts, and the chunks' packed words when ``keep_idx``.  Its span keeps
+    the summed counts as ``live_iters``, beside each launch's work queue."""
     dev = call.pixel_ids.device
-    rad = torch.zeros((call.pixel_ids.shape[0], 3), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((call.n_lanes,), dtype=torch.float32, device=dev)
-    packs = []
-    for off in spec.offsets():
-        r, c, packed = regen_forward(call, off, False)
-        rad, cnt = rad + r, cnt + c
-        if keep_idx:
-            packs.append(packed)
+    with tracing.span("spt.regen.forward") as sp:
+        rad = torch.zeros((call.pixel_ids.shape[0], 3), dtype=torch.float32, device=dev)
+        cnt = torch.zeros((call.n_lanes,), dtype=torch.float32, device=dev)
+        packs = []
+        for off in spec.offsets():
+            r, c, packed = regen_forward(call, off, False)
+            rad, cnt = rad + r, cnt + c
+            if keep_idx:
+                packs.append(packed)
+        sp.add("live_iters", cnt)
     return rad, cnt, packs
 
 
 def _stream_backward(ctx, g_rad, packs):
-    """Per chunk: (re-record,) re-forward, backward, bucket; sums in chunk
-    order.  One chunk's planes are alive at a time."""
+    """Per chunk (phase B, a span each): (re-record,) re-forward, backward,
+    bucket; sums in chunk order.  One chunk's planes are alive at a
+    time."""
     call = ctx.call
     dev = call.pixel_ids.device
     g = _radiance_ct(g_rad, call.pixel_ids.shape[0], dev)
@@ -934,12 +917,13 @@ def _stream_backward(ctx, g_rad, packs):
     d_sky = torch.zeros(6, dtype=torch.float32, device=dev)
     d_pl = torch.zeros(4, dtype=torch.float32, device=dev)
     for c, off in enumerate(ctx.spec.offsets()):
-        packed = packs[c] if packs else regen_forward(call, off, False)[2]
-        resf, resi = regen_refwd(call, off, packed)
-        del packed
-        dt, ds, dp = _bwd_from_residuals(call, off, resf, resi, g)
-        del resf, resi
-        d_tab, d_sky, d_pl = d_tab + dt, d_sky + ds, d_pl + dp
+        with tracing.span("spt.regen.replay"):
+            packed = packs[c] if packs else regen_forward(call, off, False)[2]
+            resf, resi = regen_refwd(call, off, packed)
+            del packed
+            dt, ds, dp = _bwd_from_residuals(call, off, resf, resi, g)
+            del resf, resi
+            d_tab, d_sky, d_pl = d_tab + dt, d_sky + ds, d_pl + dp
     return _input_grads(d_tab, d_sky, d_pl, ctx.has_plane)
 
 

@@ -23,6 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import tracing
 from ..types import Material
 from .cuda_build import load_library
 from .sampling import _f32, key_words, threefry2x32, _to_unit_float
@@ -167,11 +168,8 @@ def render_block_persistent(
         )
     if err != 0:
         raise RuntimeError(f"persistent kernel launch failed: CUDA error {err}")
-    render_block_persistent.launches += 1
+    tracing.count("launch.persistent")
     return (out, cnt) if return_counts else out
-
-
-render_block_persistent.launches = 0
 
 
 def grid_blocks(n_pix: int, n_spheres: int) -> int:
@@ -398,7 +396,7 @@ def render_block_persistent_reference(
     order, so a permutation of ``pixel_ids`` permutes the result bit for bit
     (the kernel's property that lane placement changes no value).
     """
-    render_block_persistent_reference.calls += 1
+    tracing.count("plain.render_block_persistent_reference")
     dev = pixel_ids.device
     p = pixel_ids.shape[0]
     order = torch.argsort(pixel_ids, stable=True)
@@ -429,6 +427,3 @@ def render_block_persistent_reference(
         counts[order] = cnt
         return out, counts
     return out
-
-
-render_block_persistent_reference.calls = 0

@@ -44,6 +44,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from .. import tracing
 from ..inverse import merge_params, split_params
 from ..render import grad_safe_config, render_pixel_block
 from ..types import Camera, RenderConfig, RenderState, Scene
@@ -109,9 +110,12 @@ def _check_device(mesh: DeviceMesh, *tensors):
 
 def _all_reduce(t, mesh: DeviceMesh, dim: str):
     """Sum ``t`` in place over the mesh dimension ``dim`` (no-op when that
-    dimension has one process)."""
+    dimension has one process); its bytes count ``shard.reduce_bytes``."""
     if mesh_shape(mesh)[dim] > 1:
-        dist.all_reduce(t, group=mesh.get_group(dim))
+        nbytes = t.numel() * t.element_size()
+        tracing.count("shard.reduce_bytes", nbytes)
+        with tracing.span("spt.shard.reduce", dim=dim, bytes=nbytes):
+            dist.all_reduce(t, group=mesh.get_group(dim))
     return t
 
 
@@ -139,7 +143,7 @@ def render_accum_sharded(
     _check_device(mesh, scene.centers, camera.origin)
     ti, si = mesh_coords(mesh)
     pixel_ids = ti * p_local + torch.arange(p_local, device=scene.device)
-    with torch.no_grad():
+    with torch.no_grad(), tracing.span("spt.shard.render"):
         acc = render_pixel_block(
             scene, camera, config, key, pixel_ids, sample_offset + si * s_local, s_local,
         )
@@ -151,9 +155,10 @@ def gather_tiles(acc_local, config: RenderConfig, mesh: DeviceMesh):
     all-reduce over ``tiles`` of the zero-padded tiles: exact)."""
     p_local, _ = _block_sizes(config, mesh)
     ti, _ = mesh_coords(mesh)
-    full = acc_local.new_zeros((config.num_pixels, 3))
-    full[ti * p_local:(ti + 1) * p_local] = acc_local
-    return _all_reduce(full, mesh, "tiles")
+    with tracing.span("spt.shard.gather"):
+        full = acc_local.new_zeros((config.num_pixels, 3))
+        full[ti * p_local:(ti + 1) * p_local] = acc_local
+        return _all_reduce(full, mesh, "tiles")
 
 
 def render_sharded(scene: Scene, camera: Camera, config: RenderConfig, key,
@@ -205,8 +210,9 @@ def loss_and_grad_sharded(scene: Scene, target, camera: Camera, config: RenderCo
     pixel_ids = ti * p_local + torch.arange(p_local, device=dev)
     params, rest = split_scene(scene)
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    acc = render_pixel_block(merge_scene(leaves, rest), camera, config, key, pixel_ids,
-                             si * s_local, s_local)
+    with tracing.span("spt.shard.render"):
+        acc = render_pixel_block(merge_scene(leaves, rest), camera, config, key, pixel_ids,
+                                 si * s_local, s_local)
     total = _all_reduce(acc.detach().clone(), mesh, "samples")
     target_local = target.reshape(p_total, 3)[ti * p_local:(ti + 1) * p_local]
     diff = total * inv_spp - target_local

@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import tracing
 from .camera import generate_rays
 from .ops import bounce_step as _bs
 from .ops import closest_hit as _ch
@@ -427,11 +428,14 @@ def render_pixels(scene, camera, config, key, pixel_ids, sample_ids):
     gradient route a sphere scene's camera rays come from the raygen kernel
     (the camera detached) unless ``camera_grad`` asks for the
     differentiable ``generate_rays``."""
-    keys = ray_keys(key, pixel_ids, sample_ids)
-    if _uses_raygen(scene, config):
+    raygen = _uses_raygen(scene, config)
+    with tracing.span("spt.rays.camera"):
+        keys = ray_keys(key, pixel_ids, sample_ids)
+        if not raygen:
+            jit4 = camera_jitter(keys)
+            origins, dirs = generate_rays(camera, config.width, config.height, keys.pixel, jit4)
+    if raygen:
         return trace_pixels_fused(camera, keys, scene, config)
-    jit4 = camera_jitter(keys)
-    origins, dirs = generate_rays(camera, config.width, config.height, keys.pixel, jit4)
     return trace_rays(origins, dirs, keys, scene, config)
 
 
@@ -614,10 +618,12 @@ def accumulate(
     if n_samples % chunk:
         chunk = next(c for c in range(chunk, 0, -1) if n_samples % c == 0)
     accum = state.accum
-    for i in range(n_samples // chunk):
-        off = state.sample_count + i * chunk
-        batch = render_sample_batch(scene, camera, config, state.next_key, off, chunk)
-        accum = accum + batch.reshape(config.height, config.width, 3)
+    with tracing.span("spt.accumulate", spp=n_samples):
+        for i in range(n_samples // chunk):
+            off = state.sample_count + i * chunk
+            with tracing.span("spt.accumulate.chunk", spp=chunk):
+                batch = render_sample_batch(scene, camera, config, state.next_key, off, chunk)
+                accum = accum + batch.reshape(config.height, config.width, 3)
     return RenderState(
         accum=accum,
         sample_count=state.sample_count + n_samples,
@@ -635,19 +641,22 @@ def _accumulate_balanced(state, scene, camera, config, n_samples, probe):
     changes no sample.
     """
     h, w = config.height, config.width
-    pixel_ids = torch.arange(config.num_pixels, device=scene.device)
-    batch, counts = _render_block_pallas(
-        scene, camera, config, state.next_key, pixel_ids,
-        state.sample_count, probe, return_counts=True,
-    )
-    accum = state.accum + batch.reshape(h, w, 3)
-    perm = _balanced_perm(counts)
-    rad = _render_block_pallas(
-        scene, camera, config, state.next_key, perm,
-        state.sample_count + probe, n_samples - probe,
-    )
-    inv = torch.argsort(perm)
-    accum = accum + rad[inv].reshape(h, w, 3)
+    with tracing.span("spt.accumulate", spp=n_samples):
+        with tracing.span("spt.accumulate.chunk", spp=probe):
+            pixel_ids = torch.arange(config.num_pixels, device=scene.device)
+            batch, counts = _render_block_pallas(
+                scene, camera, config, state.next_key, pixel_ids,
+                state.sample_count, probe, return_counts=True,
+            )
+            accum = state.accum + batch.reshape(h, w, 3)
+        with tracing.span("spt.accumulate.chunk", spp=n_samples - probe):
+            perm = _balanced_perm(counts)
+            rad = _render_block_pallas(
+                scene, camera, config, state.next_key, perm,
+                state.sample_count + probe, n_samples - probe,
+            )
+            inv = torch.argsort(perm)
+            accum = accum + rad[inv].reshape(h, w, 3)
     return RenderState(
         accum=accum,
         sample_count=state.sample_count + n_samples,
@@ -664,6 +673,7 @@ def render(scene: Scene, camera: Camera, config: RenderConfig, key) -> torch.Ten
     package's persistent kernel does.  A soft image (stochastic acceptance
     at silhouettes, as a soft fit sees the scene) comes from the other
     routes: ``use_pallas=False``, or ``grad_safe_config``'s regen route."""
-    state = init_state(config, key, device=scene.device)
-    state = accumulate(state, scene, camera, config, config.spp)
-    return state.image(config.gamma)
+    with tracing.span("spt.render"):
+        state = init_state(config, key, device=scene.device)
+        state = accumulate(state, scene, camera, config, config.spp)
+        return state.image(config.gamma)

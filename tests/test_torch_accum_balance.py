@@ -17,9 +17,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 import simplepathtracer_tpu as spt
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu import inverse as jinv
-from simplepathtracer_tpu_torch import inverse
+from simplepathtracer_tpu_torch import inverse, tracing
 from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene, params_to_numpy
-from simplepathtracer_tpu_torch.ops import grad_regen
 
 # The module (the package's ``render`` is the function).
 render = importlib.import_module("simplepathtracer_tpu_torch.render")
@@ -116,9 +115,10 @@ def test_fit_rebalance_matches_unbalanced(monkeypatch):
         probes.append(k.get("return_counts", False))
         return real(*a, **k)
 
-    calls = grad_regen.regen_bwd_reference.calls
+    before = tracing.counts()
     _, losses_u = tpt.fit(perturbed, target, cam, cfg, key, **kw)
-    assert grad_regen.regen_bwd_reference.calls > calls  # the regen route's plain versions
+    # The regen route's plain versions.
+    assert (tracing.counts() - before)["plain.regen_bwd_reference"] > 0
     monkeypatch.setattr(render, "_render_block_pallas", counting)
     _, losses_b = tpt.fit(perturbed, target, cam, cfg, key, balance=True, rebalance_every=2, **kw)
     assert probes == [True] * 3  # steps 0, 2 and 4

@@ -51,9 +51,9 @@ from simplepathtracer_tpu.ops.sampling import ray_keys as jax_ray_keys
 from simplepathtracer_tpu.render import trace_rays as jax_trace_rays
 
 import simplepathtracer_tpu_torch as tpt
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.convert import convert_scene
 from simplepathtracer_tpu_torch.ops import bounce_step as bs
-from simplepathtracer_tpu_torch.ops import grad as fused
 from simplepathtracer_tpu_torch.ops.sampling import ray_keys
 from simplepathtracer_tpu_torch.ops.grad_regen import scene_inputs
 from simplepathtracer_tpu_torch.render import trace_rays_pallas
@@ -152,11 +152,11 @@ def test_trace_rays_pallas_matches_jax(name):
     a = np.asarray(jax_trace_rays(o, d, jkeys, jscene,
                                   spt.RenderConfig(**kw, pallas_interpret=True)))
     keys = ray_keys(tpt.make_key(seed), torch.as_tensor(pids), torch.as_tensor(sids))
-    calls = bs.bounce_step_reference.calls
+    before = tracing.counts()
     with torch.no_grad():
         b = tpt.trace_rays(torch.tensor(np.asarray(o)), torch.tensor(np.asarray(d)), keys,
                            convert_scene(jscene, "cpu"), tpt.RenderConfig(**kw)).numpy()
-    assert bs.bounce_step_reference.calls == calls + depth
+    assert (tracing.counts() - before)["plain.bounce_step_reference"] == depth
     assert b.shape == (pids.shape[0], 3) and np.isfinite(b).all() and b.max() > 0
     mean, share = _knife_edge(a, b)
     assert share < KNIFE_SHARE, (mean, share)
@@ -179,11 +179,12 @@ def test_use_pallas_takes_precedence_in_trace_rays():
     do not run."""
     scene, cam, cfg, pids, sids = _tiny()
     cfg = cfg.replace(use_pallas_grad=True)
-    before = (bs.bounce_step_reference.calls, fused.grad_fwd_reference.calls)
+    before = tracing.counts()
     rad = tpt.render_pixels(scene, cam, cfg, tpt.make_key(1), pids, sids)
     assert rad.shape == (64, 3) and torch.isfinite(rad).all()
-    assert (bs.bounce_step_reference.calls, fused.grad_fwd_reference.calls) == (
-        before[0] + cfg.max_depth, before[1])
+    ran = tracing.counts() - before
+    assert (ran["plain.bounce_step_reference"], ran["plain.grad_fwd_reference"]) == (
+        cfg.max_depth, 0)
 
 
 @pytest.mark.parametrize("needs", ["scene", "rays"])

@@ -20,6 +20,7 @@ import pytest
 import torch
 from kernel_cases import PATTERNS, float64_bound, key_pattern
 
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.ops import bucket
 
 
@@ -32,9 +33,9 @@ def test_bucket_kernel_matches_float64_on_card(pattern, n_buckets, k):
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     cols, idx = (torch.tensor(a).cuda() for a in key_pattern(
         pattern, n_buckets, k, np.random.default_rng(0), 65_536))
-    launches = bucket.bucket_cols.launches[k]
+    before = tracing.counts()
     got = bucket.bucket_cols(cols, idx, n_buckets)
-    assert bucket.bucket_cols.launches[k] == launches + 1
+    assert (tracing.counts() - before)[f"launch.bucket.{k}"] == 1
     assert got.shape == (n_buckets, k) and got.dtype == torch.float32
     ref, tol = float64_bound(cols, idx, n_buckets)
     assert bool(((got.double() - ref).abs() <= tol).all())

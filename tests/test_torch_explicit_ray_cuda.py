@@ -17,6 +17,7 @@ import torch
 from kernel_cases import AXIS_SPHERES, grazing_rays
 
 import simplepathtracer_tpu_torch as tpt
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.camera import generate_rays
 from simplepathtracer_tpu_torch.ops import bounce_step as bs
 from simplepathtracer_tpu_torch.ops import bucket
@@ -59,9 +60,7 @@ def test_explicit_ray_kernels_match_plain_on_card(name):
     tables = tuple(t.contiguous() for t in scene_inputs(scene)[:11])
     state = bs.initial_state(o, d)
     pix, samp = keys.pixel.int().contiguous(), keys.sample.int().contiguous()
-    launches = (bs.bounce_step.launches["bounce_step"],
-                ch.closest_hit_attrs.launches["closest_hit_attrs"],
-                ch.closest_hit.launches["closest_hit"])
+    before = tracing.counts()
     for b in range(cfg.max_depth):
         nxt = bs.bounce_step(call, state, pix, samp, b)
         torch.cuda.synchronize()
@@ -75,9 +74,9 @@ def test_explicit_ray_kernels_match_plain_on_card(name):
         want = ch.closest_hit_reference(ro, rd, alive, scene.centers, scene.radii)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), b
         state = nxt
-    assert (bs.bounce_step.launches["bounce_step"],
-            ch.closest_hit_attrs.launches["closest_hit_attrs"],
-            ch.closest_hit.launches["closest_hit"]) == tuple(x + cfg.max_depth for x in launches)
+    ran = tracing.counts() - before
+    assert (ran["launch.bounce_step"], ran["launch.closest_hit_attrs"],
+            ran["launch.closest_hit"]) == (cfg.max_depth,) * 3
     assert torch.isfinite(state).all() and state[9:12].max() > 0
 
 
@@ -96,10 +95,10 @@ def test_hits_pixel_loss_kernels_match_plain_on_card(monkeypatch):
         loss = tpt.pixel_loss(params, static, target, cam, cfg, tpt.make_key(3), device="cuda")
         return loss, torch.autograd.grad(loss, list(params.values()))
 
-    n_bucket = bucket.bucket_cols.launches[9]
+    before = tracing.counts()
     l_k, g_k = loss_grads()
     # One bucket per bounce but the last, whose attributes reach no output.
-    assert bucket.bucket_cols.launches[9] == n_bucket + cfg.max_depth - 1
+    assert (tracing.counts() - before)["launch.bucket.9"] == cfg.max_depth - 1
     monkeypatch.setattr(ch, "closest_hit_attrs", ch.closest_hit_attrs_reference)
     monkeypatch.setattr(bucket, "bucket_cols", bucket.bucket_cols_reference)
     l_p, g_p = loss_grads()
@@ -133,11 +132,11 @@ def test_closest_hit_attrs_compaction_on_card(name, pattern):
              "queue_fills": i % 32 < 20,
              "random": torch.rand(n, generator=torch.Generator("cuda").manual_seed(2),
                                   device="cuda") < 0.5}[pattern]
-    launches = ch.closest_hit_attrs.launches["closest_hit_attrs"]
+    before = tracing.counts()
     got = ch.closest_hit_attrs(o, d, alive, tables)
     want = ch.closest_hit_attrs_reference(o, d, alive, tables)
     again = ch.closest_hit_attrs(o, d, alive, tables, tab=ch.sphere_table(tables))
-    assert ch.closest_hit_attrs.launches["closest_hit_attrs"] == launches + 2
+    assert (tracing.counts() - before)["launch.closest_hit_attrs"] == 2
     for out in (got, again):
         assert torch.equal(out[0], want[0]) and torch.equal(out[2], want[2])
         assert all(torch.equal(a, w) for a, w in zip(out[1], want[1]))
@@ -177,7 +176,7 @@ def test_bounce_step_compaction_on_card(name, pattern):
                                   device="cuda") < 0.5}[pattern]
     state = bs.initial_state(o, d)
     state[12] = alive.float()
-    launches = bs.bounce_step.launches["bounce_step"]
+    before = tracing.counts()
     for b in (0, 3):
         got = bs.bounce_step(call, state, pix, samp, b)
         torch.cuda.synchronize()
@@ -185,7 +184,7 @@ def test_bounce_step_compaction_on_card(name, pattern):
         assert torch.equal(got[:12, ~alive], state[:12, ~alive]) and not got[12, ~alive].any()
         if pattern != "none":
             assert got[12, alive].any() and not torch.equal(got[:, alive], state[:, alive])
-    assert bs.bounce_step.launches["bounce_step"] == launches + 2
+    assert (tracing.counts() - before)["launch.bounce_step"] == 2
 
 
 @pytest.mark.cuda
@@ -209,9 +208,9 @@ def test_closest_hit_grazing_rays_on_card(spheres, alive_mask):
     alive = {"all": torch.ones(n, dtype=torch.bool, device="cuda"),
              "some": torch.arange(n, device="cuda") % 3 != 0,
              "none": torch.zeros(n, dtype=torch.bool, device="cuda")}[alive_mask]
-    launches = ch.closest_hit.launches["closest_hit"]
+    before = tracing.counts()
     idx, t = ch.closest_hit(o, d, alive, centers, radii)
-    assert ch.closest_hit.launches["closest_hit"] == launches + 1
+    assert (tracing.counts() - before)["launch.closest_hit"] == 1
     want_idx, want_t = ch.closest_hit_reference(o, d, alive, centers, radii)
     assert torch.equal(idx, want_idx) and torch.equal(t, want_t)
     assert alive_mask == "none" or bool((idx >= 0).any())
@@ -232,19 +231,19 @@ def test_gather_rows_takes_any_table_shape_on_card(s, k):
     table = torch.randn((s, k), generator=gen).cuda().requires_grad_(True)
     idx = torch.randint(0, s, (n,), generator=gen, dtype=torch.int32).cuda()
     ct = torch.randn((n, k), generator=gen).cuda()
-    before = sum(bucket.bucket_cols.launches.values())
+    before = tracing.counts()
     out = gather_rows(table, idx)
     assert torch.equal(out, table[idx.long()])
     (g,) = torch.autograd.grad(out, [table], ct)
     (g_plain,) = torch.autograd.grad(table[idx.long()], [table], ct)
     torch.testing.assert_close(g, g_plain, rtol=1e-5, atol=1e-5)
-    assert sum(bucket.bucket_cols.launches.values()) == before
+    assert not [k for k in tracing.counts() - before if k.startswith("launch.bucket.")]
     if s <= 4096:
         tab9 = torch.randn((s, 9), generator=gen).cuda().requires_grad_(True)
         cols = tuple(tab9.detach()[idx.long(), j] for j in range(9))
-        launched = bucket.bucket_cols.launches[9]
+        before = tracing.counts()
         out9 = attach_attr_columns(tab9, idx, *cols)
         (g9,) = torch.autograd.grad(sum(c.sum() for c in out9), [tab9])
-        assert bucket.bucket_cols.launches[9] == launched + 1
+        assert (tracing.counts() - before)["launch.bucket.9"] == 1
         torch.testing.assert_close(g9, torch.autograd.grad(tab9[idx.long()].sum(), [tab9])[0],
                                    rtol=1e-5, atol=1e-5)

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import simplepathtracer_tpu_torch as tpt
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.ops import bucket, grad as fg
 from simplepathtracer_tpu_torch.ops.bounce import bounce_tile_adjoint
 from simplepathtracer_tpu_torch.ops.grad_regen import scene_inputs
@@ -75,9 +76,9 @@ def test_fused_kernels_match_plain_on_card(name, spp, depth, rr, softness):
     scene, cam, w, h, keys = _case(name, spp)
     cfg = tpt.RenderConfig(width=w, height=h, spp=spp, max_depth=depth, rr_start_depth=rr,
                            silhouette_softness=softness)
-    n_ray = fg.raygen.launches["raygen"]
+    before = tracing.counts()
     rays = fg.raygen(cam, keys, cfg)
-    assert fg.raygen.launches["raygen"] == n_ray + 1
+    assert (tracing.counts() - before)["launch.raygen"] == 1
     assert torch.equal(rays, fg.raygen_reference(cam, keys, cfg))
 
     inputs = scene_inputs(scene)
@@ -171,9 +172,9 @@ def test_fused_forward_compaction_on_card(pattern, softness):
     variant = "soft" if soft else "hard"
     for b in range(depth):
         rad_p = rad.clone()
-        before = fg.grad_forward.launches[variant]
+        before = tracing.counts()
         got = fg.grad_forward(call, state, rad, prev, pix, samp, b)
-        assert fg.grad_forward.launches[variant] == before + 1
+        assert (tracing.counts() - before)[f"launch.grad_forward.{variant}"] == 1
         want = fg.grad_fwd_reference(call, state, rad_p, prev, pix, samp, b)
         for g, x in zip(got, want):
             assert (g is None) == (x is None) and (g is None or torch.equal(g, x)), b
@@ -232,10 +233,10 @@ def test_fused_backward_compaction_on_card(pattern, softness):
         st, idx, bidx = saved[b]
         dead = st[9] <= 0
         for want_attr in (True, False):
-            before = fg.grad_backward.launches[variant]
+            before = tracing.counts()
             ck, ak, sk = fg.grad_backward(call, st, idx, bidx, pix, samp, b, carry, ct_rad,
                                           want_attr)
-            assert fg.grad_backward.launches[variant] == before + 1
+            assert (tracing.counts() - before)[f"launch.grad_backward.{variant}"] == 1
             cp, ap, _ = fg.grad_bwd_reference(call, st, idx, bidx, pix, samp, b, carry, ct_rad,
                                               want_attr)
             assert torch.equal(ck, cp) and torch.equal(ck[:, dead], carry[:, dead]), b
@@ -321,11 +322,11 @@ def test_raygen_edges_on_card(name):
     cfg, keys = _raygen_edge(name)
     n = keys.pixel.shape[0]
     want = fg.raygen_reference(cam, keys, cfg)
-    before = fg.raygen.launches["raygen"]
+    before = tracing.counts()
     assert torch.equal(fg.raygen(cam, keys, cfg), want)
     pix = torch.empty(n + 1, dtype=torch.int32, device="cuda")[1:]
     pix.copy_(keys.pixel)
     assert pix.data_ptr() % 16
     off = keys._replace(pixel=pix, sample=keys.sample.to(torch.int32))
     assert torch.equal(fg.raygen(cam, off, cfg), want)
-    assert fg.raygen.launches["raygen"] == before + 2
+    assert (tracing.counts() - before)["launch.raygen"] == 2

@@ -56,6 +56,7 @@ from simplepathtracer_tpu.ops.sampling import camera_jitter as jax_camera_jitter
 from simplepathtracer_tpu.ops.sampling import ray_keys as jax_ray_keys
 
 import simplepathtracer_tpu_torch as tpt
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene
 from simplepathtracer_tpu_torch.ops import grad as fg
 from simplepathtracer_tpu_torch.ops.grad_regen import _blocker, _winner, scene_inputs
@@ -264,8 +265,8 @@ def test_raygen_reference_matches_jax_raygen():
     want = np.stack([_flat(t, n) for t in raygen_tiles(jcam, jkeys, jcfg)])
     keys = ray_keys(tpt.make_key(9), torch.as_tensor(pids), torch.as_tensor(sids))
     cfg = tpt.RenderConfig(width=40, height=30, spp=2)
-    calls = fg.raygen_reference.calls
+    before = tracing.counts()
     got = fg.raygen(convert_camera(jcam, "cpu"), keys, cfg)
-    assert fg.raygen_reference.calls == calls + 1
+    assert (tracing.counts() - before)["plain.raygen_reference"] == 1
     assert got.shape == (6, n)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6)

@@ -1,6 +1,6 @@
 """Routing of the fused gradient kernels and of camera gradients in the
 port (the JAX package's ``render.py:203-232, 564-594, 735-740``), checked
-through the plain versions' call counters on the CPU:
+through the plain versions' call counters (``tracing.counts()``) on the CPU:
 
 * ``camera_grad`` never takes the regeneration kernels, and its spp chunk
   comes from the fused route's budget;
@@ -23,7 +23,8 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
-from simplepathtracer_tpu_torch.ops import bucket, grad as fg, grad_regen
+from simplepathtracer_tpu_torch import tracing
+from simplepathtracer_tpu_torch.ops import grad as fg, grad_regen
 from simplepathtracer_tpu_torch.ops.sampling import ray_keys
 
 port_render = importlib.import_module("simplepathtracer_tpu_torch.render")
@@ -48,10 +49,11 @@ def _camera_grads(scene, cam, cfg, target, **kw):
 
 def test_camera_grad_skips_the_regen_kernels():
     scene, cam, cfg, target = _setup(use_pallas_grad=True, grad_regen=True)
-    regen, fused = grad_regen.regen_fwd_reference.calls, fg.grad_fwd_reference.calls
+    before = tracing.counts()
     loss, grads = _camera_grads(scene, cam, cfg, target)
-    assert grad_regen.regen_fwd_reference.calls == regen
-    assert fg.grad_fwd_reference.calls == fused + cfg.max_depth
+    ran = tracing.counts() - before
+    assert ran["plain.regen_fwd_reference"] == 0
+    assert ran["plain.grad_fwd_reference"] == cfg.max_depth
     assert torch.isfinite(loss) and grads[0].abs().max() > 0
     # The chunk on CUDA: the fused budget, not the regen kernels'.
     cover = tpt.PRESETS["cover"].config
@@ -66,13 +68,14 @@ def test_camera_grad_skips_the_regen_kernels():
 
 def test_plane_scenes_take_the_eager_bounce():
     scene, cam, cfg, target = _setup(plane=True)
-    calls = fg.grad_fwd_reference.calls, fg.raygen_reference.calls
+    before = tracing.counts()
     out = []
     for c in (cfg.replace(use_pallas_grad=True), cfg):
         params = {k: v.clone().requires_grad_(True) for k, v in tpt.split_params(scene)[0].items()}
         loss = tpt.pixel_loss(params, scene, target, cam, c, tpt.make_key(1), device="cpu")
         out.append((loss, torch.autograd.grad(loss, list(params.values()))))
-    assert (fg.grad_fwd_reference.calls, fg.raygen_reference.calls) == calls
+    ran = tracing.counts() - before
+    assert (ran["plain.grad_fwd_reference"], ran["plain.raygen_reference"]) == (0, 0)
     (l_f, g_f), (l_e, g_e) = out
     assert torch.equal(l_f, l_e) and all(torch.equal(a, b) for a, b in zip(g_f, g_e))
     with pytest.raises(ValueError, match="sphere-only"):
@@ -84,23 +87,24 @@ def test_plane_scenes_take_the_eager_bounce():
 @pytest.mark.parametrize("camera_grad", [False, True], ids=["raygen", "generate_rays"])
 def test_render_pixels_camera_rays(camera_grad):
     scene, cam, cfg, _ = _setup(use_pallas_grad=True, camera_grad=camera_grad)
-    calls = fg.raygen_reference.calls, fg.grad_fwd_reference.calls
+    before = tracing.counts()
     pids = torch.arange(cfg.num_pixels)
     rad = tpt.render_pixels(scene, cam, cfg, tpt.make_key(1), pids, torch.zeros_like(pids))
     assert rad.shape == (cfg.num_pixels, 3) and torch.isfinite(rad).all() and rad.max() > 0
-    assert fg.raygen_reference.calls == calls[0] + (0 if camera_grad else 1)
-    assert fg.grad_fwd_reference.calls == calls[1] + cfg.max_depth
+    ran = tracing.counts() - before
+    assert ran["plain.raygen_reference"] == (0 if camera_grad else 1)
+    assert ran["plain.grad_fwd_reference"] == cfg.max_depth
 
 
 def test_buckets_run_only_for_table_gradients():
     scene, cam, cfg, target = _setup(use_pallas_grad=True)
-    calls = bucket.bucket_cols_reference.calls
+    before = tracing.counts()
     _camera_grads(scene, cam, cfg, target)
-    assert bucket.bucket_cols_reference.calls == calls
+    assert (tracing.counts() - before)["plain.bucket_cols_reference"] == 0
     params = {k: v.clone().requires_grad_(True) for k, v in tpt.split_params(scene)[0].items()}
     loss = tpt.pixel_loss(params, scene, target, cam, cfg, tpt.make_key(1), device="cpu")
     loss.backward()
-    assert bucket.bucket_cols_reference.calls == calls + cfg.max_depth
+    assert (tracing.counts() - before)["plain.bucket_cols_reference"] == cfg.max_depth
     assert params["albedo"].grad.abs().max() > 0
 
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import simplepathtracer_tpu_torch as tpt
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
 
 
@@ -47,10 +48,10 @@ def test_gradient_kernels_match_plain_on_card(rr, softness, plane):
     1e-5 (bit for bit expected), the buckets to rounding (atomics): the
     winner's 9 columns and, soft, the blocker's 4."""
     call = _call(rr, softness, plane)
-    launches = gr.regen_forward.launches[gr.variant(call)]
+    before = tracing.counts()
     rad, cnt, (resf, resi) = gr.regen_forward(call, 5, True)
     rad_p, cnt_p, (resf_p, resi_p) = gr.regen_fwd_reference(call, 5, True)
-    assert gr.regen_forward.launches[gr.variant(call)] == launches + 1
+    assert (tracing.counts() - before)[f"launch.regen_forward.{gr.variant(call)}"] == 1
     alive = resf_p[9] > 0
     assert torch.equal(rad, rad_p) and torch.equal(cnt, cnt_p)
     assert torch.equal(resf[9], resf_p[9]) and torch.equal(resi[3], resi_p[3])
@@ -109,9 +110,10 @@ def test_regen_forward_lane_fetch_on_card(n_samples, rr, n_pix, softness, plane)
     pix = torch.randperm(48 * 24, generator=gen)[:n_pix]
     call = _call(rr, softness, plane, pix, n_samples)
     assert call.n_lanes == n_pix
-    counters = torch.full((3,), -1, dtype=torch.int64, device="cuda")
-    rad, cnt, packed = gr.regen_forward(call, 7, False, counters)
-    counters = counters.tolist()
+    with tracing.enabled(), tracing.span("spt.test.forward"):
+        rad, cnt, packed = gr.regen_forward(call, 7, False)
+    (rec,) = tracing.spans()
+    counters = [rec["counts"][k] for k in ("lanes_fetched", "thread_iters", "blocks")]
     rad2, cnt2, packed2 = gr.regen_forward(call, 7, False)
     rad_p, cnt_p, packed_p = gr.regen_fwd_reference(call, 7, False)
     assert torch.equal(rad, rad_p) and torch.equal(cnt, cnt_p) and torch.equal(packed, packed_p)
@@ -165,10 +167,10 @@ def test_regen_backward_uneven_lanes_on_card(n_banks, rr, softness, plane):
     assert ((resf[9] > 0).sum(dim=0).cpu() == cut).all() and (cut < cnt).any()
 
     ct = torch.randn((call.pixel_ids.shape[0], 3), generator=gen).to("cuda")
-    launches = gr.regen_backward.launches[gr.variant(call)]
+    before = tracing.counts()
     ctp, part = gr.regen_backward(call, 3, resf, resi, ct)
     ctp_p, part_p = gr.regen_bwd_reference(call, 3, resf, resi, ct)
-    assert gr.regen_backward.launches[gr.variant(call)] == launches + 1
+    assert (tracing.counts() - before)[f"launch.regen_backward.{gr.variant(call)}"] == 1
     assert torch.equal(ctp, ctp_p) and torch.equal(part, part_p)
     assert not ctp[:, dead].any() and not part[:, 32:64].any()
     assert ctp[:, ~dead].abs().sum() > 0
@@ -198,12 +200,12 @@ def test_regen_reforward_uneven_lanes_on_card(n_banks, rr, softness, plane):
     call = _call(rr, softness, plane, pix, 12, n_banks, w, h)
     assert call.n_banks == n_banks and call.n_lanes % 32 != 0
     v = gr.variant(call)
-    launches = (gr.regen_forward.launches[v], gr.regen_refwd.launches[v])
+    before = tracing.counts()
     rad, cnt, full = gr.regen_forward(call, 3, True)
     _, _, packed = gr.regen_forward(call, 3, False)
     refwd = gr.regen_refwd(call, 3, packed)
-    assert (gr.regen_forward.launches[v], gr.regen_refwd.launches[v]) == (
-        launches[0] + 2, launches[1] + 1)
+    ran = tracing.counts() - before
+    assert (ran[f"launch.regen_forward.{v}"], ran[f"launch.regen_refwd.{v}"]) == (2, 1)
     rad_p, cnt_p, (pf, pi) = gr.regen_fwd_reference(call, 3, True)
     assert torch.equal(rad, rad_p) and torch.equal(cnt, cnt_p)
     assert cnt.min() < cnt.max()

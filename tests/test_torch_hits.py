@@ -47,11 +47,9 @@ from simplepathtracer_tpu import inverse as jinv
 from simplepathtracer_tpu.ops.pallas_intersect import closest_hit_attrs_pallas, closest_hit_pallas
 
 import simplepathtracer_tpu_torch as tpt
-from simplepathtracer_tpu_torch import inverse
+from simplepathtracer_tpu_torch import inverse, tracing
 from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene, params_to_numpy
 from simplepathtracer_tpu_torch.ops import closest_hit as ch
-from simplepathtracer_tpu_torch.ops import grad as fused
-from simplepathtracer_tpu_torch.ops import grad_regen
 from simplepathtracer_tpu_torch.ops import intersect
 from simplepathtracer_tpu_torch.ops.table_gather import (
     attach_attr_columns,
@@ -206,9 +204,10 @@ def test_hits_route_builds_the_sphere_table_once_per_trace(cover_rays, monkeypat
     built, sphere_table = [], ch.sphere_table
     monkeypatch.setattr(ch, "sphere_table", lambda t: built.append(1) or sphere_table(t))
     scene, cam, cfg, target = _tiny()
-    calls = ch.closest_hit_attrs_reference.calls
+    before = tracing.counts()
     _port_loss_grads(scene, cam, cfg, tpt.make_key(0), target)
-    assert built and ch.closest_hit_attrs_reference.calls - calls == len(built) * cfg.max_depth
+    ran = tracing.counts() - before
+    assert built and ran["plain.closest_hit_attrs_reference"] == len(built) * cfg.max_depth
 
 
 def test_intersect_scene_pallas_rebuilds_a_differentiable_hit(cover_rays):
@@ -344,11 +343,11 @@ def _hits_setup(case):
 @pytest.mark.parametrize("case", ["albedo_perturbed", "masked_idx"])
 def test_hits_route_matches_eager_route(case):
     scene, cam, cfg, key, target, l_rtol, g_rtol, g_atol = _hits_setup(case)
-    calls = ch.closest_hit_attrs_reference.calls
+    before = tracing.counts()
     l_h, g_h = _port_loss_grads(scene, cam, cfg.replace(use_pallas_hits=True), key, target)
-    assert ch.closest_hit_attrs_reference.calls == calls + cfg.max_depth
+    assert (tracing.counts() - before)["plain.closest_hit_attrs_reference"] == cfg.max_depth
     l_e, g_e = _port_loss_grads(scene, cam, cfg, key, target)
-    assert ch.closest_hit_attrs_reference.calls == calls + cfg.max_depth
+    assert (tracing.counts() - before)["plain.closest_hit_attrs_reference"] == cfg.max_depth
     np.testing.assert_allclose(l_h, l_e, rtol=l_rtol)
     assert set(g_h) == set(g_e)
     for k in g_e:
@@ -397,9 +396,9 @@ def test_hits_config_on_plane_or_soft_scene_takes_the_eager_bounce(which):
         scene = tpt.with_ground_plane(scene)
     else:
         cfg = cfg.replace(silhouette_softness=0.05)
-    calls = ch.closest_hit_attrs_reference.calls
+    before = tracing.counts()
     l_h, _ = _port_loss_grads(scene, cam, cfg, tpt.make_key(0), target)
-    assert ch.closest_hit_attrs_reference.calls == calls
+    assert (tracing.counts() - before)["plain.closest_hit_attrs_reference"] == 0
     l_e, _ = _port_loss_grads(scene, cam, cfg.replace(use_pallas_hits=False), tpt.make_key(0),
                               target)
     assert l_h == l_e
@@ -422,11 +421,11 @@ def test_fit_config_routes_as_the_jax_fit(flags, route):
     assert inverse.fit_config(cfg, "cpu") == tpt.grad_safe_config(cfg, "cpu")
     gcfg = inverse.fit_config(cfg, "cuda")
     assert not gcfg.use_pallas
-    counters = (fused.grad_fwd_reference, ch.closest_hit_attrs_reference,
-                grad_regen.regen_fwd_reference)
-    before = [c.calls for c in counters]
+    before = tracing.counts()
     _port_loss_grads(scene, cam, gcfg, tpt.make_key(0), target)
-    ran = [c.calls - b for c, b in zip(counters, before)]
+    got = tracing.counts() - before
+    ran = [got[f"plain.{f}"] for f in ("grad_fwd_reference", "closest_hit_attrs_reference",
+                                       "regen_fwd_reference")]
     want = {"fused": [cfg.max_depth, 0, 0], "hits": [0, cfg.max_depth, 0],
             "regen": [0, 0, 1]}[route]
     assert ran == want

@@ -17,6 +17,7 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.ops import persistent
 from simplepathtracer_tpu_torch.render import (
     _balanced_perm,
@@ -192,10 +193,10 @@ def test_kernel_is_bit_exact_on_card(name, w, h, spp, rr, perm):
     gen = torch.Generator().manual_seed(4)
     pix = (torch.randperm(w * h, generator=gen)[: w * h - 101] if perm
            else torch.arange(w * h)).to("cuda")
-    before = persistent.render_block_persistent.launches
+    before = tracing.counts()
     a, ca = persistent.render_block_persistent(pix, *args, **kw)
     a2, ca2 = persistent.render_block_persistent(pix, *args, **kw)
-    assert persistent.render_block_persistent.launches == before + 2
+    assert (tracing.counts() - before)["launch.persistent"] == 2
     b, cb = persistent.render_block_persistent_reference(pix, *args, **kw)
     assert torch.equal(a, b) and torch.equal(ca, cb)
     assert torch.equal(a, a2) and torch.equal(ca, ca2)

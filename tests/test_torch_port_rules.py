@@ -13,16 +13,8 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
-from simplepathtracer_tpu_torch import inverse
-from simplepathtracer_tpu_torch.ops import (
-    bounce_step,
-    bucket,
-    closest_hit,
-    grad as fused,
-    grad_regen,
-    intersect,
-    persistent,
-)
+from simplepathtracer_tpu_torch import inverse, tracing
+from simplepathtracer_tpu_torch.ops import bucket, grad_regen, intersect, persistent
 from simplepathtracer_tpu_torch.render import _persistent_args
 
 REPO = Path(__file__).resolve().parent.parent
@@ -75,12 +67,12 @@ def test_wrapper_on_cpu_takes_plain_version():
     scene = tpt.three_sphere_scene(device="cpu")
     cam = tpt.make_camera(origin=(0, 0, -1), lookat=(0, 0, 1), device="cpu")
     cfg = tpt.RenderConfig(width=16, height=8, spp=2, max_depth=4, use_pallas=True)
-    launches = persistent.render_block_persistent.launches
-    calls = persistent.render_block_persistent_reference.calls
+    before = tracing.counts()
     img = tpt.render(scene, cam, cfg, tpt.make_key(0))
     assert img.shape == (8, 16, 3) and torch.isfinite(img).all() and img.max() > 0
-    assert persistent.render_block_persistent.launches == launches
-    assert persistent.render_block_persistent_reference.calls == calls + 1
+    ran = tracing.counts() - before
+    assert ran["launch.persistent"] == 0
+    assert ran["plain.render_block_persistent_reference"] == 1
 
     tables, sky6, cam19 = _persistent_args(scene, cam, cfg)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -91,12 +83,10 @@ def test_wrapper_on_cpu_takes_plain_version():
     # The explicit-ray forward and the closest-hit kernels: bounce step
     # (render_pixels under use_pallas), closest hit with attributes (the
     # hits route) and closest hit (intersect_scene_pallas).
-    wrappers = [
-        (bounce_step.bounce_step, bounce_step.bounce_step_reference),
-        (closest_hit.closest_hit_attrs, closest_hit.closest_hit_attrs_reference),
-        (closest_hit.closest_hit, closest_hit.closest_hit_reference),
-    ]
-    before = [(k.launches.copy(), p.calls) for k, p in wrappers]
+    wrappers = [("bounce_step", "bounce_step_reference"),
+                ("closest_hit_attrs", "closest_hit_attrs_reference"),
+                ("closest_hit", "closest_hit_reference")]
+    before = tracing.counts()
     pids = torch.arange(16 * 8)
     with torch.no_grad():
         rad = tpt.render_pixels(scene, cam, cfg, tpt.make_key(0), pids, torch.zeros_like(pids))
@@ -106,9 +96,10 @@ def test_wrapper_on_cpu_takes_plain_version():
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(4, 1)
     hit = intersect.intersect_scene_pallas(o, d, torch.ones(4, dtype=torch.bool), scene)
     assert torch.isfinite(rad).all() and hit.hit.all()
-    for (k, p), (launches, calls) in zip(wrappers, before):
-        assert k.launches == launches
-        assert p.calls > calls
+    ran = tracing.counts() - before
+    for kernel, plain in wrappers:
+        assert ran[f"launch.{kernel}"] == 0
+        assert ran[f"plain.{plain}"] > 0
 
 
 @pytest.mark.parametrize(
@@ -146,15 +137,15 @@ def test_ported_config_fields_run(fields, route):
     cfg = cfg.replace(**fields)
     params, cam0 = tpt.split_camera(cam)
     params = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    counters = (fused.grad_fwd_reference, fused.grad_bwd_reference,
-                grad_regen.regen_fwd_reference, closest_hit.closest_hit_attrs_reference)
-    before = [c.calls for c in counters]
+    before = tracing.counts()
     loss = inverse.camera_pixel_loss(params, cam0, scene, target, cfg, tpt.make_key(0),
                                      device="cpu")
     grads = torch.autograd.grad(loss, list(params.values()))
     assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)
     assert max(g.abs().max().item() for g in grads) > 0
-    ran = [c.calls - b for c, b in zip(counters, before)]
+    got = tracing.counts() - before
+    ran = [got[f"plain.{f}"] for f in ("grad_fwd_reference", "grad_bwd_reference",
+                                       "regen_fwd_reference", "closest_hit_attrs_reference")]
     d = cfg.max_depth
     assert ran == {"fused": [d, d, 0, 0], "hits": [0, 0, 0, d], "eager": [0, 0, 0, 0]}[route]
 
@@ -218,19 +209,15 @@ def test_grad_safe_config_routes_by_device():
 def test_gradient_wrappers_on_cpu_take_plain_versions():
     scene, cam, cfg, target = _tiny()
     cfg = cfg.replace(use_pallas_grad=True, grad_regen=True, spp_chunk=1)
-    wrappers = [
-        (grad_regen.regen_forward, grad_regen.regen_fwd_reference),
-        (grad_regen.regen_refwd, grad_regen.regen_refwd_reference),
-        (grad_regen.regen_backward, grad_regen.regen_bwd_reference),
-        (bucket.bucket_cols, bucket.bucket_cols_reference),
-    ]
-    before = [(k.launches.copy(), p.calls) for k, p in wrappers]
+    before = tracing.counts()
     params = {k: v.clone().requires_grad_(True) for k, v in tpt.split_params(scene)[0].items()}
     loss = tpt.pixel_loss(params, scene, target, cam, cfg, tpt.make_key(0), device="cpu")
     loss.backward()
-    for (k, p), (launches, calls) in zip(wrappers, before):
-        assert k.launches == launches
-        assert p.calls > calls
+    ran = tracing.counts() - before
+    assert not [k for k in ran if k.startswith("launch.")]
+    for plain in ("regen_fwd_reference", "regen_refwd_reference", "regen_bwd_reference",
+                  "bucket_cols_reference"):
+        assert ran[f"plain.{plain}"] > 0
     call = grad_regen.regen_call(
         [t.to("meta") for t in grad_regen._trace_inputs(scene, cam, cfg)[0][:11]],
         torch.zeros(6, device="meta"), None, torch.zeros(19, device="meta"),
@@ -249,7 +236,7 @@ def test_gradient_wrappers_on_cpu_take_plain_versions():
     [(0.0, False, "hard"), (0.0, True, "hard"), (0.02, False, "soft"), (0.02, True, "soft_plane")],
 )
 def test_regen_variant_names_the_kernel_instantiation(softness, plane, want):
-    """The key each regen wrapper counts its launches under is the
+    """The variant each regen wrapper counts its launches under is the
     instantiation the CUDA entry points select (csrc/grad_regen.cu:
     variant_of): softness decides soft, then the plane decides soft_plane."""
     scene, cam, cfg, _ = _tiny()
@@ -302,12 +289,12 @@ def test_fit_camera_runs_on_the_cpu():
     and reports finite losses; without CUDA and without a device it
     raises."""
     scene, cam, cfg, target = _tiny()
-    calls = fused.grad_bwd_reference.calls
+    before = tracing.counts()
     fitted, losses = tpt.fit_camera(scene, target, cam, cfg.replace(use_pallas_grad=True),
                                     tpt.make_key(0), steps=2, device="cpu")
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert not torch.equal(fitted.origin, cam.origin) and torch.equal(fitted.vup, cam.vup)
-    assert fused.grad_bwd_reference.calls == calls + 2 * cfg.max_depth
+    assert (tracing.counts() - before)["plain.grad_bwd_reference"] == 2 * cfg.max_depth
 
 
 def test_slot_map_depth_limit():
