@@ -40,12 +40,15 @@ copy of the frame, have each strong coordinate's sign by central
 differences), each fused kernel at both paths' launch shapes on 2,048
 random rays against its plain version (the forward timed per bounce, with
 its ns per live ray-bounce), AD/FD of ``vfov_deg`` through the
-kernels, and README's ``fit_camera`` example.  Phase 9 drives the
+kernels, README's ``fit_camera`` example, and the camera-jitter kernel
+(``csrc/camera_jitter.cu``, the uniforms of the eager camera rays) at the
+camera fit's 48 M-ray launch against its plain version, bit for bit, timed
+beside its bound.  Phase 9 drives the
 explicit-ray forward and the ``use_pallas_hits`` gradient route
 (``csrc/bounce_step.cu``, ``csrc/closest_hit.cu``): the bounce-step kernel
 and both closest-hit kernels against their plain versions on every bounce
 of small traces (bit for bit); ``render_pixels`` of the cover preset over
-the full frame x 8 spp through the bounce-step kernel (each launch timed,
+the full frame x 8 spp through the bounce-step and camera-jitter kernels (each launch timed,
 2,048 random rays against the plain version, per-pixel sums against the
 persistent kernel: the knife-edge bound); ``fit`` through the hits route
 (closest-hit-attributes and bucket kernels only; the loss must fall; its
@@ -270,6 +273,15 @@ RAYGEN_BYTES = 32
 RAYGEN_OPS = {"integer": 153, "fp32": 49, "conversion": 6, "special": 4}
 # Rays per thread of the raygen kernel (csrc/grad.cu kRaygenRays).
 RAYGEN_RAYS_PER_THREAD = 4
+# The camera-jitter kernel (phase 8f, csrc/camera_jitter.cu): bytes per ray
+# (the int64 pixel and sample ids in, one float4 out) and the operations
+# per ray counted from the source once: integer, common.cuh's threefry2x32
+# twice sharing pix + k0 (143, as RAYGEN_OPS counts it), the counters
+# sid << 8, | 124 and | 125 (3), the four words' >> 8 (4); the four
+# conversions; FP32, the four scales.  Integer at half the FP32 lanes' rate
+# (as raygen's) sets the operations bound.
+CAMERA_JITTER_BYTES = 32
+CAMERA_JITTER_OPS = {"integer": 150, "fp32": 4, "conversion": 4}
 # SASS opcodes (before the first dot) by the pipe that runs them.
 SASS_PIPES = {
     "integer": {"IADD3", "IADD", "IMAD", "LOP3", "LOP", "SHF", "ISETP", "IMNMX", "IABS", "LEA",
@@ -493,6 +505,7 @@ WRAPPER_SITES = {
     "grad_fwd": ("grad", "grad_forward", "grad_fwd_reference"),
     "grad_bwd": ("grad", "grad_backward", "grad_bwd_reference"),
     "raygen": ("grad", "raygen", "raygen_reference"),
+    "camera_jitter": ("sampling", "camera_jitter", "camera_jitter_reference"),
     "bounce_step": ("bounce_step", "bounce_step", "bounce_step_reference"),
     "closest_hit_attrs": ("closest_hit", "closest_hit_attrs", "closest_hit_attrs_reference"),
     "closest_hit": ("closest_hit", "closest_hit", "closest_hit_reference"),
@@ -2158,7 +2171,8 @@ def phase8_fit_camera(tpt, dev, wrappers, extra_adfd=False):
     gcfg = tpt.grad_safe_config(cfg.replace(silhouette_softness=DEFAULT_SOFTNESS,
                                             camera_grad=True), dev)
     chunk, n = decoupled_chunks(cfg, gcfg)
-    want = {"grad_fwd_soft": 2 * n * cfg.max_depth, "grad_bwd_soft": n * cfg.max_depth}
+    want = {"grad_fwd_soft": 2 * n * cfg.max_depth, "grad_bwd_soft": n * cfg.max_depth,
+            "camera_jitter": 2 * n}
 
     def errors(c):
         return {"origin": (c.origin - cam.origin).norm().item(),
@@ -2249,7 +2263,7 @@ def phase8_adfd(tpt, dev, wrappers):
           f"launches {launches}, plain calls {calls}")
     if not (VFOV_ADFD_BOUNDS[0] <= ratio <= VFOV_ADFD_BOUNDS[1]
             and launches.get("grad_bwd_soft", 0) > 0
-            and set(launches) <= {"grad_fwd_soft", "grad_bwd_soft", "raygen"}
+            and set(launches) <= {"grad_fwd_soft", "grad_bwd_soft", "raygen", "camera_jitter"}
             and not any(calls.values())):
         raise RuntimeError("phase8: AD/FD of vfov through the fused kernels out of its bound")
     return {"ad": ad, "fd": fd, "ratio": ratio}
@@ -2278,6 +2292,80 @@ def phase8_readme_example(tpt, dev):
         raise RuntimeError("phase8: the README's fit_camera example did not move the origin "
                            "toward the truth")
     return {"losses": [losses[0], losses[-1]], "origin_error": [err0, err1], "seconds": seconds}
+
+
+def phase8_camera_jitter(tpt, dev, lib):
+    """The camera-jitter kernel (csrc/camera_jitter.cu) at the camera fit's
+    launch: fit_camera's defaults on the cover frame differentiate every
+    pixel x 50 samples in one chunk, and each half of the decoupled loss
+    draws that chunk's camera uniforms once (48 M rays; here samples 50-99,
+    the differentiated half's).  Holds the kernel's uniforms bit for bit
+    against the plain version's on every ray; on the first n - 1 rays (a
+    ragged last tile); and on the frame's last pixel ids with the last
+    sample ids and key words with their high bits set.  Times
+    ``camera_jitter`` (its output allocated per call), ``spt_camera_jitter``
+    alone and the plain version, with CUDA events; ptxas and both bounds.  Raises on a mismatch or on a launch count other
+    than one per call."""
+    from simplepathtracer_tpu_torch.ops import sampling as ts
+    from simplepathtracer_tpu_torch.ops.cuda_build import stream
+
+    t0 = time.perf_counter()
+    cfg = tpt.PRESETS["cover"].config
+    gcfg = tpt.grad_safe_config(cfg.replace(silhouette_softness=DEFAULT_SOFTNESS,
+                                            camera_grad=True), dev)
+    chunk, _ = decoupled_chunks(cfg, gcfg)
+    p = cfg.num_pixels
+    keys = ts.ray_keys(tpt.fold_in(tpt.make_key(0), 0), torch.arange(p, device=dev).repeat(chunk),
+                       (chunk + torch.arange(chunk, device=dev)).repeat_interleave(p))
+    n = keys.pixel.shape[0]
+    reset_counts()
+    got = ts.camera_jitter(keys)
+    sync(dev)
+    one_launch = launch_counts() == {"camera_jitter": 1}
+    want = ts.camera_jitter_reference(keys)
+    checks = {"every_ray": torch.equal(got, want), "one_launch": one_launch}
+    max_err = (got - want).abs().max().item()
+    del want
+    tail = ts.camera_jitter(sub_keys(keys, slice(0, n - 1)))
+    checks["n_minus_1"] = torch.equal(tail, got[:n - 1])
+    del tail
+    last = ts.ray_keys(torch.tensor([0xFFFFFFFF, 0x80000001]),
+                       torch.arange(p - 4099, p, device=dev).repeat(2),
+                       (2**24 - 1 - torch.arange(2, device=dev)).repeat_interleave(4099))
+    checks["last_ids_high_key_bits"] = torch.equal(ts.camera_jitter(last),
+                                                   ts.camera_jitter_reference(last))
+
+    out = torch.empty((n, 4), device=dev)
+
+    def launch():
+        if lib.lib.spt_camera_jitter(n, keys.k0, keys.k1, keys.pixel.data_ptr(),
+                                     keys.sample.data_ptr(), out.data_ptr(), stream(dev)) != 0:
+            raise RuntimeError("camera jitter: spt_camera_jitter failed to launch")
+
+    res = {"ms": cuda_ms(lambda: ts.camera_jitter(keys), reps=10),
+           "ms_kernel_alone": cuda_ms(launch, reps=20),
+           "plain_ms": cuda_ms(lambda: ts.camera_jitter_reference(keys), reps=2)}
+    sync(dev)
+    checks["alone"] = torch.equal(out, got)
+    del out, got
+    lanes = PEAK_FP32 / 2
+    ops_s = max(CAMERA_JITTER_OPS["integer"] / (lanes / 2), sum(CAMERA_JITTER_OPS.values()) / lanes)
+    res.update(checks=checks, max_abs_err=max_err, n_rays=n, ops_per_ray=CAMERA_JITTER_OPS,
+               bound_ops_ms=n * ops_s * 1e3,
+               bound_bytes_ms=n * CAMERA_JITTER_BYTES / PEAK_BYTES * 1e3,
+               ptxas=ptxas_usage(lib.log, "camera_jitter_kernel"))
+    res["bound_ms"] = max(res["bound_ops_ms"], res["bound_bytes_ms"])
+    res["bound_by"] = "operations" if res["bound_ops_ms"] >= res["bound_bytes_ms"] else "bytes"
+    print(f"phase8 camera jitter at {cfg.width}x{cfg.height}x{chunk}spp ({n} rays): through "
+          f"camera_jitter {res['ms']:.4f} ms, alone {res['ms_kernel_alone']:.4f} ms, plain "
+          f"{res['plain_ms']:.3f} ms; ptxas {res['ptxas']}; bounds: bytes "
+          f"{res['bound_bytes_ms']:.4f} ms, operations {res['bound_ops_ms']:.4f} ms "
+          f"({json.dumps(CAMERA_JITTER_OPS)} per ray, integer at half rate) -> "
+          f"{res['bound_ms'] / res['ms_kernel_alone']:.3f} of bound alone; bit-exact {checks}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not all(checks.values()):
+        raise RuntimeError(f"the camera-jitter kernel disagrees with its plain version: {checks}")
+    return res
 
 
 def explicit_cases(tpt, dev):
@@ -2415,8 +2503,9 @@ def phase9_explicit_forward(tpt, dev, wrappers):
     print(f"phase9 main path 1: render_pixels cover {cfg.width}x{cfg.height}x{spp}spp "
           f"({n} rays) depth {depth}, use_pallas: {out['s']:.4f} s, "
           f"{n / out['s'] / 1e6:.2f} Mpaths/s, launches {launches}, plain calls {calls}")
-    if launches != {"bounce_step": depth} or any(calls.values()):
-        raise RuntimeError("phase9: render_pixels did not run through the bounce-step kernel only")
+    if launches != {"bounce_step": depth, "camera_jitter": 1} or any(calls.values()):
+        raise RuntimeError("phase9: render_pixels did not run through the bounce-step and "
+                           "camera-jitter kernels only")
     if rad.shape != (n, 3) or not torch.isfinite(rad).all() or rad.max() <= 0:
         raise RuntimeError("phase9: render_pixels' radiance is not finite or is all zero")
 
@@ -2557,7 +2646,7 @@ def phase9_hits_fit(tpt, dev, wrappers):
     # (its hit point and direction are not read again).
     fwd_runs = 2 if n_chunks > 1 else 1
     want = {"closest_hit_attrs": fwd_runs * n_chunks * depth,
-            "bucket": n_chunks * (depth - 1)}
+            "bucket": n_chunks * (depth - 1), "camera_jitter": fwd_runs * n_chunks}
     paths = cfg.num_pixels * FUSED_SPP
     print(f"phase9 main path 2: fit (use_pallas_hits) cover {cfg.width}x{cfg.height}x"
           f"{FUSED_SPP}spp depth {depth}, {n_chunks} chunks of {chunk} spp, {FIT_STEPS} steps: "
@@ -3593,6 +3682,8 @@ def main(argv=None):
     phase_done("phase8d")
     readme8 = phase8_readme_example(tpt, dev)
     phase_done("phase8e")
+    jitter8 = phase8_camera_jitter(tpt, dev, lib)
+    phase_done("phase8f")
     for res in (main8b, main8c):
         for name, err in res["errs"].items():
             fused_errs[name] = max(fused_errs[name], err)
@@ -3834,6 +3925,25 @@ def main(argv=None):
             **fwd,
             **fresnel_extra(name, res),
         })
+    report["kernels"].append({
+        "name": "camera_jitter",
+        "route": "cuda",
+        "source": _SRC + "camera_jitter.cu",
+        "replaces": None,
+        "launches": main8c["launches"].get("camera_jitter", 0),
+        "max_abs_err": jitter8["max_abs_err"],
+        "ms": jitter8["ms"],
+        "plain_ms": jitter8["plain_ms"],
+        "bound_ms": jitter8["bound_ms"],
+        "bound_by": jitter8["bound_by"],
+        "library_ms": None,
+        "ms_shape": f"{cfg.width}x{cfg.height}x{jitter8['n_rays'] // cfg.num_pixels}spp, per launch",
+        "plain_ms_shape": f"{cfg.width}x{cfg.height}x{jitter8['n_rays'] // cfg.num_pixels}spp",
+        "launches_over_steps": FIT_STEPS,
+        **{k: jitter8[k] for k in ("ms_kernel_alone", "bound_bytes_ms", "bound_ops_ms",
+                                   "ops_per_ray", "checks")},
+        **jitter8["ptxas"],
+    })
     explicit = {"bounce_step": (main9b, f"{cfg.width}x{cfg.height}x{FUSED_SPP}spp depth "
                                         f"{cfg.max_depth}, per launch (render_pixels)"),
                 "closest_hit_attrs": (main9c, f"{cfg.width}x{cfg.height}x{main9c['chunk']}spp "

@@ -72,6 +72,8 @@ _SIGNATURES = {
         [I, P, I, P, I, U, U, U, F, F, I, P, P, P, P, P, P, P, P, P, P, P],
     # n, cam19, k0, k1, pix, samp, width, inv_w, inv_h, rays, stream
     "spt_raygen": [I, P, U, U, P, P, I, F, F, P, P],
+    # n, k0, k1, pix, samp, out, stream
+    "spt_camera_jitter": [ctypes.c_longlong, U, U, P, P, P, P],
     # n, tab, n_spheres, consts, use_plane, k0, k1, bounce, t_min, t_max,
     # rr_start_depth, state, pix, samp, next, stream
     "spt_bounce_step": [I, P, I, P, I, U, U, U, F, F, I, P, P, P, P, P],

@@ -16,7 +16,10 @@ Slot map (each slot = one threefry eval = 2 words):
 PyTorch on the CPU has no uint32 add or shift, and ``int32 >>`` is an
 arithmetic shift, so the words are computed in int64 and masked to 32 bits
 after every add and shift.  A key is two u32 words held in an int64 [2]
-tensor.
+tensor.  Run eagerly on the card, that is one kernel launch per op; the
+camera jitter, which the eager camera-ray routes draw for every ray, has a
+CUDA kernel (``csrc/camera_jitter.cu``) that computes the same words in u32
+(``camera_jitter``; its plain version ``camera_jitter_reference``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .. import tracing
+from .cuda_build import load_library, on_cpu, stream
 
 _M32 = 0xFFFFFFFF
 # threefry2x32 rotation schedule (Salmon et al., SC'11; same as jax's PRNG).
@@ -161,7 +167,34 @@ def crossing_noise(ctx: RayCtx, bounce: int):
 
 
 def camera_jitter(ctx: RayCtx) -> torch.Tensor:
-    """Per-ray (2 pixel-jitter, 2 lens-disk) uniforms [N, 4]."""
+    """Per-ray (2 pixel-jitter, 2 lens-disk) uniforms [N, 4]: slots 124 and
+    125.  Ids on CUDA launch the camera-jitter kernel
+    (``csrc/camera_jitter.cu``) on the int64 ids ``ray_keys`` made (any
+    shape; the uniforms get a last axis of 4), ids on the CPU take its plain
+    version; the two agree bit for bit."""
+    pix, samp = ctx.pixel, ctx.sample
+    if on_cpu(pix):
+        return camera_jitter_reference(ctx)
+    dev = pix.device
+    if (samp.device != dev or pix.dtype != torch.int64 or samp.dtype != torch.int64
+            or pix.shape != samp.shape or not pix.is_contiguous() or not samp.is_contiguous()):
+        raise ValueError(f"the ids must be contiguous int64 tensors of one shape on {dev}")
+    out = torch.empty((*pix.shape, 4), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(dev):
+        err = lib.lib.spt_camera_jitter(pix.numel(), ctx.k0, ctx.k1, pix.data_ptr(),
+                                        samp.data_ptr(), out.data_ptr(), stream(dev))
+    if err != 0:
+        raise RuntimeError(f"camera jitter kernel launch failed: CUDA error {err}")
+    tracing.count("launch.camera_jitter")
+    return out
+
+
+def camera_jitter_reference(ctx: RayCtx) -> torch.Tensor:
+    """Plain version of ``camera_jitter``: the words in int64 PyTorch ops."""
+    tracing.count("plain.camera_jitter_reference")
     return torch.stack(_uniform_words(ctx, 124, 2), dim=-1)
 
 

@@ -150,6 +150,39 @@ def test_ported_config_fields_run(fields, route):
     assert ran == {"fused": [d, d, 0, 0], "hits": [0, 0, 0, d], "eager": [0, 0, 0, 0]}[route]
 
 
+@pytest.mark.parametrize(
+    "fields,plane,jitter",
+    [
+        (dict(use_pallas_grad=True, camera_grad=True), False, 1),
+        (dict(use_pallas_grad=True), True, 1),
+        (dict(camera_grad=True), False, 1),
+        (dict(use_pallas_hits=True), False, 1),
+        (dict(use_pallas=True), False, 1),
+        (dict(use_pallas_grad=True), False, 0),
+    ],
+    ids=["fused_camera_grad", "fused_plane", "autograd", "hits", "bounce_step", "raygen"],
+)
+def test_render_pixels_draws_camera_jitter_off_the_raygen_route(fields, plane, jitter):
+    """Every ``render_pixels`` route but raygen's makes its camera rays
+    from ``camera_jitter`` (on CPU ids its plain version, once a call); the
+    raygen route draws the same slots inside the raygen kernel's plain
+    version instead."""
+    scene, cam, cfg, _ = _tiny()
+    if plane:
+        scene = tpt.with_ground_plane(scene)
+    cfg = cfg.replace(**fields)
+    p = cfg.width * cfg.height
+    pids = torch.arange(p).repeat(cfg.spp)
+    sids = torch.arange(cfg.spp).repeat_interleave(p)
+    before = tracing.counts()
+    rad = tpt.render_pixels(scene, cam, cfg, tpt.make_key(2), pids, sids)
+    ran = tracing.counts() - before
+    assert rad.shape == (p * cfg.spp, 3) and torch.isfinite(rad).all()
+    assert ran["plain.camera_jitter_reference"] == jitter
+    assert ran["plain.raygen_reference"] == 1 - jitter
+    assert not [k for k in ran if k.startswith("launch.")]
+
+
 @pytest.mark.parametrize("path", ["silhouette_softness", "softness", "pixel_loss_decoupled"])
 def test_soft_silhouette_paths_run(path):
     """Soft silhouettes are ported: the config field, ``fit``'s default

@@ -5,6 +5,8 @@ The two packages must draw the same words from the same key and global
 scene tables.  Inputs are made with numpy and handed to both.
 """
 
+from collections import Counter
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 from simplepathtracer_tpu.ops import sampling as js
+from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.ops import sampling as ts
 
 
@@ -49,6 +52,33 @@ def test_camera_jitter_exact():
     np.testing.assert_array_equal(
         ts.camera_jitter(tctx).numpy(), np.asarray(js.camera_jitter(jctx))
     )
+
+
+# (key words, pixel ids, sample ids) of the camera-jitter cases: random ids;
+# ids at their edges (the cover frame's last pixel, the last sample id a
+# counter holds, 2^24 - 1); key words with their high bits set.
+_JITTER_CASES = {
+    "random": ((0, 4), np.arange(0, 1200 * 800, 1877), np.arange(512) * 37 % 5000),
+    "edge_ids": ((0, 9), np.array([0, 1, 1200 * 800 - 2, 1200 * 800 - 1, 48 * 24 - 1, 0]),
+                 np.array([0, 2**24 - 1, 2**24 - 1, 2**24 - 2, 7, 2**24 - 1])),
+    "high_key_bits": ((0xFFFFFFFF, 0x80000001), np.arange(1021), np.arange(1021) % 3 + 2**23),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_JITTER_CASES))
+def test_camera_jitter_on_cpu_ids_takes_plain_version(case):
+    """On CPU ids ``camera_jitter`` runs its plain version once, launches
+    nothing, and draws the JAX package's words."""
+    (k0, k1), pix, smp = _JITTER_CASES[case]
+    words = np.array([k0, k1], dtype=np.uint32)
+    jctx = js.ray_keys(jnp.asarray(words), jnp.asarray(pix), jnp.asarray(smp))
+    tctx = ts.ray_keys(torch.from_numpy(words.astype(np.int64)), torch.from_numpy(pix),
+                       torch.from_numpy(smp))
+    before = tracing.counts()
+    got = ts.camera_jitter(tctx)
+    ran = tracing.counts() - before
+    assert ran == Counter({"plain.camera_jitter_reference": 1})
+    np.testing.assert_array_equal(got.numpy(), np.asarray(js.camera_jitter(jctx)))
 
 
 @pytest.mark.parametrize("seed", [0, 7, 2**31 - 1, 2**32 + 5])
