@@ -11,7 +11,10 @@ the card.  Phases 1-4 serve the forward render: the persistent kernel
 against its plain version, balancing, the full-width ``cover`` preset
 (1200x800, 100 spp, depth 10, thin-lens defocus) through ``render()``, and
 2,048 random pixels of that frame re-rendered by the plain version (bit for
-bit), with the kernel's registers, spill and resident grid.  Phases 5-6 serve inverse rendering: the regeneration forward (both
+bit), with the kernel's registers, spill and resident grid; phase 4e the
+kernel's emissive build on the ``smallpt`` preset's full frame at 16 spp
+(``render()`` through it alone, 2,048 random pixels bit for bit against the
+plain version, its time, bound and registers).  Phases 5-6 serve inverse rendering: the regeneration forward (both
 modes), re-forward, backward and bucket kernels against their plain
 versions at small shapes, through ``pixel_loss`` on 2,048 random pixels of
 the full frame, and kernel by kernel at one full-width chunk (2,048 random
@@ -132,6 +135,12 @@ PEAK_BYTES = 3.35e12
 # Pixels of the full cover frame that phases 4 and 6 also run through the
 # plain versions.
 N_CHECK_PIXELS = 2048
+# Phase 4e: samples of smallpt's frame, and the INT32 side of its bound:
+# integer operations of one threefry2x32 (common.cuh, as the card can issue
+# them: port_bench/pb_core/peaks_lit.py) at 132 SMs x 64 lanes x 1.98 GHz.
+SMALLPT_SPP = 16
+THREEFRY_INT_OPS = 73
+PEAK_INT32 = 132 * 64 * PEAK_FP32 / (132 * 128 * 2)
 # JAX's bound for regen gradients (tests/test_pallas_grad_regen.py).
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-6
 # Backward kernel against its plain version: expected bit-exact.
@@ -1303,6 +1312,84 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
         print(f"index_add_ on the {k} rows ({res['bucket_rows'][k]}): {t:.3f} ms")
     print(f"chunk iterations {iters:.0f}")
     return res
+
+
+def phase4e_emissive(tpt, dev, lib):
+    """Phase 4e: the persistent kernel's emissive build (``kEmit``) on the
+    ``smallpt`` preset's full 1024x768 frame at SMALLPT_SPP spp: ``render()``
+    must launch it once and no plain version, 2,048 random pixels of the
+    kernel's sums and counts must equal the plain version's bit for bit, and
+    the kernel is timed beside its FP32 scan bound and an estimate of its
+    INT32 RNG bound (every segment taken as a hit: 2 threefry evaluations a
+    path, 3 a segment, one a roulette draw at most a segment; the
+    benchmark's ``persistent_lit_roofline`` counts them exactly).  Returns
+    the kernels JSON's row."""
+    from simplepathtracer_tpu_torch.ops import persistent
+    from simplepathtracer_tpu_torch.render import _persistent_args
+
+    scene, cam, cfg = tpt.PRESETS["smallpt"].build(0, device=dev)
+    cfg = cfg.replace(spp=SMALLPT_SPP)
+    key = tpt.make_key(7)
+    tpt.render(scene, cam, cfg.replace(width=64, height=48, spp=2), key)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    img = tpt.render(scene, cam, cfg, key)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    since = counts_since_reset()
+    emit, plain_calls = since["launch.persistent.emit"], since["plain.render_block_persistent_reference"]
+    paths = cfg.num_pixels * cfg.spp
+    print(f"phase4e smallpt {cfg.width}x{cfg.height} spp={cfg.spp} depth={cfg.max_depth} "
+          f"rr={cfg.rr_start_depth} t_min={cfg.t_min}: render() {render_s:.4f} s, "
+          f"{paths / render_s / 1e6:.2f} Mpaths/s, emissive launches={emit}, plain calls={plain_calls}")
+    if emit != 1 or since["launch.persistent"] != 1 or plain_calls != 0:
+        raise RuntimeError("phase4e: render() did not run through the emissive build alone")
+    if not torch.isfinite(img).all() or img.max() <= 0:
+        raise RuntimeError("phase4e: the lit image is not finite or is all zero")
+
+    tables, sky6, cam19 = _persistent_args(scene, cam, cfg)
+    pix = torch.arange(cfg.num_pixels, device=dev)
+    call = (tables, sky6, cam19, key, 0, cfg.spp, cfg.max_depth, cfg.width, cfg.height)
+    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, rr_start_depth=cfg.rr_start_depth,
+              emission=scene.emission)
+    sums, counts = persistent.render_block_persistent(pix, *call, **kw, return_counts=True)
+    gen = torch.Generator().manual_seed(1)
+    rows = torch.randperm(cfg.num_pixels, generator=gen)[:N_CHECK_PIXELS].to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref, ref_counts = persistent.render_block_persistent_reference(rows, *call, **kw,
+                                                                   return_counts=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    d = (sums[rows] - ref).abs().max().item()
+    bad_counts = (counts[rows] != ref_counts).sum().item()
+    print(f"phase4e {N_CHECK_PIXELS} random pixels: max|d| of sums={d:.3e}, rows with unequal "
+          f"counts={bad_counts}, plain {plain_ms:.1f} ms")
+    if not (d == 0.0 and bad_counts == 0):
+        raise RuntimeError("phase4e: the emissive build disagrees with its plain version")
+
+    ms = cuda_ms(lambda: persistent.render_block_persistent(pix, *call, **kw), reps=3)
+    iters = counts.double().sum().item()
+    live = int(torch.isfinite(scene.radii).sum().item())
+    scan_ms = iters * live * FLOPS_PER_SPHERE_TEST / PEAK_FP32 * 1e3
+    rng_ms = (2 * paths + 4 * iters) * THREEFRY_INT_OPS / PEAK_INT32 * 1e3
+    bound_ms = max(scan_ms, rng_ms)
+    usage = ptxas_usage(lib.log, "persistent_kernelILb1EE")
+    print(f"kernel smallpt (emissive build): {ms:.3f} ms, iterations {iters:.0f} "
+          f"({iters / paths:.3f} per path), {iters / ms / 1e6:.2f} G segments/s, bound "
+          f"{bound_ms:.3f} ms (scan {scan_ms:.3f}, RNG at most {rng_ms:.3f}), "
+          f"{bound_ms / ms:.3f} of bound; {usage.get('registers')} registers, "
+          f"{usage.get('spill_bytes')} B spilled, {usage.get('stack_bytes')} B stack frame")
+    return {
+        "name": "persistent_render_emit", "route": "cuda",
+        "source": "simplepathtracer_tpu_torch/csrc/persistent.cu",
+        "replaces": None, "launches": emit, "max_abs_err": d, "ms": ms,
+        "plain_ms": plain_ms, "plain_ms_shape": f"{N_CHECK_PIXELS} pixels x {cfg.spp} spp",
+        "bound_ms": bound_ms, "bound_by": "operations (INT32)" if rng_ms >= scan_ms else
+        "operations (FP32)", "ms_shape": f"{cfg.width}x{cfg.height}x{cfg.spp}spp",
+        "iterations_per_path": iters / paths, "render_s": render_s, **usage,
+    }
 
 
 def poke_scene(tpt, dev):
@@ -3600,7 +3687,7 @@ def main(argv=None):
     print(f"kernel cover full frame: {ms:.3f} ms, iterations {iters:.0f} "
           f"({iters / paths:.3f} per path), {live} live spheres, bound {bound_ms:.3f} ms (FP32 ops), "
           f"{bound_ms / ms:.3f} of bound")
-    usage = ptxas_usage(lib.log, "persistent_kernel")
+    usage = ptxas_usage(lib.log, "persistent_kernelILb0EE")
     usage["grid_blocks"] = persistent.grid_blocks(cfg.num_pixels, scene.num_spheres)
     print(f"persistent kernel: {usage.get('registers')} registers, {usage.get('spill_bytes')} B "
           f"spilled, {usage.get('stack_bytes')} B stack frame (nvcc -Xptxas -v); resident grid "
@@ -3622,6 +3709,11 @@ def main(argv=None):
             print(f"sweep: render() {name} {t:.3f} ms")
 
     phase_done("phase4")
+
+    # ---- phase 4e: the emissive build on smallpt's frame --------------------
+    lit4e = phase4e_emissive(tpt, dev, lib)
+
+    phase_done("phase4e")
 
     # ---- phase 5: gradient kernels vs plain versions, small shapes --------
     grad_errs, grad_plain_ms, grad_kernel_small_ms, grad_shapes = phase5_kernels(tpt, dev)
@@ -3808,7 +3900,7 @@ def main(argv=None):
         "plain_ms_main_shape_pixels": N_CHECK_PIXELS,
         "kernel_ms_at_plain_shape": kernel_small_ms,
         **usage,
-    }]}
+    }, lit4e]}
     def regen_fwd_extra(name, res, v):
         """The regen forward's registers (both recording modes), lane
         shares and full-residual time; the re-forward's registers and its

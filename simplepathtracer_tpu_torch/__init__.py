@@ -30,6 +30,7 @@ from .scenes import (
     random_scene,
     reference_scene,
     simple_scene,
+    smallpt_scene,
     three_sphere_scene,
     with_ground_plane,
 )
@@ -77,6 +78,7 @@ __all__ = [
     "random_scene",
     "reference_scene",
     "simple_scene",
+    "smallpt_scene",
     "three_sphere_scene",
     "with_ground_plane",
     "accumulate",

@@ -7,7 +7,8 @@ package's ``.npz`` format, version 3: ``accum`` f32 [H, W, 3],
 ``sample_count``, ``next_key`` as two u32 words, ``config_json`` (every
 config field), ``scene_*`` and ``camera_*``.  A snapshot written by either
 package loads in the other; each ignores config fields it lacks (the JAX
-package's ``pallas_interpret`` here).  Sample ids continue from the
+package's ``pallas_interpret`` here).  An emissive scene's snapshot also
+holds ``scene_emission`` (f32 [S, 3]), which only this package reads.  Sample ids continue from the
 snapshot's count, so a resumed render is bit-identical to an uninterrupted
 one with the same chunks.
 
@@ -113,6 +114,7 @@ def _scene_camera(z, t):
         **{f: t(f"scene_{f}", np.int32 if f == "material" else np.float32)
            for f in _SCENE_FIELDS},
         plane=t("scene_plane", np.float32) if "scene_plane" in z else None,
+        emission=t("scene_emission", np.float32) if "scene_emission" in z else None,
     )
     camera = None
     if f"camera_{_CAMERA_FIELDS[0]}" in z:
@@ -134,6 +136,8 @@ def _payload(sample_count, key, scene, config, camera):
         payload[f"scene_{f}"] = _np(getattr(scene, f))
     if scene.plane is not None:
         payload["scene_plane"] = _np(scene.plane)
+    if scene.emission is not None:
+        payload["scene_emission"] = _np(scene.emission).astype(np.float32)
     if camera is not None:
         for f in _CAMERA_FIELDS:
             payload[f"camera_{f}"] = _np(getattr(camera, f))

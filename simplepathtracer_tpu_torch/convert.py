@@ -6,8 +6,10 @@ leaf names, as numpy arrays or anything ``np.asarray`` accepts, and build
 the port's ``Scene`` / ``Camera`` in float32 / int32 on a device.  So both
 packages can render identical tables.  ``convert_params`` and
 ``params_to_numpy`` carry a fit's params (or gradients) dict across and
-back, camera leaves (``split_camera``) included.  Nothing here imports
-JAX.
+back, camera leaves (``split_camera``) included.  ``scene_to_numpy`` gives
+a port scene's leaves back under the JAX package's names; it refuses an
+emissive scene, since the JAX package has no ``emission`` leaf.  Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -40,6 +42,20 @@ def convert_scene(src, device=None) -> Scene:
     }
     plane = src.get("plane") if isinstance(src, dict) else getattr(src, "plane", None)
     return Scene(**leaves, plane=None if plane is None else t(plane, np.float32))
+
+
+def scene_to_numpy(scene: Scene) -> dict:
+    """The JAX package's scene leaves (and ``plane`` where there is one) of
+    a port ``Scene``, as numpy arrays.  Raises ``ValueError`` on a scene
+    whose emission has a non-zero entry: the JAX package would render it
+    without its light."""
+    if scene.emitters():
+        raise ValueError("the JAX package's Scene has no emission leaf: an emissive scene "
+                         "cannot be converted to it")
+    out = {name: getattr(scene, name).detach().cpu().numpy() for name in SCENE_LEAVES}
+    if scene.plane is not None:
+        out["plane"] = scene.plane.detach().cpu().numpy()
+    return out
 
 
 def convert_camera(src, device=None) -> Camera:

@@ -38,6 +38,19 @@
 //    padding slot with a NaN radius rejects itself for every ray.
 //  * The device functions it shares with the gradient kernels (threefry,
 //    camera ray, sphere scan, plane test, scatter) live in common.cuh.
+//  * Emission is a compile-time switch (kEmit): the true build adds, at
+//    every sphere hit, the path's throughput before the hit's attenuation
+//    times the winner's emission, read from a [S] float4 table in global
+//    memory after the scan (one read per hit, served by L1), before
+//    scatter, absorption, the depth limit or roulette decide whether the
+//    path goes on.  The plane emits nothing.  A path of the true build
+//    sums its own radiance (emission, then the sky) and adds it to the
+//    pixel's sums when it ends, so each pixel is the sum of its samples'
+//    path radiances in sample order, as the plain version adds them.  The
+//    false build (every scene without emission: at most one term a path)
+//    keeps the scan's shared-memory layout and its arithmetic; the
+//    wrapper launches the true build only for a table with a non-zero
+//    entry.
 //  * RNG: counter-based threefry2x32 with counters
 //    (pixel, (sample_id << 8) | slot), bit-identical to the JAX package:
 //    camera jitter uses slots 124/125, bounce b uses 4b+0..2 for scatter
@@ -77,14 +90,15 @@ constexpr int kThreads = 128;
 // the faster of the two on an H100 at the cover frame.
 constexpr int kBlocksPerSm = 8;
 
+template <bool kEmit>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
     const int* __restrict__ pixel_ids, int n_pix,
     const float* __restrict__ tab, int n_spheres,
     const float* __restrict__ consts, int use_plane, uint32_t k0, uint32_t k1,
     uint32_t sample_offset, int n_samples, int max_depth, int width,
     float inv_w, float inv_h, float t_min, float t_max, int rr_start_depth,
-    unsigned int* __restrict__ next_pos, float* __restrict__ out_rad,
-    float* __restrict__ out_cnt) {
+    const float4* __restrict__ emit, unsigned int* __restrict__ next_pos,
+    float* __restrict__ out_rad, float* __restrict__ out_cnt) {
   extern __shared__ float4 smem[];
   const SphereTables tabs = load_sphere_tables(smem, tab, n_spheres);
   __syncthreads();
@@ -109,6 +123,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
   uint32_t pix = 0, c1b = 0;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, iters = 0.0f;
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;
+  float lr = 0.0f, lg = 0.0f, lb = 0.0f;  // the path's radiance (kEmit)
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
 
   for (;;) {
@@ -149,6 +164,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
       camera_ray(cam, k0, k1, pix, c1b, xf, yf, inv_w, inv_h, ox, oy, oz, dx,
                  dy, dz);
       tr = tg = tb = 1.0f;
+      if constexpr (kEmit) lr = lg = lb = 0.0f;
       b = 0;
       alive = true;
     }
@@ -162,6 +178,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
     float cx = 0.0f, cy = 0.0f, cz = 0.0f, r = 1.0f;
     float ar = 0.0f, ag = 0.0f, ab = 0.0f, fz = 0.0f, io = 1.0f;
     int mat = kLambertian;
+    float er = 0.0f, eg = 0.0f, eb = 0.0f;
     if (hit) {
       const float4 g = tabs.geo[bi], a = tabs.att[bi];
       const float2 a2 = tabs.att2[bi];
@@ -169,6 +186,10 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
       ar = a.x; ag = a.y; ab = a.z; fz = a.w;
       io = a2.x;
       mat = static_cast<int>(a2.y);
+      if constexpr (kEmit) {
+        const float4 e = __ldg(emit + bi);
+        er = e.x; eg = e.y; eb = e.z;
+      }
     }
     float tp, sgn;
     if (use_plane &&
@@ -182,6 +203,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
       ar = pl[4]; ag = pl[5]; ab = pl[6];
       fz = 0.0f; io = 1.0f;
       mat = kLambertian;
+      er = eg = eb = 0.0f;
       bt = tp;
       hit = true;
     }
@@ -189,10 +211,21 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
     if (!hit) {
       // Sky on a live miss, then the path ends.
       const float h = 0.5f * (dy + 1.0f);
-      acc_r += tr * (sky[0] + (sky[3] - sky[0]) * h);
-      acc_g += tg * (sky[1] + (sky[4] - sky[1]) * h);
-      acc_b += tb * (sky[2] + (sky[5] - sky[2]) * h);
+      const float sr = tr * (sky[0] + (sky[3] - sky[0]) * h);
+      const float sg = tg * (sky[1] + (sky[4] - sky[1]) * h);
+      const float sb = tb * (sky[2] + (sky[5] - sky[2]) * h);
+      if constexpr (kEmit) {
+        lr += sr; lg += sg; lb += sb;
+      } else {
+        acc_r += sr; acc_g += sg; acc_b += sb;
+      }
     } else {
+      if constexpr (kEmit) {
+        // Light the hit surface emits, through the path so far.
+        lr += tr * er;
+        lg += tg * eg;
+        lb += tb * eb;
+      }
       // Hit point + outward normal (negative radius flips it).
       const float px = ox + bt * dx, py = oy + bt * dy, pz = oz + bt * dz;
       float nx = (px - cx) / r, ny = (py - cy) / r, nz = (pz - cz) / r;
@@ -233,6 +266,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
       }
     }
     if (ends) {
+      if constexpr (kEmit) {
+        acc_r += lr;
+        acc_g += lg;
+        acc_b += lb;
+      }
       alive = false;
       ++s;
     }
@@ -245,47 +283,69 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) persistent_kernel(
 namespace spt {
 namespace {
 
-// The resident grid for n_pix pixels over n_spheres table slots.
+// The resident grid of one build for n_pix pixels over n_spheres table
+// slots.
+template <bool kEmit>
 cudaError_t persistent_grid(int n_pix, int n_spheres, size_t& smem,
                             int& blocks) {
   smem = static_cast<size_t>(n_spheres) * kSmemPerSphere;
-  cudaError_t err = allow_smem(persistent_kernel, smem);
+  cudaError_t err = allow_smem(persistent_kernel<kEmit>, smem);
   if (err == cudaSuccess)
-    err = grid_for(persistent_kernel, kThreads, n_pix, smem, blocks);
+    err = grid_for(persistent_kernel<kEmit>, kThreads, n_pix, smem, blocks);
   return err;
+}
+
+template <bool kEmit>
+cudaError_t persistent_launch(
+    const void* pixel_ids, int n_pix, const void* tab, int n_spheres,
+    const void* consts, int use_plane, unsigned int k0, unsigned int k1,
+    unsigned int sample_offset, int n_samples, int max_depth, int width,
+    float inv_w, float inv_h, float t_min, float t_max, int rr_start_depth,
+    const void* emit, void* next_pos, void* out_rad, void* out_cnt,
+    void* stream) {
+  size_t smem = 0;
+  int blocks = 0;
+  const cudaError_t err =
+      persistent_grid<kEmit>(n_pix, n_spheres, smem, blocks);
+  if (err != cudaSuccess) return err;
+  persistent_kernel<kEmit><<<blocks, kThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(pixel_ids), n_pix,
+      static_cast<const float*>(tab), n_spheres,
+      static_cast<const float*>(consts), use_plane, k0, k1, sample_offset,
+      n_samples, max_depth, width, inv_w, inv_h, t_min, t_max, rr_start_depth,
+      static_cast<const float4*>(emit), static_cast<unsigned int*>(next_pos),
+      static_cast<float*>(out_rad), static_cast<float*>(out_cnt));
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace spt
 
-// Blocks of 128 lanes that spt_persistent_render launches for n_pix pixels
-// over n_spheres table slots, into *blocks (an int).
+// Blocks of 128 lanes that spt_persistent_render launches (the build
+// without emission) for n_pix pixels over n_spheres table slots, into
+// *blocks (an int).
 extern "C" int spt_persistent_grid(int n_pix, int n_spheres, void* blocks) {
   size_t smem = 0;
-  return static_cast<int>(
-      spt::persistent_grid(n_pix, n_spheres, smem, *static_cast<int*>(blocks)));
+  return static_cast<int>(spt::persistent_grid<false>(
+      n_pix, n_spheres, smem, *static_cast<int*>(blocks)));
 }
 
-// Launch on the caller's stream.  next_pos: one u32, zeroed by the caller
-// (the pixel counter).  Returns cudaGetLastError() (0 = launched).
+// Launch on the caller's stream.  emit: nullptr (the build without
+// emission) or n_spheres float4 (emission rgb, 0), 16-byte aligned.
+// next_pos: one u32, zeroed by the caller (the pixel counter).  Returns
+// cudaGetLastError() (0 = launched).
 extern "C" int spt_persistent_render(
     const void* pixel_ids, int n_pix, const void* tab, int n_spheres,
     const void* consts, int use_plane, unsigned int k0, unsigned int k1,
     unsigned int sample_offset, int n_samples, int max_depth, int width,
     float inv_w, float inv_h, float t_min, float t_max, int rr_start_depth,
-    void* next_pos, void* out_rad, void* out_cnt, void* stream) {
-  size_t smem = 0;
-  int blocks = 0;
-  const cudaError_t err =
-      spt::persistent_grid(n_pix, n_spheres, smem, blocks);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  spt::persistent_kernel<<<blocks, spt::kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(pixel_ids), n_pix,
-      static_cast<const float*>(tab), n_spheres,
-      static_cast<const float*>(consts), use_plane, k0, k1, sample_offset,
-      n_samples, max_depth, width, inv_w, inv_h, t_min, t_max, rr_start_depth,
-      static_cast<unsigned int*>(next_pos), static_cast<float*>(out_rad),
-      static_cast<float*>(out_cnt));
-  return static_cast<int>(cudaGetLastError());
+    const void* emit, void* next_pos, void* out_rad, void* out_cnt,
+    void* stream) {
+  const auto launch = emit != nullptr ? spt::persistent_launch<true>
+                                      : spt::persistent_launch<false>;
+  return static_cast<int>(launch(
+      pixel_ids, n_pix, tab, n_spheres, consts, use_plane, k0, k1,
+      sample_offset, n_samples, max_depth, width, inv_w, inv_h, t_min, t_max,
+      rr_start_depth, emit, next_pos, out_rad, out_cnt, stream));
 }

@@ -35,7 +35,7 @@ from . import tracing
 from .checkpoint import atomic_savez
 from .ops.sampling import fold_in
 from .render import balanced_pixel_perm, grad_safe_config, render_sample_batch
-from .types import Camera, RenderConfig, Scene, resolve_device
+from .types import Camera, RenderConfig, Scene, refuse_emission, resolve_device
 
 # Leaves that receive gradients; ``plane`` is absent on sphere-only scenes,
 # and only its offset + albedo (entries 3:7) receive gradients.
@@ -350,8 +350,10 @@ def fit(
     steps.  A leaf whose gradient is near zero (fuzz, ior) can take Adam
     steps of opposite sign in two runs and part them further.
 
-    Returns (scene, losses).  ``device`` as in ``pixel_loss``.
+    Returns (scene, losses).  ``device`` as in ``pixel_loss``.  No gradient
+    route carries emission: an emissive scene raises.
     """
+    refuse_emission(scene_init, "fit (the gradient routes)")
     dev = resolve_device(device)
     if softness and any(k in leaves for k in _GEOMETRY_LEAVES):
         config = config.replace(silhouette_softness=float(softness))
@@ -425,12 +427,14 @@ def fit_sharded(
     state is replicated; two writers of one path could collide on the
     temporary file); every rank resumes from the same path.  Returns
     (scene, losses).  ``device`` as in ``pixel_loss``; the scene and
-    target lie there on every rank.
+    target lie there on every rank.  An emissive scene raises, as in
+    ``fit``.
     """
     import torch.distributed as dist
 
     from .parallel.sharding import loss_and_grad_sharded
 
+    refuse_emission(scene_init, "fit_sharded (the gradient routes)")
     dev = resolve_device(device)
     _check_device(dev, scene_init.centers, target)
     config = grad_safe_config(config, dev)
@@ -526,7 +530,8 @@ def fit_camera(
     sky-lit Lambertian scenes the silhouettes carry most of the pose
     signal; render the target soft-to-soft.  Step i renders with the key
     ``fold_in(key, i)``.  Returns (camera, losses).  ``device`` as in
-    ``pixel_loss``."""
+    ``pixel_loss``.  An emissive scene raises, as in ``fit``."""
+    refuse_emission(scene, "fit_camera (the gradient routes)")
     dev = resolve_device(device)
     params, camera0 = split_camera(camera_init, leaves)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}

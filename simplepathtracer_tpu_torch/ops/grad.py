@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from .. import tracing
+from ..types import refuse_emission
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
 from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
@@ -446,7 +447,9 @@ def trace_rays_fused(origins, dirs, keys, scene, config):
     """Differentiable radiance [N, 3] of explicit rays (``origins``,
     ``dirs`` [N, 3]; ``keys`` their ``RayCtx``) through the fused kernels:
     the JAX package's ``trace_rays_fused``.  Gradients reach the sphere
-    tables, the sky and the rays themselves."""
+    tables, the sky and the rays themselves.  The fused kernels add no
+    emitted light: an emissive scene raises."""
+    refuse_emission(scene, "the fused gradient route (trace_rays_fused)")
     if scene.plane is not None:
         raise ValueError("the fused kernels are sphere-only: plane scenes take the "
                          "eager bounce (render.trace_rays)")
@@ -464,6 +467,7 @@ def trace_pixels_fused(camera, keys, scene, config):
     """``trace_rays_fused`` with the camera rays made by the raygen kernel
     (the JAX package's ``trace_pixels_fused``); the camera is detached.
     The ids are cast to int32 once, for raygen and the bounces."""
+    refuse_emission(scene, "the fused gradient route (trace_pixels_fused)")
     keys = keys._replace(pixel=keys.pixel.to(torch.int32).contiguous(),
                          sample=keys.sample.to(torch.int32).contiguous())
     rays = raygen(camera, keys, config)

@@ -54,6 +54,7 @@ from typing import NamedTuple
 import torch
 
 from .. import tracing
+from ..types import refuse_emission
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
 from .closest_hit import sphere_attrs_plain, sphere_table
@@ -984,7 +985,9 @@ def scene_inputs(scene):
 
 def _trace_inputs(scene, camera, config):
     """Differentiable inputs (``scene_inputs``) and the detached camera
-    block."""
+    block.  The regeneration kernels add no emitted light: an emissive
+    scene raises."""
+    refuse_emission(scene, "the regeneration gradient route (render_block_grad_regen)")
     cam19 = camera_constants(camera, config.width, config.height).detach()
     return scene_inputs(scene), cam19
 

@@ -4,7 +4,10 @@ Counterpart of the JAX package's ``ops/pallas_persistent.py`` (and the host
 side of ``ops/pallas_common.py``).  ``render_block_persistent`` returns, for
 each pixel id, the radiance SUM over ``n_samples`` consecutive sample ids
 and optionally the number of bounce iterations those samples executed (the
-cost signal of the lane balancer).
+cost signal of the lane balancer).  With an ``emission`` table that has a
+non-zero entry, every sphere hit also adds the path's throughput times the
+winner's emission (the kernel's ``kEmit`` build; the JAX package has no
+emission).
 
 On a CUDA tensor it launches the hand-written kernel in
 ``csrc/persistent.cu``; on a CPU tensor it calls the plain PyTorch version
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..types import Material
+from ..types import Material, nonzero_rows
 from .cuda_build import load_library
 from .sampling import _f32, key_words, threefry2x32, _to_unit_float
 
@@ -87,7 +90,7 @@ def render_block_persistent(
     pixel_ids, scene_tables, sky6, cam19, key2, sample_offset,
     n_samples, max_depth, width, height,
     t_min=1e-3, t_max=3.0e7, rr_start_depth=0, return_counts=False,
-    plane7=None,
+    plane7=None, emission=None,
 ):
     """Radiance SUM over ``n_samples`` samples for each pixel id: [P, 3] f32,
     and with ``return_counts`` also [P] f32 bounce iterations per pixel.
@@ -95,17 +98,21 @@ def render_block_persistent(
     pixel_ids: [P] int — global pixel ids (y * width + x).
     scene_tables: 11 [S] tensors (cx, cy, cz, radius, radius^2, albedo rgb,
     material, fuzz, ior); sky6: f32[6]; cam19: f32[19] (camera_constants);
-    key2: two u32 words; plane7: f32[7] or None.
+    key2: two u32 words; plane7: f32[7] or None; emission: f32[S, 3] or
+    None (an all-zero table renders as None does, bit for bit).
 
     On a CPU tensor this is the plain version.  On a CUDA tensor it
-    launches the kernel, or raises.
+    launches the kernel (the emissive build where ``emission`` has a
+    non-zero entry), or raises.
     """
+    if emission is not None and not nonzero_rows(emission):
+        emission = None
     if pixel_ids.device.type == "cpu":
         return render_block_persistent_reference(
             pixel_ids, scene_tables, sky6, cam19, key2, sample_offset,
             n_samples, max_depth, width, height, t_min=t_min, t_max=t_max,
             rr_start_depth=rr_start_depth, return_counts=return_counts,
-            plane7=plane7,
+            plane7=plane7, emission=emission,
         )
     if pixel_ids.device.type != "cuda":
         raise ValueError(f"unsupported device {pixel_ids.device}")
@@ -118,7 +125,8 @@ def render_block_persistent(
     if len(scene_tables) != 11:
         raise ValueError("scene_tables must hold 11 tables")
     s = scene_tables[0].shape[0]
-    for t in (*scene_tables, sky6, cam19) + ((plane7,) if plane7 is not None else ()):
+    extra = tuple(t for t in (plane7, emission) if t is not None)
+    for t in (*scene_tables, sky6, cam19, *extra):
         if t.device != dev:
             raise ValueError(f"all inputs must lie on {dev}, got {t.device}")
     for t in scene_tables:
@@ -130,6 +138,8 @@ def render_block_persistent(
         plane7 is not None and plane7.shape != (7,)
     ):
         raise ValueError("sky6, cam19, plane7 must be f32[6], f32[19], f32[7]")
+    if emission is not None and emission.shape != (s, 3):
+        raise ValueError(f"emission must be [S, 3] = [{s}, 3], got {tuple(emission.shape)}")
     if not 0 < max_depth <= 30 or n_samples < 1:
         raise ValueError("need 0 < max_depth <= 30 and n_samples >= 1")
 
@@ -149,6 +159,11 @@ def render_block_persistent(
     consts = torch.cat([sky6.to(f32), plane.to(f32), cam19.to(f32)]).contiguous()
     pix = pixel_ids.to(torch.int32).contiguous()
     k0, k1 = key_words(key2)
+    # The emissive build reads (rgb, 0) float4 rows, padding slots dark.
+    emit = None
+    if emission is not None:
+        emit = torch.zeros((s_pad, 4), dtype=f32, device=dev)
+        emit[:s, :3] = emission
 
     out = torch.empty((p, 3), dtype=f32, device=dev)
     cnt = torch.empty((p,), dtype=f32, device=dev) if return_counts else None
@@ -162,13 +177,16 @@ def render_block_persistent(
             consts.data_ptr(), int(plane7 is not None), k0, k1,
             int(sample_offset) & 0xFFFFFFFF, int(n_samples), int(max_depth),
             int(width), _f32(1.0 / width), _f32(1.0 / height),
-            float(t_min), float(t_max), int(rr_start_depth), next_pos.data_ptr(),
+            float(t_min), float(t_max), int(rr_start_depth),
+            emit.data_ptr() if emit is not None else None, next_pos.data_ptr(),
             out.data_ptr(), cnt.data_ptr() if cnt is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"persistent kernel launch failed: CUDA error {err}")
     tracing.count("launch.persistent")
+    if emit is not None:
+        tracing.count("launch.persistent.emit")
     return (out, cnt) if return_counts else out
 
 
@@ -301,9 +319,11 @@ def closest_hit_plain(ox, oy, oz, dx, dy, dz, cx, cy, cz, rad, t_min, t_max):
 
 
 def _trace_plain(pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
-                 width, height, t_min, t_max, rr_start_depth):
+                 width, height, t_min, t_max, rr_start_depth, emission=None):
     """Trace one (pixel, sample) path per entry: ([N, 3] radiance, [N]
-    bounce iterations)."""
+    bounce iterations).  With ``emission`` ([S, 3]) every sphere hit adds
+    the throughput before the hit's attenuation times the winner's
+    emission."""
     f32 = torch.float32
     cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = tables
     c1b = (sid << 8) & 0xFFFFFFFF
@@ -326,6 +346,7 @@ def _trace_plain(pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
         w = (cx[bi], cy[bi], cz[bi], rad[bi], ar[bi], ag[bi], ab[bi],
              mat[bi].to(torch.int64), fz[bi], io[bi])
         wcx, wcy, wcz, wr, war, wag, wab, wmat, wfz, wio = w
+        we = emission[bi] if emission is not None else None
         if plane7 is not None:
             pl = plane7.tolist()
             denom = dx * pl[0] + dy * pl[1] + dz * pl[2]
@@ -346,12 +367,18 @@ def _trace_plain(pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
             wio = torch.where(wins, 1.0, wio)
             bt = torch.where(wins, tpl, bt)
             hit = hit | wins
+            if we is not None:
+                we = torch.where(wins[:, None], 0.0, we)
 
         miss = alive & ~hit
         h = 0.5 * (dy + 1.0)
         for ch in range(3):
             skc = sky[ch] + (sky[ch + 3] - sky[ch]) * h
             acc[ch] = torch.where(miss, acc[ch] + tp[ch] * skc, acc[ch])
+        if we is not None:
+            lit = alive & hit
+            for ch in range(3):
+                acc[ch] = torch.where(lit, acc[ch] + tp[ch] * we[:, ch], acc[ch])
 
         px, py, pz = ox + bt * dx, oy + bt * dy, oz + bt * dz
         nx, ny, nz = (px - wcx) / wr, (py - wcy) / wr, (pz - wcz) / wr
@@ -386,7 +413,7 @@ def render_block_persistent_reference(
     pixel_ids, scene_tables, sky6, cam19, key2, sample_offset,
     n_samples, max_depth, width, height,
     t_min=1e-3, t_max=3.0e7, rr_start_depth=0, return_counts=False,
-    plane7=None,
+    plane7=None, emission=None,
 ):
     """Plain PyTorch version of the persistent kernel: the same sums and
     counts, as a wavefront over all (pixel, sample) pairs in spp chunks.
@@ -414,7 +441,7 @@ def render_block_persistent_reference(
         sid = (base + s0 + torch.arange(c, device=dev)).repeat_interleave(p)
         rad, it = _trace_plain(
             pix, sid, tables, sky6, cam19, plane7, k0, k1, max_depth,
-            width, height, t_min, t_max, rr_start_depth,
+            width, height, t_min, t_max, rr_start_depth, emission,
         )
         rad, it = rad.reshape(c, p, 3), it.reshape(c, p)
         for j in range(c):

@@ -1,9 +1,12 @@
 """Named render presets (counterpart of the JAX package's ``presets.py``):
-the same seven (scene factory, camera, RenderConfig) triples."""
+the same seven (scene factory, camera, RenderConfig) triples, and the
+port's own ``smallpt`` (an emissive scene, which the JAX package cannot
+render)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 from . import scenes
@@ -31,9 +34,24 @@ def _cover_camera(device):
     )
 
 
+def _smallpt_camera(device):
+    """smallpt's pinhole: at (50, 52, 295.6) along normalise(0, -0.042612,
+    -1), its image plane spanning cx = w * .5135 / h across and .5135 up
+    per unit of the view direction, so vfov = 2 atan(.5135 / 2)."""
+    origin = (50.0, 52.0, 295.6)
+    n = math.sqrt(0.042612 ** 2 + 1.0)
+    look = (origin[0], origin[1] - 0.042612 / n, origin[2] - 1.0 / n)
+    return make_camera(origin=origin, lookat=look, vfov_deg=math.degrees(2 * math.atan(0.5135 / 2)),
+                       device=device)
+
+
 def _cover(seed, device):
     return scenes.compact_scene(scenes.cover_scene(seed, max_spheres=512, device=device))
 
+
+# The least ray offset at which f32 rays leaving smallpt's 1e5-radius walls
+# do not find the wall they left (PERF.md, the smallpt configuration).
+SMALLPT_T_MIN = 0.1
 
 PRESETS = {
     "simple": Preset(
@@ -99,5 +117,13 @@ PRESETS = {
         camera_fn=_cover_camera,
         config=RenderConfig(width=1200, height=800, spp=2000, max_depth=10,
                             spp_chunk=0, use_pallas=True),
+    ),
+    "smallpt": Preset(
+        name="smallpt",
+        description="smallpt's Cornell box lit by its emissive ceiling sphere, 1024x768 @ 256spp",
+        scene_fn=lambda seed, device: scenes.smallpt_scene(device=device),
+        camera_fn=_smallpt_camera,
+        config=RenderConfig(width=1024, height=768, spp=256, max_depth=30, t_min=SMALLPT_T_MIN,
+                            gamma=2.2, rr_start_depth=5, use_pallas=True),
     ),
 }

@@ -74,7 +74,7 @@ from .ops.persistent import (
 from .ops.plane import ray_plane_intersection
 from .ops.sampling import bounce_noise, camera_jitter, crossing_noise, ray_keys
 from .ops.table_gather import attach_attr_columns, pack_tables
-from .types import Camera, RenderConfig, RenderState, Scene, resolve_device
+from .types import Camera, RenderConfig, RenderState, Scene, refuse_emission, resolve_device
 
 
 # Rays differentiated per spp chunk on the plain (autograd) path: the JAX
@@ -270,7 +270,9 @@ def trace_rays_pallas(origins, dirs, keys, scene: Scene, config: RenderConfig):
     package's ``trace_rays_pallas``.  Its arithmetic is the TPU bounce
     kernel's (direct |oc|^2, lerped state updates), not the eager bounce's;
     soft silhouettes are not read (hard scan).  Raises when autograd would
-    need a gradient through it: a ray or a scene leaf requires one."""
+    need a gradient through it: a ray or a scene leaf requires one.  An
+    emissive scene raises: the bounce step adds no emitted light."""
+    refuse_emission(scene, "trace_rays_pallas (the bounce-step kernel)")
     if torch.is_grad_enabled() and (
         origins.requires_grad or dirs.requires_grad or _requires_grad(scene)
     ):
@@ -305,9 +307,10 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     goes through the fused gradient kernels
     (``ops/grad.py:trace_rays_fused``), and ``use_pallas_hits`` takes the
     bounce below with the closest hit from the closest-hit-attributes
-    kernel."""
+    kernel.  No route here adds emitted light: an emissive scene raises."""
     if config.use_pallas:
         return trace_rays_pallas(origins, dirs, keys, scene, config)
+    refuse_emission(scene, "trace_rays (the fused, hits and eager routes)")
     if scene.plane is not None and (config.use_pallas_grad or config.use_pallas_hits):
         config = config.replace(use_pallas_grad=False, use_pallas_hits=False)
     if config.silhouette_softness > 0.0 and config.use_pallas_hits:
@@ -427,7 +430,8 @@ def render_pixels(scene, camera, config, key, pixel_ids, sample_ids):
     """Radiance [N, 3] for explicit (pixel, sample) pairs.  On the fused
     gradient route a sphere scene's camera rays come from the raygen kernel
     (the camera detached) unless ``camera_grad`` asks for the
-    differentiable ``generate_rays``."""
+    differentiable ``generate_rays``.  No route here adds emitted light:
+    an emissive scene raises (``trace_rays``, ``trace_pixels_fused``)."""
     raygen = _uses_raygen(scene, config)
     with tracing.span("spt.rays.camera"):
         keys = ray_keys(key, pixel_ids, sample_ids)
@@ -459,7 +463,7 @@ def _render_block_pallas(
         width=config.width, height=config.height,
         t_min=config.t_min, t_max=config.t_max,
         rr_start_depth=config.rr_start_depth,
-        return_counts=return_counts, plane7=scene.plane,
+        return_counts=return_counts, plane7=scene.plane, emission=scene.emission,
     )
 
 
@@ -672,8 +676,10 @@ def render(scene: Scene, camera: Camera, config: RenderConfig, key) -> torch.Ten
     ``silhouette_softness`` and renders hard silhouettes, as the JAX
     package's persistent kernel does.  A soft image (stochastic acceptance
     at silhouettes, as a soft fit sees the scene) comes from the other
-    routes: ``use_pallas=False``, or ``grad_safe_config``'s regen route."""
-    with tracing.span("spt.render"):
+    routes: ``use_pallas=False``, or ``grad_safe_config``'s regen route.
+    Emissive spheres (``Scene.emission``) light the image on the
+    ``use_pallas`` route alone; the others raise on such a scene."""
+    with tracing.span("spt.render", emitters=scene.emitters()):
         state = init_state(config, key, device=scene.device)
         state = accumulate(state, scene, camera, config, config.spp)
         return state.image(config.gamma)

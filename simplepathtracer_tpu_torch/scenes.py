@@ -247,9 +247,38 @@ def with_ground_plane(
     return scene.replace(plane=plane7)
 
 
+def smallpt_scene(device=None) -> Scene:
+    """K. Beason's smallpt Cornell box (smallpt.cpp's ``spheres[]``) without
+    its black front wall: five walls of radius 1e5, a mirror and a glass
+    sphere of radius 16.5, and the r = 600 ceiling light of emission 12,
+    under a black sky.  The dropped front wall sits between smallpt's
+    pinhole and the box (smallpt starts its camera rays 140 units out); a
+    path leaving through the open front reads 0 here as it does there.
+    Mirror: metal, fuzz 0; glass: dielectric, ior 1.5."""
+    lam, met, die = Material.LAMBERTIAN, Material.METAL, Material.DIELECTRIC
+    walls = [  # smallpt's Left, Right, Back, Bottom, Top
+        ((1e5 + 1, 40.8, 81.6), (0.75, 0.25, 0.25)),
+        ((-1e5 + 99, 40.8, 81.6), (0.25, 0.25, 0.75)),
+        ((50, 40.8, 1e5), (0.75, 0.75, 0.75)),
+        ((50, 1e5, 81.6), (0.75, 0.75, 0.75)),
+        ((50, -1e5 + 81.6, 81.6), (0.75, 0.75, 0.75)),
+    ]
+    centers = [c for c, _ in walls] + [(27, 16.5, 47), (73, 16.5, 78), (50, 681.6 - 0.27, 81.6)]
+    albedo = [a for _, a in walls] + [(0.999, 0.999, 0.999)] * 2 + [(0.0, 0.0, 0.0)]
+    scene = _scene_from_arrays(
+        centers=centers, radii=[1e5] * 5 + [16.5, 16.5, 600.0], albedo=albedo,
+        material=[lam] * 5 + [met, die, lam], fuzz=[0.0] * 8, ior=[1.5] * 8,
+        sky_lo=np.zeros(3, np.float32), sky_hi=np.zeros(3, np.float32), device=device,
+    )
+    emission = np.zeros((8, 3), np.float32)
+    emission[7] = 12.0
+    return scene.replace(emission=torch.as_tensor(emission, device=scene.device))
+
+
 def compact_scene(scene: Scene, pad_multiple: int = 4) -> Scene:
     """Drop dead padding slots, live spheres first in their original order,
-    padded up to ``pad_multiple`` with a repeated dead slot."""
+    padded up to ``pad_multiple`` with a repeated dead slot (the emission
+    table, where there is one, follows)."""
     radii = scene.radii.cpu().numpy()
     centers = scene.centers.cpu().numpy()
     live = (np.abs(radii) > 1e-3) & (centers[:, 1] > -1e6)
@@ -261,6 +290,7 @@ def compact_scene(scene: Scene, pad_multiple: int = 4) -> Scene:
         centers=scene.centers[keep], radii=scene.radii[keep],
         albedo=scene.albedo[keep], material=scene.material[keep],
         fuzz=scene.fuzz[keep], ior=scene.ior[keep],
+        emission=None if scene.emission is None else scene.emission[keep],
     )
 
 
@@ -270,4 +300,5 @@ SCENES = {
     "reference": lambda seed=0, device=None, **kw: reference_scene(device=device),
     "random": lambda seed=0, device=None, **kw: random_scene(seed, device=device, **kw),
     "cover": lambda seed=0, device=None, **kw: cover_scene(seed, device=device, **kw),
+    "smallpt": lambda seed=0, device=None, **kw: smallpt_scene(device=device),
 }

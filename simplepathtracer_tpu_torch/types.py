@@ -41,7 +41,10 @@ class Scene:
     """SoA sphere scene (see the JAX package's ``Scene`` for the meaning of
     each leaf).  ``radii`` may be negative (hollow glass).  ``plane`` is
     None or f32[7]: unit normal xyz, offset k (surface dot(n, p) + k = 0),
-    albedo rgb."""
+    albedo rgb.  ``emission`` is None or f32[S, 3], the radiance each
+    sphere emits: a hit adds the path's throughput times it, before the
+    hit's scatter (the plane emits nothing).  The JAX package has no such
+    leaf; only the forward render carries it (``refuse_emission``)."""
 
     centers: torch.Tensor   # [S, 3] f32
     radii: torch.Tensor     # [S] f32
@@ -52,6 +55,7 @@ class Scene:
     sky_lo: torch.Tensor    # [3] f32
     sky_hi: torch.Tensor    # [3] f32
     plane: torch.Tensor | None = None
+    emission: torch.Tensor | None = None
 
     @property
     def num_spheres(self) -> int:
@@ -61,8 +65,36 @@ class Scene:
     def device(self) -> torch.device:
         return self.centers.device
 
+    def emitters(self) -> int:
+        """Spheres whose emission has a non-zero entry (0 without an
+        emission table; see ``nonzero_rows``)."""
+        return 0 if self.emission is None else nonzero_rows(self.emission)
+
     def replace(self, **kw) -> "Scene":
         return dataclasses.replace(self, **kw)
+
+
+def nonzero_rows(table: torch.Tensor) -> int:
+    """Rows of ``table`` with a non-zero entry.  The count is read back from
+    the table's device once for each version of the tensor and kept on it,
+    so a render loop over one scene does not wait on the device for it
+    again (an in-place change of the table is read anew)."""
+    seen = getattr(table, "_spt_nonzero_rows", None)
+    if seen is None or seen[0] != table._version:
+        seen = (table._version, int(torch.count_nonzero(table.ne(0).any(-1))))
+        table._spt_nonzero_rows = seen
+    return seen[1]
+
+
+def refuse_emission(scene: Scene, route: str) -> None:
+    """Raise ``NotImplementedError`` where ``scene`` emits light: ``route``
+    does not carry emission, and dropping it would render another image."""
+    if scene.emitters():
+        raise NotImplementedError(
+            f"{route} does not carry Scene.emission: only the forward render "
+            "(render / accumulate with use_pallas, the persistent kernel) adds "
+            "emitted light; this scene has emissive spheres"
+        )
 
 
 @dataclasses.dataclass(frozen=True)

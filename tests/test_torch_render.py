@@ -100,9 +100,16 @@ def test_cover_scene_distribution():
     assert compact.num_spheres % 4 == 0 and compact.num_spheres >= live.sum() + 4
 
 
+# The port's own presets: emissive scenes, which the JAX package cannot hold.
+PORT_ONLY_PRESETS = {"smallpt"}
+
+
 def test_presets_match():
-    assert set(tpt.PRESETS) == set(JPRESETS)
+    assert set(tpt.PRESETS) - PORT_ONLY_PRESETS == set(JPRESETS)
+    assert PORT_ONLY_PRESETS <= set(tpt.PRESETS)
     for name, p in tpt.PRESETS.items():
+        if name in PORT_ONLY_PRESETS:
+            continue
         assert dataclasses.asdict(p.config) == {
             k: v for k, v in dataclasses.asdict(JPRESETS[name].config).items()
             if k != "pallas_interpret"
