@@ -8,13 +8,23 @@ One process owns one device.  The processes form a 2-D
     ("tiles", "samples")
 
 where the image's pixels are split along ``tiles`` and the samples per
-pixel along ``samples``.  Rank (ti, si) renders the pixel ids
-``ti * p_local + arange(p_local)`` for the samples ``sample_offset +
-si * s_local`` onwards through ``render.render_pixel_block`` (on CUDA the
-persistent kernel forward, the regeneration kernels under a gradient), and
-the partial sums are added over the ``samples`` group with
-``dist.all_reduce``.  The scene and camera are replicated (each process
-holds its own copy).
+pixel along ``samples``.  Tile ti owns the band of pixel ids ``ti *
+p_local + arange(p_local)``: its rows of every result.  Rank (ti, si)
+renders the samples ``sample_offset + si * s_local`` onwards through
+``render.render_pixel_block`` (on CUDA the persistent kernel forward, the
+regeneration kernels under a gradient), and the partial sums are added
+over the ``samples`` group with ``dist.all_reduce``.  The scene and camera
+are replicated (each process holds its own copy).
+
+Which pixels a rank renders: its band, except on the persistent route
+(``use_pallas``, more than one tile, more than ``PROBE_SPP`` samples).
+The persistent kernel's lanes fetch pixels in the order given, so there a
+probe of ``PROBE_SPP`` samples counts each pixel's bounce iterations,
+``deal_pixels`` deals the pixels to the tiles by that cost, costliest
+first, and a reduce-scatter over ``tiles`` returns each tile its band's
+rows: the tiles' work evens out (four bands of the book cover's frame
+hold 0.61 to 1.28 of the mean band's bounces), and each rank's costliest
+pixels start first instead of last.
 
 Determinism: every random number is keyed by global (pixel, sample) ids,
 so a (tiles, samples) split cannot change which samples a pixel sums.  A
@@ -32,10 +42,11 @@ the differentiated graph: the adjoint of an all-reduce would all-reduce
 the cotangent again and multiply every gradient by the samples count (the
 inflation the JAX package's ``_psum_samples_unchecked`` corrects).
 
-Collectives: ``all_reduce`` only (gloo runs it on CUDA tensors through
-host memory, so two ranks may share one card under ``backend="gloo"``;
-NCCL refuses two ranks on one device).  The image gather is an
-all-reduce over ``tiles`` of zero-padded tiles, which adds exact zeros.
+Collectives: ``all_reduce``, and on the dealt route ``reduce_scatter_tensor``
+(gloo runs both on CUDA tensors through host memory, so two ranks may
+share one card under ``backend="gloo"``; NCCL refuses two ranks on one
+device).  The image gather, the probe's counts and the dealt rows' return
+sum zero-padded tensors over ``tiles``, which adds exact zeros.
 """
 
 from __future__ import annotations
@@ -46,10 +57,14 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from .. import tracing
 from ..inverse import merge_params, split_params
-from ..render import grad_safe_config, render_pixel_block
+from ..render import _render_block_pallas, grad_safe_config, render_pixel_block
 from ..types import Camera, RenderConfig, RenderState, Scene
 
 MESH_DIMS = ("tiles", "samples")
+
+# Samples of the probe that deals the persistent route's pixels to the
+# tiles (``balanced_pixel_perm``'s default).
+PROBE_SPP = 2
 
 
 def make_mesh(tiles: int | None = None, samples: int = 1, device_type=None) -> DeviceMesh:
@@ -108,15 +123,52 @@ def _check_device(mesh: DeviceMesh, *tensors):
             )
 
 
-def _all_reduce(t, mesh: DeviceMesh, dim: str):
-    """Sum ``t`` in place over the mesh dimension ``dim`` (no-op when that
-    dimension has one process); its bytes count ``shard.reduce_bytes``."""
+def _all_reduce(t, mesh: DeviceMesh, dim: str, out=None):
+    """Sum ``t`` over the mesh dimension ``dim`` (no-op when that dimension
+    has one process): in place, or with ``out`` reduce-scattered into it
+    (the process of index i along ``dim`` gets the i-th of the sum's equal
+    blocks of rows; ``dim`` must have more than one process).  Returns
+    the sum, or ``out``.  The bytes of ``t`` count ``shard.reduce_bytes``."""
     if mesh_shape(mesh)[dim] > 1:
         nbytes = t.numel() * t.element_size()
         tracing.count("shard.reduce_bytes", nbytes)
         with tracing.span("spt.shard.reduce", dim=dim, bytes=nbytes):
-            dist.all_reduce(t, group=mesh.get_group(dim))
-    return t
+            if out is None:
+                dist.all_reduce(t, group=mesh.get_group(dim))
+            else:
+                dist.reduce_scatter_tensor(out, t, group=mesh.get_group(dim))
+    return t if out is None else out
+
+
+def deal_pixels(counts, nt: int):
+    """Deal the pixels to ``nt`` tiles by cost: [nt, P / nt] pixel ids,
+    row t tile t's, costliest first.
+
+    ``counts[i]``: pixel i's cost (a probe's bounce iterations; >= 0).
+    Position q of the cost ranking (``argsort(-counts)``, stable: integer
+    counts tie constantly, and every rank must deal the same) goes to tile
+    ``q % nt`` in even rounds ``q // nt`` and to ``nt - 1 - q % nt`` in odd
+    ones (snake order), so the tiles' summed costs differ by at most one
+    pixel's.  ``P % nt`` must be 0."""
+    order = torch.argsort(-counts, stable=True).reshape(-1, nt)
+    order[1::2] = order[1::2].flip(1)
+    return order.t()
+
+
+def _dealt_ids(scene, camera, config, key, mesh, band, sample_offset):
+    """This tile's ids from ``deal_pixels``: every rank probes its band for
+    ``PROBE_SPP`` samples from ``sample_offset`` (each rank of a tile the
+    same samples, so they deal alike) and the counts are summed over
+    ``tiles`` into the whole image's."""
+    ti, _ = mesh_coords(mesh)
+    with tracing.span("spt.shard.probe", spp=PROBE_SPP):
+        _, cnt = _render_block_pallas(scene, camera, config, key, band, sample_offset,
+                                      PROBE_SPP, return_counts=True)
+        counts = cnt.new_zeros(config.num_pixels)
+        counts[band] = cnt
+        ids = deal_pixels(_all_reduce(counts, mesh, "tiles"), mesh_shape(mesh)["tiles"])[ti]
+    tracing.count("shard.dealt")
+    return ids
 
 
 def render_accum_sharded(
@@ -127,27 +179,41 @@ def render_accum_sharded(
     rows of pixels ``ti * P / tiles`` onwards summed over ``n_samples`` spp
     (default all of ``config.spp``) from ``sample_offset``.
 
-    Each (tile, sample) rank renders its pixel block for its sample slice;
-    the slices are summed over ``samples``, so every rank of a tile holds
-    its pixels' full sums.  ``sample_offset`` continues the global sample
-    ids -- the resume hook of ``checkpoint.save_sharded``: accumulating
-    [0, k) then [k, spp) sums the same samples as one [0, spp) pass.
-    Forward only."""
+    Each (tile, sample) rank renders its pixels for its sample slice; the
+    slices are summed over ``samples``, so every rank of a tile holds its
+    pixels' full sums.  On the persistent route with more than one tile
+    and more than ``PROBE_SPP`` samples, the pixels are dealt by a probe's
+    cost (``deal_pixels``) and the sums return to their bands by a
+    reduce-scatter over ``tiles``; each pixel is still summed over its
+    samples in order, so no value changes.  ``sample_offset`` continues
+    the global sample ids -- the resume hook of ``checkpoint.save_sharded``:
+    accumulating [0, k) then [k, spp) sums the same samples as one
+    [0, spp) pass.  Forward only."""
     if n_samples is None:
         n_samples = config.spp
     p_local, _ = _block_sizes(config, mesh)
-    ns = mesh_shape(mesh)["samples"]
+    shape = mesh_shape(mesh)
+    ns = shape["samples"]
     if n_samples % ns:
         raise ValueError(f"{n_samples} spp not divisible by samples={ns}")
     s_local = n_samples // ns
     _check_device(mesh, scene.centers, camera.origin)
     ti, si = mesh_coords(mesh)
-    pixel_ids = ti * p_local + torch.arange(p_local, device=scene.device)
-    with torch.no_grad(), tracing.span("spt.shard.render"):
-        acc = render_pixel_block(
-            scene, camera, config, key, pixel_ids, sample_offset + si * s_local, s_local,
-        )
-    return _all_reduce(acc.contiguous(), mesh, "samples")
+    band = ti * p_local + torch.arange(p_local, device=scene.device)
+    dealt = config.use_pallas and shape["tiles"] > 1 and n_samples > PROBE_SPP
+    with torch.no_grad():
+        pixel_ids = (_dealt_ids(scene, camera, config, key, mesh, band, sample_offset)
+                     if dealt else band)
+        with tracing.span("spt.shard.render"):
+            acc = render_pixel_block(
+                scene, camera, config, key, pixel_ids, sample_offset + si * s_local, s_local,
+            )
+        acc = _all_reduce(acc.contiguous(), mesh, "samples")
+        if not dealt:
+            return acc
+        full = acc.new_zeros((config.num_pixels, 3))
+        full[pixel_ids] = acc
+        return _all_reduce(full, mesh, "tiles", out=acc.new_empty((p_local, 3)))
 
 
 def gather_tiles(acc_local, config: RenderConfig, mesh: DeviceMesh):

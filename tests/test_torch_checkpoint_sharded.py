@@ -1,11 +1,14 @@
 """Sharded render snapshots (``checkpoint.save_sharded`` / ``load_sharded``),
 as ``tests/test_checkpoint.py:65`` and ``:101`` hold the JAX package's.
 
-* A 2-rank render (tiles 2 x 1, and samples 1 x 2) saves after half its
-  spp and dies (``os._exit``, no cleanup); a new job loads the snapshot
-  and renders the rest.  Its sums are bit for bit those of one
+* A 2-rank render (tiles 2 x 1, and samples 1 x 2; and tiles 2 x 1 on
+  the persistent route, whose pixels are dealt by cost) saves after half
+  its spp and dies (``os._exit``, no cleanup); a new job loads the
+  snapshot and renders the rest.  Its sums are bit for bit those of one
   uninterrupted job that renders the same two chunks (each pixel sums its
   samples in the same order), and the snapshot's config is the render's.
+  Each file holds its process's band of rows whatever pixels it rendered:
+  on the persistent route, bit for bit the single process's sums of them.
 * Restoring with a mesh of another shape raises ``ValueError``.
 * At world size 1 the port's snapshot loads in the JAX package and the
   JAX package's in the port (the same rows, key, scene and config).
@@ -30,16 +33,27 @@ from simplepathtracer_tpu.types import make_camera as j_make_camera
 
 from simplepathtracer_tpu_torch import checkpoint, parallel
 from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene
+from simplepathtracer_tpu_torch.render import render_sample_batch
 
 HALF = 4
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (1, 2)], ids=["tiles", "samples"])
-def test_sharded_render_resumes_bit_identically(tmp_path, mesh_shape):
-    snap = jobs.run_job(jobs.checkpoint_save_job, 2, tmp_path, mesh_shape, HALF)
+@pytest.mark.parametrize("mesh_shape,pallas", [((2, 1), False), ((1, 2), False), ((2, 1), True)],
+                         ids=["tiles", "samples", "tiles_pallas"])
+def test_sharded_render_resumes_bit_identically(tmp_path, mesh_shape, pallas):
+    snap = jobs.run_job(jobs.checkpoint_save_job, 2, tmp_path, mesh_shape, HALF, pallas)
     assert sorted(f for f in os.listdir(snap) if f.endswith(".npz")) == [
         "snap.proc0of2.npz", "snap.proc1of2.npz"]
-    out = jobs.run_job(jobs.checkpoint_resume_job, 2, tmp_path, snap, mesh_shape, HALF)
+    if pallas:
+        scene, camera, key = jobs.setup()
+        cfg = jobs.checkpoint_config(pallas)
+        whole = render_sample_batch(scene, camera, cfg, key, 0, HALF).numpy()
+        rows = cfg.num_pixels // 2
+        for r in range(2):
+            z = np.load(f"{snap}/snap.proc{r}of2.npz")
+            assert (int(z["row_start"]), int(z["row_size"])) == (r * rows, rows)
+            np.testing.assert_array_equal(z["accum_rows"], whole[r * rows:(r + 1) * rows])
+    out = jobs.run_job(jobs.checkpoint_resume_job, 2, tmp_path, snap, mesh_shape, HALF, pallas)
     for r in range(2):
         z = np.load(f"{out}/rank{r}.npz")
         assert int(z["done"]) == HALF and bool(z["same_config"])

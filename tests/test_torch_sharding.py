@@ -21,9 +21,16 @@ one).  Bounds:
   2x2 mesh shape: rtol 2e-3, atol 2e-6 (the port's gradients against the
   JAX package's elsewhere, ``test_torch_grad_route.py``);
 * two SGD steps lower the loss (``:77``); mesh validation raises (``:91``);
-  a ``use_pallas`` config renders the same sharded (``:96``: < 1e-4 from
-  the plain single-process render; the persistent kernel's plain version
-  here).
+* a ``use_pallas`` config (the persistent kernel's plain version here)
+  renders the same sharded on every mesh (``:96``): where tiles split it
+  deals the pixels by a probe's cost (``shard.dealt``, once a call) and
+  changes no value -- 4x1 is the single-process ``render`` bit for bit,
+  2x2 the single process's sum of the same two sample halves bit for bit
+  (two partial sums add in either order alike), 1x4 (four partial sums,
+  not dealt) within ``atol=1e-5``;
+* ``deal_pixels``: each tile an equal share of a permutation of the
+  pixels, costliest first, the tiles' costs within one pixel's, the same
+  deal from every rank's sum of the probed bands.
 """
 
 import importlib
@@ -45,6 +52,7 @@ from simplepathtracer_tpu.types import make_camera as j_make_camera
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch import parallel
+from simplepathtracer_tpu_torch.parallel.sharding import deal_pixels
 from simplepathtracer_tpu_torch.render import render_sample_batch
 
 jrender = importlib.import_module("simplepathtracer_tpu.render")
@@ -157,6 +165,61 @@ def test_train_step_decreases_loss(job):
     assert l2 < l1, (l1, l2)
 
 
-def test_sharded_pallas_render_matches_plain(job, single):
-    a = job["img_pallas_2x2"]
-    assert np.abs(a - single[0]).max() < 1e-4
+@pytest.fixture(scope="module")
+def single_pallas():
+    """The single process's ``use_pallas`` images: {samples: image} of
+    ``render`` (1) and of the sum of the two sample halves' sums (2), as
+    the 2x2 mesh's all-reduce over ``samples`` adds them."""
+    scene, camera, key = jobs.setup()
+    cfg = CFG.replace(use_pallas=True)
+    half = cfg.spp // 2
+    halves = (render_sample_batch(scene, camera, cfg, key, 0, half)
+              + render_sample_batch(scene, camera, cfg, key, half, half))
+    state = tpt.RenderState(accum=halves.reshape(cfg.height, cfg.width, 3),
+                            sample_count=cfg.spp, next_key=key)
+    return {1: tpt.render(scene, camera, cfg, key).numpy(), 2: state.image(cfg.gamma).numpy()}
+
+
+def test_sharded_pallas_render_matches_plain(job, single_pallas):
+    for tiles, samples in jobs.MESHES:
+        got = job[f"img_pallas_{tiles}x{samples}"]
+        if samples in single_pallas:
+            np.testing.assert_array_equal(got, single_pallas[samples], err_msg=f"{tiles}x{samples}")
+        else:
+            np.testing.assert_allclose(got, single_pallas[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("tiles,samples", jobs.MESHES)
+def test_sharded_pallas_render_deals_where_tiles_split(job, tiles, samples):
+    assert job[f"dealt_pallas_{tiles}x{samples}"] == (1 if tiles > 1 else 0)
+
+
+@pytest.mark.parametrize("nt", [2, 4])
+@pytest.mark.parametrize("tied", [True, False], ids=["tied", "distinct"])
+def test_deal_pixels(nt, tied):
+    g = torch.Generator().manual_seed(nt)
+    p = 16 * 12
+    # Costs that grow down the image, as a band of sky above spheres does.
+    rows = torch.arange(p) // 16
+    noise = torch.randint(0, 4, (p,), generator=g) if tied else torch.rand(p, generator=g) * 4
+    counts = (rows // 3 + noise).float()
+    ids = deal_pixels(counts, nt)
+    assert ids.shape == (nt, p // nt)
+    np.testing.assert_array_equal(np.sort(ids.reshape(-1).numpy()), np.arange(p))
+    cost = counts[ids]
+    assert bool((cost[:, 1:] <= cost[:, :-1]).all())
+    sums = cost.sum(dim=1)
+    assert (sums.max() - sums.min()).item() <= counts.max().item()
+    # Each rank sums the tiles' probed bands (zeros elsewhere) in its own
+    # order: the same counts bit for bit, so the same deal.
+    band = p // nt
+    parts = []
+    for t in range(nt):
+        part = torch.zeros(p)
+        part[t * band:(t + 1) * band] = counts[t * band:(t + 1) * band]
+        parts.append(part)
+    for r in range(nt):
+        summed = torch.zeros(p)
+        for t in range(nt):
+            summed = summed + parts[(r + t) % nt]
+        assert torch.equal(deal_pixels(summed, nt), ids)

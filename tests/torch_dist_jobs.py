@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 import simplepathtracer_tpu_torch as tpt
-from simplepathtracer_tpu_torch import checkpoint, inverse, parallel
+from simplepathtracer_tpu_torch import checkpoint, inverse, parallel, tracing
 from simplepathtracer_tpu_torch.render import render_sample_batch
 
 # Seconds a job may take before every process is killed (the jobs here
@@ -68,22 +68,25 @@ def perturbed_target(cfg=CFG):
 
 def sharding_job(rank, world, out):
     """Every mesh of MESHES over the same 4 ranks: the sharded render, the
-    sharded loss and gradient against a 0.25 target, the use_pallas render
-    (persistent kernel's plain version) on 2x2, two SGD steps on 2x2."""
+    use_pallas render (persistent kernel's plain version) with the calls
+    that dealt its pixels (``shard.dealt``), the sharded loss and gradient
+    against a 0.25 target, two SGD steps on 2x2."""
     scene, camera, key = setup()
     target = torch.full((CFG.height, CFG.width, 3), 0.25)
+    cfg_p = CFG.replace(use_pallas=True)
     res = {}
     for tiles, samples in MESHES:
         mesh = parallel.make_mesh(tiles, samples, device_type="cpu")
         tag = f"{tiles}x{samples}"
         res[f"img_{tag}"] = parallel.render_sharded(scene, camera, CFG, key, mesh).numpy()
+        dealt = tracing.counts()["shard.dealt"]
+        res[f"img_pallas_{tag}"] = parallel.render_sharded(scene, camera, cfg_p, key,
+                                                           mesh).numpy()
+        res[f"dealt_pallas_{tag}"] = tracing.counts()["shard.dealt"] - dealt
         loss, grads = parallel.loss_and_grad_sharded(scene, target, camera, CFG, key, mesh)
         res[f"loss_{tag}"] = loss.numpy()
         res.update({f"grad_{tag}_{k}": v.numpy() for k, v in grads.items()})
         if (tiles, samples) == (2, 2):
-            cfg_p = CFG.replace(use_pallas=True)
-            res["img_pallas_2x2"] = parallel.render_sharded(scene, camera, cfg_p, key,
-                                                            mesh).numpy()
             tgt = perturbed_target()
             s1, l1 = parallel.train_step_sharded(scene, tgt, camera, CFG, key, mesh, lr=0.5)
             _, l2 = parallel.train_step_sharded(s1, tgt, camera, CFG, key, mesh, lr=0.5)
@@ -118,27 +121,34 @@ def distributed_job(rank, world, out):
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 
 
-def checkpoint_save_job(rank, world, out, mesh_shape, half):
+def checkpoint_config(pallas):
+    """CFG, or CFG on the persistent route (its pixels dealt by cost)."""
+    return CFG.replace(use_pallas=True) if pallas else CFG
+
+
+def checkpoint_save_job(rank, world, out, mesh_shape, half, pallas=False):
     """Render [0, half) spp split over ``mesh_shape``, snapshot, and die
     without cleaning up (os._exit), as a killed job would."""
     scene, camera, key = setup()
+    cfg = checkpoint_config(pallas)
     mesh = parallel.make_mesh(*mesh_shape, device_type="cpu")
-    acc = parallel.render_accum_sharded(scene, camera, CFG, key, mesh, 0, half)
-    checkpoint.save_sharded(os.path.join(out, "snap"), acc, half, key, scene, CFG, mesh, camera)
+    acc = parallel.render_accum_sharded(scene, camera, cfg, key, mesh, 0, half)
+    checkpoint.save_sharded(os.path.join(out, "snap"), acc, half, key, scene, cfg, mesh, camera)
     os._exit(0)
 
 
-def checkpoint_resume_job(rank, world, out, snap_dir, mesh_shape, half):
-    """Resume the snapshot to CFG.spp; render the same two chunks without a
-    snapshot; try a restore mesh of the other shape."""
+def checkpoint_resume_job(rank, world, out, snap_dir, mesh_shape, half, pallas=False):
+    """Resume the snapshot to its config's spp; render the same two chunks
+    without a snapshot; try a restore mesh of the other shape."""
+    want = checkpoint_config(pallas)
     mesh = parallel.make_mesh(*mesh_shape, device_type="cpu")
     prefix = os.path.join(snap_dir, "snap")
     acc, done, key, scene, cfg, camera = checkpoint.load_sharded(prefix, mesh, device="cpu")
     more = parallel.render_accum_sharded(scene, camera, cfg, key, mesh, done, cfg.spp - done)
     resumed = parallel.gather_tiles(acc + more, cfg, mesh)
     s0, c0, k0 = setup()
-    two = (parallel.render_accum_sharded(s0, c0, CFG, k0, mesh, 0, half)
-           + parallel.render_accum_sharded(s0, c0, CFG, k0, mesh, half, CFG.spp - half))
+    two = (parallel.render_accum_sharded(s0, c0, want, k0, mesh, 0, half)
+           + parallel.render_accum_sharded(s0, c0, want, k0, mesh, half, want.spp - half))
     other = parallel.make_mesh(*mesh_shape[::-1], device_type="cpu")
     try:
         checkpoint.load_sharded(prefix, other, device="cpu")
@@ -146,8 +156,8 @@ def checkpoint_resume_job(rank, world, out, snap_dir, mesh_shape, half):
     except ValueError as e:
         mismatch = str(e)
     np.savez(os.path.join(out, f"rank{rank}.npz"), resumed=resumed.numpy(),
-             uninterrupted=parallel.gather_tiles(two, CFG, mesh).numpy(), done=done,
-             same_config=cfg == CFG, mismatch=mismatch)
+             uninterrupted=parallel.gather_tiles(two, want, mesh).numpy(), done=done,
+             same_config=cfg == want, mismatch=mismatch)
 
 
 FIT_CFG = tpt.RenderConfig(width=48, height=24, spp=8, max_depth=4)
