@@ -903,7 +903,8 @@ def phase6_main(tpt, dev, scene, cam, cfg, key, persistent_sums, persistent_coun
     the report needs."""
     from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
     from simplepathtracer_tpu_torch.ops.persistent import render_block_persistent
-    from simplepathtracer_tpu_torch.render import _persistent_args, stream_capacity_spp
+    from simplepathtracer_tpu_torch.render import _persistent_args
+    from simplepathtracer_tpu_torch.routes import stream_capacity_spp
 
     out = {"errs": {}}
     gcfg = tpt.grad_safe_config(cfg, dev)

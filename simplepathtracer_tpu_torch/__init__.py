@@ -1,15 +1,12 @@
 """simplepathtracer_tpu_torch — the PyTorch / CUDA port of simplepathtracer_tpu.
 
-The forward render of every preset runs on an NVIDIA Hopper card through a
-hand-written CUDA kernel (``csrc/persistent.cu``), explicit rays
-(``trace_rays`` / ``render_pixels`` under ``use_pallas``) through the
-bounce-step kernel (``csrc/bounce_step.cu``), inverse rendering (``fit``,
-``pixel_loss``; soft silhouettes included) through the hand-written
-regeneration gradient kernels (``csrc/grad_regen.cu``, ``csrc/bucket.cu``)
-or, under ``use_pallas_hits``, the closest-hit kernels
-(``csrc/closest_hit.cu``), and camera fits (``fit_camera``) through the
-per-bounce fused gradient kernels (``csrc/grad.cu``), all built with nvcc
-at first use; on CPU tensors the same functions run as plain PyTorch.
+Renders (``render``, ``accumulate``, ``render_pixels``, ``trace_rays``),
+inverse rendering (``fit``, ``pixel_loss``; soft silhouettes included) and
+camera fits (``fit_camera``) run on an NVIDIA Hopper card through
+hand-written CUDA kernels (``csrc/``, built with nvcc at first use); on CPU
+tensors the same functions run as plain PyTorch.  Which route -- which
+kernels -- a call takes, and what each route carries, is decided in one
+place: ``routes.py`` (``routes.pick``, ``routes.CAPS``).
 Entry points that create tensors run on ``cuda`` unless the caller passes
 ``device``.  The command line (``python -m simplepathtracer_tpu_torch.cli``)
 renders and fits presets, with render snapshots (``checkpoint``), fit
@@ -21,7 +18,7 @@ over a (tiles, samples) mesh of processes on ``torch.distributed``, one
 device each.
 """
 
-from . import tracing
+from . import routes, tracing  # routes first: ops modules import it back
 from .types import Camera, Material, RenderConfig, RenderState, Scene, make_camera
 from .scenes import (
     SCENES,
@@ -38,12 +35,12 @@ from .ops.sampling import fold_in, make_key
 from .render import (
     accumulate,
     balanced_pixel_perm,
-    grad_safe_config,
     init_state,
     render,
     render_pixels,
     trace_rays,
 )
+from .routes import grad_safe_config
 from .inverse import (
     CAMERA_LEAVES,
     camera_pixel_loss,

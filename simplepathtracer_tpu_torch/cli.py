@@ -27,13 +27,13 @@ import time
 import numpy as np
 import torch
 
-from . import checkpoint, inverse, io, metrics
+from . import checkpoint, inverse, io, metrics, routes
 from .camera import generate_rays
 from .ops.intersect import intersect_scene
 from .ops.sampling import fold_in, make_key
 from .presets import PRESETS
 from .preview import PreviewServer
-from .render import accumulate, grad_safe_config, init_state, stream_capacity_spp
+from .render import accumulate, init_state
 from .scenes import three_sphere_scene
 from .types import RenderConfig, make_camera
 
@@ -156,10 +156,10 @@ def _invert_preset(args) -> int:
     # by cost, and a balanced cover hard-fit step measured 1.9-2.0% slower.
     balance = args.balance and not args.no_balance
     key = make_key(args.seed)
-    gcfg = grad_safe_config(config, dev)
+    gcfg = routes.grad_safe_config(config, dev)
     # Target and artifact renders are forward only: on the card the preset's
     # config (the persistent kernel), on the CPU the plain route.
-    rcfg = config if dev.type == "cuda" else gcfg.replace(grad_regen=False, use_pallas_grad=False)
+    rcfg = config if dev.type == "cuda" else routes.plain_config(gcfg)
 
     with torch.no_grad():
         target = inverse.render_linear(truth, camera, rcfg, fold_in(key, 999))
@@ -243,7 +243,7 @@ def _invert_preset(args) -> int:
 
     # spp beyond the streamed-idx capacity: the gradient-accumulated
     # estimator, K the smallest divisor of spp whose groups fit.
-    cap = stream_capacity_spp(config, truth)
+    cap = routes.stream_capacity_spp(config, truth)
     grad_accum = args.grad_accum
     if not grad_accum and cap and config.spp > cap:
         grad_accum = next(k for k in range(2, config.spp + 1)

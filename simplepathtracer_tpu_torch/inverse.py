@@ -3,10 +3,9 @@ gradients (counterpart of the JAX package's ``inverse.py``).
 
 ``fit`` runs Adam (``torch.optim.Adam`` with optax.adam's defaults) on the
 differentiable leaves of a scene.  ``pixel_loss`` renders through
-``grad_safe_config``'s route for the device: for a ``use_pallas`` preset
-the regeneration gradient kernels on CUDA, plain autograd on the CPU; a
-``use_pallas_hits`` config takes the closest-hit-attributes kernel under
-the eager bounce.  On CUDA ``fit`` gives a config that names no kernel
+``grad_safe_config``'s route for the device (``routes.py``): for a
+``use_pallas`` preset the regeneration gradient kernels on CUDA, plain
+autograd on the CPU.  On CUDA ``fit`` gives a config left on the plain
 route the fused gradient kernels (``fit_config``).  Discrete structure
 (the hit selection, the material switch, Schlick coins) is locally
 constant, as in the JAX package.  With ``softness`` > 0 and a geometry leaf fitted (the
@@ -31,11 +30,12 @@ import os
 import numpy as np
 import torch
 
-from . import tracing
+from . import routes, tracing
 from .checkpoint import atomic_savez
 from .ops.sampling import fold_in
-from .render import balanced_pixel_perm, grad_safe_config, render_sample_batch
-from .types import Camera, RenderConfig, Scene, refuse_emission, resolve_device
+from .render import balanced_pixel_perm, render_sample_batch
+from .routes import fit_config, grad_safe_config
+from .types import Camera, RenderConfig, Scene, resolve_device
 
 # Leaves that receive gradients; ``plane`` is absent on sphere-only scenes,
 # and only its offset + albedo (entries 3:7) receive gradients.
@@ -126,18 +126,6 @@ def pixel_loss_decoupled(params, static_scene, target, camera, config, key,
     return (value - gterm).detach() + gterm
 
 
-def fit_config(config: RenderConfig, device=None) -> RenderConfig:
-    """The config ``fit`` differentiates on ``device`` (CUDA unless named):
-    ``grad_safe_config``'s, and on CUDA a config that names neither kernel
-    route (``use_pallas_grad``, ``use_pallas_hits``) gets the fused
-    gradient kernels, as the JAX ``fit`` does on the TPU."""
-    dev = resolve_device(device)
-    config = grad_safe_config(config, dev)
-    if dev.type == "cuda" and not (config.use_pallas_grad or config.use_pallas_hits):
-        config = config.replace(use_pallas_grad=True)
-    return config
-
-
 class AccumGradStep:
     """The gradient-accumulated estimator of ``make_accum_grad_step``:
     ``step(params, key) -> (loss, grads)``.
@@ -156,11 +144,10 @@ class AccumGradStep:
         self.spp, self.n_groups = config.spp, n_groups
         self.sub_spp = config.spp // n_groups
         self.gcfg = grad_safe_config(config, dev)
-        # The image must come from the groups' estimator: the forward-only
-        # persistent kernel renders hard silhouettes only.
-        self.fwd_cfg = (
-            config if config.use_pallas and config.silhouette_softness == 0.0 else self.gcfg
-        )
+        # The persistent route renders soft silhouettes hard: a soft image
+        # comes from the groups' estimator.
+        persistent = routes.pick(None, config).name == routes.PERSISTENT
+        self.fwd_cfg = config if persistent and config.silhouette_softness == 0.0 else self.gcfg
 
     def image(self, params, key):
         """Forward-only linear image [H, W, 3] of all spp."""
@@ -353,7 +340,6 @@ def fit(
     Returns (scene, losses).  ``device`` as in ``pixel_loss``.  No gradient
     route carries emission: an emissive scene raises.
     """
-    refuse_emission(scene_init, "fit (the gradient routes)")
     dev = resolve_device(device)
     if softness and any(k in leaves for k in _GEOMETRY_LEAVES):
         config = config.replace(silhouette_softness=float(softness))
@@ -434,10 +420,10 @@ def fit_sharded(
 
     from .parallel.sharding import loss_and_grad_sharded
 
-    refuse_emission(scene_init, "fit_sharded (the gradient routes)")
     dev = resolve_device(device)
     _check_device(dev, scene_init.centers, target)
     config = grad_safe_config(config, dev)
+    routes.pick(scene_init, config)  # raises where no route carries the scene
     params, opt = init(scene_init, lr, leaves)
     losses, start = [], 0
     if snapshot_path and os.path.exists(snapshot_path):
@@ -483,15 +469,15 @@ def merge_camera(params, camera: Camera) -> Camera:
 def camera_pixel_loss(cam_params, camera0, scene, target, config, key,
                       decoupled=False, device=None):
     """Mean squared error in linear radiance as a function of camera
-    leaves.  The render takes ``grad_safe_config``'s route with
-    ``camera_grad``: rays from the differentiable ``generate_rays`` into
-    the fused gradient kernels (CUDA) or the plain autograd path (CPU); the
-    regeneration kernels and the raygen kernel detach the camera and are
-    skipped.  ``decoupled`` (soft silhouettes): the value of the full-spp
-    render, the gradient of the independent-pair estimator, as in
+    leaves.  The render takes ``routes.camera_grad_config``'s route: rays
+    from the differentiable ``generate_rays`` into the fused gradient
+    kernels (CUDA) or the plain autograd path (CPU); the regeneration
+    kernels and the raygen kernel detach the camera and are skipped.
+    ``decoupled`` (soft silhouettes): the value of the full-spp render, the
+    gradient of the independent-pair estimator, as in
     ``pixel_loss_decoupled``.  ``device`` as in ``pixel_loss``."""
     dev = resolve_device(device)
-    config = grad_safe_config(config.replace(camera_grad=True), dev).replace(grad_regen=False)
+    config = routes.camera_grad_config(config, dev)
     camera = merge_camera(cam_params, camera0)
     _check_device(dev, scene.centers, target)
     spp = int(config.spp)
@@ -531,7 +517,6 @@ def fit_camera(
     signal; render the target soft-to-soft.  Step i renders with the key
     ``fold_in(key, i)``.  Returns (camera, losses).  ``device`` as in
     ``pixel_loss``.  An emissive scene raises, as in ``fit``."""
-    refuse_emission(scene, "fit_camera (the gradient routes)")
     dev = resolve_device(device)
     params, camera0 = split_camera(camera_init, leaves)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}

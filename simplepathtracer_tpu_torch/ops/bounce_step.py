@@ -4,11 +4,11 @@ version.
 Counterpart of the JAX package's ``ops/pallas_bounce.py``
 (``bounce_step_pallas``, kernel ``_bounce_kernel``; named ``bounce_step``
 here: ``ops/bounce.py`` holds the gradient kernels' ``bounce_tile``).  It
-serves ``render.trace_rays_pallas``, the forward of ``trace_rays`` and
-``render_pixels`` under ``use_pallas``: a batch of N explicit rays advances
-one bounce per launch on SoA state planes [13, N] (origin 0:3, direction
-3:6, throughput 6:9, radiance 9:12, alive 12), their pixel and sample ids
-[N] int32 beside.  Forward only.
+serves ``render.trace_rays_pallas``, the ``bounce_step`` route of
+``trace_rays`` and ``render_pixels`` (``routes.py``): a batch of N explicit
+rays advances one bounce per launch on SoA state planes [13, N] (origin
+0:3, direction 3:6, throughput 6:9, radiance 9:12, alive 12), their pixel
+and sample ids [N] int32 beside.  Forward only.
 
 On a CUDA tensor ``bounce_step`` launches the kernel in
 ``csrc/bounce_step.cu``; on a CPU tensor it calls the plain version
@@ -31,7 +31,7 @@ from .. import tracing
 from ..types import Material
 from .closest_hit import sphere_attrs_plain, sphere_table
 from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
-from .persistent import _MAX_SMEM, _SMEM_PER_SPHERE, _scatter_plain, closest_hit_plain
+from .persistent import TABLE_SLOT_BYTES, _scatter_plain, check_smem, closest_hit_plain
 from .sampling import RayCtx, bounce_noise
 
 # State planes per ray: origin 0:3, direction 3:6, throughput 6:9,
@@ -99,10 +99,9 @@ def bounce_step(call: BounceCall, state, pix, samp, bounce: int):
     if not 0 < n < MAX_RAYS:
         raise ValueError(f"ray count {n} out of range")
     s_pad = call.tab.shape[0]
-    if call.tab.shape != (s_pad, 10) or s_pad * _SMEM_PER_SPHERE > _MAX_SMEM or (
-        call.consts.shape != (13,)
-    ):
-        raise ValueError(f"a [{s_pad}, 10] table does not fit a block's shared memory")
+    if call.tab.shape != (s_pad, 10) or call.consts.shape != (13,):
+        raise ValueError("the table must be [S_pad, 10] and the constants f32[13]")
+    check_smem(s_pad, TABLE_SLOT_BYTES)
     nxt = torch.empty_like(state)
     lib = load_library()
     with torch.cuda.device(dev):

@@ -35,25 +35,12 @@ import torch
 
 from .. import tracing
 from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
-from .persistent import _MAX_SMEM, _SMEM_PER_SPHERE, closest_hit_plain, pad_scene_tables
+from .persistent import TABLE_SLOT_BYTES, check_smem, closest_hit_plain, sphere_table
 
 # Shared memory per sphere of the index-and-t kernel: float4 (cx, cy, cz, r^2).
 _SMEM_PER_SPHERE_T = 16
 # The attributes of a miss (cx cy cz r albedo rgb fuzz ior) and its material.
 MISS_ATTRS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0)
-
-
-def sphere_table(tables) -> torch.Tensor:
-    """The kernels' [S_pad, 10] sphere table (cx cy cz r albedo rgb fuzz ior
-    material, padded as ``persistent.pad_scene_tables``) from the 11 [S]
-    tables, values only."""
-    with torch.no_grad():
-        cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = pad_scene_tables(
-            [t.detach() for t in tables]
-        )
-        return torch.stack(
-            [cx, cy, cz, rad, ar, ag, ab, fz, io, mat.to(torch.float32)], dim=1
-        ).to(torch.float32).contiguous()
 
 
 def _rays(origins, dirs, alive):
@@ -89,8 +76,7 @@ def closest_hit(origins, dirs, alive, centers, radii, t_min=1e-3, t_max=3.0e7):
         radii.device != dev
     ):
         raise ValueError(f"centers [S, 3] and radii [S] must lie on {dev}")
-    if s == 0 or s * _SMEM_PER_SPHERE_T > _MAX_SMEM:
-        raise ValueError(f"{s} spheres do not fit a block's shared memory")
+    check_smem(s, _SMEM_PER_SPHERE_T)
     with torch.no_grad():
         r = radii.detach().to(torch.float32)
         spheres = torch.cat([centers.detach().to(torch.float32), (r * r)[:, None]], 1).contiguous()
@@ -129,8 +115,7 @@ def closest_hit_attrs(origins, dirs, alive, tables, t_min=1e-3, t_max=3.0e7, *, 
     ):
         raise ValueError(f"tab must be a contiguous f32 [S_pad, 10] sphere table on {dev}")
     s_pad = tab.shape[0]
-    if s_pad * _SMEM_PER_SPHERE > _MAX_SMEM:
-        raise ValueError(f"{s_pad} spheres do not fit a block's shared memory")
+    check_smem(s_pad, TABLE_SLOT_BYTES)
     n = o.shape[0]
     idx = torch.empty(n, dtype=torch.int32, device=dev)
     attr = torch.empty((9, n), dtype=torch.float32, device=dev)

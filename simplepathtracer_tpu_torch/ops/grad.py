@@ -4,8 +4,8 @@ the differentiable trace built on them.
 Counterpart of the fused half of the JAX package's ``ops/pallas_grad.py``
 (``trace_rays_fused``, ``trace_pixels_fused``, ``raygen_tiles`` and the
 custom VJP ``_fused_trace``), soft silhouettes included, sphere scenes only
-(``render.trace_rays`` sends plane scenes to the eager bounce, as the JAX
-package does).  A batch of N explicit rays advances one bounce per launch;
+(``routes.CAPS``: plane scenes fall back to the eager bounce, as in the JAX
+package).  A batch of N explicit rays advances one bounce per launch;
 the rays' state is SoA planes [10, N] (origin, direction, throughput,
 alive) and their radiance [3, N].
 
@@ -40,8 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
-from ..types import refuse_emission
+from .. import routes, tracing
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
 from .cuda_build import MAX_RAYS, load_library, on_cpu, stream
@@ -57,7 +56,7 @@ from .grad_regen import (
     scene_block,
     scene_inputs,
 )
-from .persistent import _MAX_SMEM, _SMEM_PER_SPHERE, _f32, camera_constants, camera_ray_plain
+from .persistent import TABLE_SLOT_BYTES, _f32, camera_constants, camera_ray_plain, check_smem
 
 # State planes per ray: origin 0:3, direction 3:6, throughput 6:9, alive 9.
 STATE_PLANES = 10
@@ -129,9 +128,9 @@ def _check_cuda(call: FusedCall, n: int, *tensors):
     if not 0 < n < MAX_RAYS:
         raise ValueError(f"ray count {n} out of range")
     s_pad = call.tab.shape[0]
-    per_sphere = _SMEM_PER_SPHERE + (_SMEM_SOFT_PER_SPHERE if call.softness > 0.0 else 0)
-    if s_pad == 0 or s_pad * per_sphere > _MAX_SMEM or call.tab.shape[1] != 10:
-        raise ValueError(f"a [{s_pad}, 10] table does not fit a block's shared memory")
+    if call.tab.shape[1] != 10:
+        raise ValueError("the table must be [S_pad, 10]")
+    check_smem(s_pad, TABLE_SLOT_BYTES + (_SMEM_SOFT_PER_SPHERE if call.softness > 0.0 else 0))
     if call.consts.shape != (10,):
         raise ValueError("consts must be f32[10]")
     if (call.softness > 0.0) != (call.soft_tab is not None):
@@ -202,9 +201,7 @@ def grad_backward(call: FusedCall, state, idx, bidx, pix, samp, bounce: int,
     ):
         raise ValueError("state [10, N], ct_carry [9, N], ct_rad [3, N], idx [N], "
                          "bidx [N] exactly when soft")
-    if call.tab.shape[0] * _SMEM_PER_SPHERE + _BWD_RING_BYTES > _MAX_SMEM:
-        raise ValueError(f"a [{call.tab.shape[0]}, 10] table and the backward's rings do "
-                         "not fit a block's shared memory")
+    check_smem(call.tab.shape[0], TABLE_SLOT_BYTES, _BWD_RING_BYTES)
     dev = state.device
     f32 = torch.float32
     ct_out = torch.empty_like(ct_carry)
@@ -447,12 +444,8 @@ def trace_rays_fused(origins, dirs, keys, scene, config):
     """Differentiable radiance [N, 3] of explicit rays (``origins``,
     ``dirs`` [N, 3]; ``keys`` their ``RayCtx``) through the fused kernels:
     the JAX package's ``trace_rays_fused``.  Gradients reach the sphere
-    tables, the sky and the rays themselves.  The fused kernels add no
-    emitted light: an emissive scene raises."""
-    refuse_emission(scene, "the fused gradient route (trace_rays_fused)")
-    if scene.plane is not None:
-        raise ValueError("the fused kernels are sphere-only: plane scenes take the "
-                         "eager bounce (render.trace_rays)")
+    tables, the sky and the rays themselves.  The ``fused`` route."""
+    routes.check(routes.FUSED, scene, config)
     inputs = scene_inputs(scene)
     spec = _Spec(
         pix=keys.pixel.to(torch.int32).contiguous(), samp=keys.sample.to(torch.int32).contiguous(),
@@ -467,7 +460,7 @@ def trace_pixels_fused(camera, keys, scene, config):
     """``trace_rays_fused`` with the camera rays made by the raygen kernel
     (the JAX package's ``trace_pixels_fused``); the camera is detached.
     The ids are cast to int32 once, for raygen and the bounces."""
-    refuse_emission(scene, "the fused gradient route (trace_pixels_fused)")
+    routes.check(routes.FUSED_RAYGEN, scene, config)
     keys = keys._replace(pixel=keys.pixel.to(torch.int32).contiguous(),
                          sample=keys.sample.to(torch.int32).contiguous())
     rays = raygen(camera, keys, config)

@@ -53,20 +53,19 @@ from typing import NamedTuple
 
 import torch
 
-from .. import tracing
-from ..types import refuse_emission
+from .. import routes, tracing
 from . import bucket as _bucket
 from .bounce import bounce_tile, bounce_tile_adjoint
 from .closest_hit import sphere_attrs_plain, sphere_table
 from .cuda_build import load_library
 from .persistent import (
-    _MAX_SMEM,
-    _SMEM_PER_SPHERE,
     GPU_BANKS,
+    TABLE_SLOT_BYTES,
     _f32,
     bank_geometry,
     camera_constants,
     camera_ray_plain,
+    check_smem,
     closest_hit_plain,
 )
 from . import intersect
@@ -175,7 +174,7 @@ class RegenCall(NamedTuple):
 
 def scene_block(tables, sky6, softness=0.0):
     """What the gradient kernels read of the scene, values only: the
-    [S_pad, 10] table (``closest_hit.sphere_table``), the sky and the soft
+    [S_pad, 10] table (``persistent.sphere_table``), the sky and the soft
     constants (f32[6] and f32[4]: softness, softness x 8 and softness x 0.1,
     each rounded to float32 once, as the plain versions round them, and the
     ``SIL_FRESNEL`` flag, 1.0 or 0.0) and, under soft silhouettes, the soft
@@ -277,9 +276,7 @@ def _check_cuda(call: RegenCall, *tensors):
     p, s_pad = call.pixel_ids.shape[0], call.tab.shape[0]
     if p == 0 or p >= 2**31 or call.n_iter * call.n_lanes >= 2**31:
         raise ValueError(f"pixel count {p} or plane size out of range")
-    per_sphere = _SMEM_PER_SPHERE + (_SMEM_SOFT_PER_SPHERE if call.softness > 0.0 else 0)
-    if s_pad == 0 or s_pad * per_sphere > _MAX_SMEM:
-        raise ValueError(f"{s_pad} sphere slots do not fit a block's shared memory")
+    check_smem(s_pad, TABLE_SLOT_BYTES + (_SMEM_SOFT_PER_SPHERE if call.softness > 0.0 else 0))
     if (call.softness > 0.0) != (call.soft_tab is not None) or (
         call.soft_tab is not None and call.soft_tab.shape != (s_pad, 4)
     ):
@@ -985,9 +982,7 @@ def scene_inputs(scene):
 
 def _trace_inputs(scene, camera, config):
     """Differentiable inputs (``scene_inputs``) and the detached camera
-    block.  The regeneration kernels add no emitted light: an emissive
-    scene raises."""
-    refuse_emission(scene, "the regeneration gradient route (render_block_grad_regen)")
+    block."""
     cam19 = camera_constants(camera, config.width, config.height).detach()
     return scene_inputs(scene), cam19
 
@@ -1008,7 +1003,8 @@ def _spec(config, key, pixel_ids, cam19, sample_offset, n_samples, chunk, n_bank
 def render_block_grad_regen(scene, camera, config, key, pixel_ids,
                             sample_offset, n_samples, n_banks=None):
     """Differentiable per-pixel radiance SUM [P, 3] over ``n_samples``
-    samples through one recording forward."""
+    samples through one recording forward: the ``regen`` route."""
+    routes.check(routes.REGEN, scene, config)
     inputs, cam19 = _trace_inputs(scene, camera, config)
     spec = _spec(config, key, pixel_ids, cam19, sample_offset, n_samples,
                  n_samples, n_banks)
@@ -1023,7 +1019,8 @@ def render_block_grad_regen_stream(scene, camera, config, key, pixel_ids,
     samples by the streamed-idx scheme in ``chunk``-sample groups (bit for
     bit the radiance of ``render_block_grad_regen`` per chunk, summed in
     chunk order).  ``checkpoint_idx``: re-record the winner words in the
-    backward instead of keeping them."""
+    backward instead of keeping them.  The ``regen_stream`` route."""
+    routes.check(routes.REGEN_STREAM, scene, config)
     if n_samples % chunk:
         raise ValueError(f"n_samples={n_samples} is not a multiple of chunk={chunk}")
     inputs, cam19 = _trace_inputs(scene, camera, config)

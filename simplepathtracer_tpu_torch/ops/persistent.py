@@ -33,15 +33,15 @@ from .sampling import _f32, key_words, threefry2x32, _to_unit_float
 
 # Lanes are laid out in blocks of this many positions: fewer pixels than one
 # block give a single bank (the JAX package's (8, 128) tile, kept so that the
-# position -> (bank, lane) map and _balanced_perm match it).
+# position -> (bank, lane) map matches it).
 BLOCK = 1024
-# Pixel banks per lane of the balancer's layout (render._balanced_perm); the
-# kernel fetches positions from a counter and reads no bank layout.
+# Pixel banks per lane of the regeneration kernels (``grad_regen_banks``'s
+# default); the persistent kernel fetches positions from a counter.
 GPU_BANKS = 1
 
 # Shared memory one block may use on an H100 (227 KB).
 _MAX_SMEM = 232448
-_SMEM_PER_SPHERE = 40   # float4 + float4 + float2
+TABLE_SLOT_BYTES = 40   # a [S_pad, 10] table slot: float4 + float4 + float2
 # (pixel, sample) rays x spheres per plain-version chunk.
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
@@ -52,6 +52,29 @@ def bank_geometry(p: int, n_banks: int) -> tuple[int, int]:
     masked).  Same map as the JAX package's ``banked_lane_layout``."""
     n_banks = int(min(n_banks, max(1, p // BLOCK)))
     return n_banks, -(-p // n_banks)
+
+
+def check_smem(slots: int, slot_bytes: int, fixed_bytes: int = 0) -> None:
+    """Raise ``ValueError`` unless a table of ``slots`` slots of
+    ``slot_bytes`` bytes, beside ``fixed_bytes`` more, fits one block's
+    shared memory; a table needs one slot at least."""
+    need = slots * slot_bytes + fixed_bytes
+    if slots == 0 or need > _MAX_SMEM:
+        raise ValueError(f"{slots} sphere slots need {need} B of shared memory; "
+                         f"a block has {_MAX_SMEM} B")
+
+
+def sphere_table(tables) -> torch.Tensor:
+    """The kernels' [S_pad, 10] sphere table (cx cy cz r albedo rgb fuzz ior
+    material, padded as ``pad_scene_tables``) from the 11 [S] tables,
+    values only."""
+    with torch.no_grad():
+        cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = pad_scene_tables(
+            [t.detach() for t in tables]
+        )
+        return torch.stack(
+            [cx, cy, cz, rad, ar, ag, ab, fz, io, mat.to(torch.float32)], dim=1
+        ).to(torch.float32).contiguous()
 
 
 def pad_scene_tables(tables, multiple: int = 4):
@@ -143,18 +166,10 @@ def render_block_persistent(
     if not 0 < max_depth <= 30 or n_samples < 1:
         raise ValueError("need 0 < max_depth <= 30 and n_samples >= 1")
 
-    tables = pad_scene_tables(scene_tables)
-    cx, cy, cz, rad, _r2, ar, ag, ab, mat, fz, io = tables
-    s_pad = cx.shape[0]
-    if s_pad * _SMEM_PER_SPHERE > _MAX_SMEM:
-        raise ValueError(
-            f"{s_pad} spheres need {s_pad * _SMEM_PER_SPHERE} B of shared "
-            f"memory; a block has {_MAX_SMEM} B"
-        )
+    tab = sphere_table(scene_tables)
+    s_pad = tab.shape[0]
+    check_smem(s_pad, TABLE_SLOT_BYTES)
     f32 = torch.float32
-    tab = torch.stack(
-        [cx, cy, cz, rad, ar, ag, ab, fz, io, mat.to(f32)], dim=1
-    ).to(f32).contiguous()
     plane = plane7 if plane7 is not None else torch.zeros(7, dtype=f32, device=dev)
     consts = torch.cat([sky6.to(f32), plane.to(f32), cam19.to(f32)]).contiguous()
     pix = pixel_ids.to(torch.int32).contiguous()

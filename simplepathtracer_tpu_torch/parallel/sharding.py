@@ -17,14 +17,14 @@ over the ``samples`` group with ``dist.all_reduce``.  The scene and camera
 are replicated (each process holds its own copy).
 
 Which pixels a rank renders: its band, except on the persistent route
-(``use_pallas``, more than one tile, more than ``PROBE_SPP`` samples).
-The persistent kernel's lanes fetch pixels in the order given, so there a
-probe of ``PROBE_SPP`` samples counts each pixel's bounce iterations,
-``deal_pixels`` deals the pixels to the tiles by that cost, costliest
-first, and a reduce-scatter over ``tiles`` returns each tile its band's
-rows: the tiles' work evens out (four bands of the book cover's frame
-hold 0.61 to 1.28 of the mean band's bounces), and each rank's costliest
-pixels start first instead of last.
+(``routes.pick``; more than one tile, more than ``render.PROBE_SPP``
+samples).  The persistent kernel's lanes fetch pixels in the order given,
+so there a probe (``render.probe_costs``) counts each pixel's bounce
+iterations, ``render.deal_pixels`` deals the pixels to the tiles by that
+cost, costliest first, and a reduce-scatter over ``tiles`` returns each
+tile its band's rows: the tiles' work evens out (four bands of the book
+cover's frame hold 0.61 to 1.28 of the mean band's bounces), and each
+rank's costliest pixels start first instead of last.
 
 Determinism: every random number is keyed by global (pixel, sample) ids,
 so a (tiles, samples) split cannot change which samples a pixel sums.  A
@@ -55,16 +55,12 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from .. import tracing
+from .. import routes, tracing
 from ..inverse import merge_params, split_params
-from ..render import _render_block_pallas, grad_safe_config, render_pixel_block
+from ..render import PROBE_SPP, deal_pixels, probe_costs, render_pixel_block
 from ..types import Camera, RenderConfig, RenderState, Scene
 
 MESH_DIMS = ("tiles", "samples")
-
-# Samples of the probe that deals the persistent route's pixels to the
-# tiles (``balanced_pixel_perm``'s default).
-PROBE_SPP = 2
 
 
 def make_mesh(tiles: int | None = None, samples: int = 1, device_type=None) -> DeviceMesh:
@@ -140,21 +136,6 @@ def _all_reduce(t, mesh: DeviceMesh, dim: str, out=None):
     return t if out is None else out
 
 
-def deal_pixels(counts, nt: int):
-    """Deal the pixels to ``nt`` tiles by cost: [nt, P / nt] pixel ids,
-    row t tile t's, costliest first.
-
-    ``counts[i]``: pixel i's cost (a probe's bounce iterations; >= 0).
-    Position q of the cost ranking (``argsort(-counts)``, stable: integer
-    counts tie constantly, and every rank must deal the same) goes to tile
-    ``q % nt`` in even rounds ``q // nt`` and to ``nt - 1 - q % nt`` in odd
-    ones (snake order), so the tiles' summed costs differ by at most one
-    pixel's.  ``P % nt`` must be 0."""
-    order = torch.argsort(-counts, stable=True).reshape(-1, nt)
-    order[1::2] = order[1::2].flip(1)
-    return order.t()
-
-
 def _dealt_ids(scene, camera, config, key, mesh, band, sample_offset):
     """This tile's ids from ``deal_pixels``: every rank probes its band for
     ``PROBE_SPP`` samples from ``sample_offset`` (each rank of a tile the
@@ -162,8 +143,7 @@ def _dealt_ids(scene, camera, config, key, mesh, band, sample_offset):
     ``tiles`` into the whole image's."""
     ti, _ = mesh_coords(mesh)
     with tracing.span("spt.shard.probe", spp=PROBE_SPP):
-        _, cnt = _render_block_pallas(scene, camera, config, key, band, sample_offset,
-                                      PROBE_SPP, return_counts=True)
+        _, cnt = probe_costs(scene, camera, config, key, band, sample_offset)
         counts = cnt.new_zeros(config.num_pixels)
         counts[band] = cnt
         ids = deal_pixels(_all_reduce(counts, mesh, "tiles"), mesh_shape(mesh)["tiles"])[ti]
@@ -200,7 +180,8 @@ def render_accum_sharded(
     _check_device(mesh, scene.centers, camera.origin)
     ti, si = mesh_coords(mesh)
     band = ti * p_local + torch.arange(p_local, device=scene.device)
-    dealt = config.use_pallas and shape["tiles"] > 1 and n_samples > PROBE_SPP
+    persistent = routes.pick(scene, config).name == routes.PERSISTENT
+    dealt = persistent and shape["tiles"] > 1 and n_samples > PROBE_SPP
     with torch.no_grad():
         pixel_ids = (_dealt_ids(scene, camera, config, key, mesh, band, sample_offset)
                      if dealt else band)
@@ -268,7 +249,7 @@ def loss_and_grad_sharded(scene: Scene, target, camera: Camera, config: RenderCo
     loss is summed over ``tiles``."""
     dev = scene.centers.device
     _check_device(mesh, scene.centers, target, camera.origin)
-    config = grad_safe_config(config, dev)
+    config = routes.grad_safe_config(config, dev)
     p_local, s_local = _block_sizes(config, mesh)
     p_total = config.num_pixels
     inv_spp = 1.0 / config.spp

@@ -1,33 +1,13 @@
 """Rendering (counterpart of the JAX package's ``render.py``).
 
-Routes, chosen by the config's flags as in the JAX package:
-
-* ``render`` with ``use_pallas=True`` (every preset): the persistent kernel
-  renders a whole pixel block and all its samples in one launch
-  (``ops/persistent.py:render_block_persistent``) -- the CUDA kernel on a
-  CUDA tensor, its plain version on a CPU tensor.  Forward only.
-* ``trace_rays`` / ``render_pixels`` (explicit rays) with ``use_pallas``:
-  ``trace_rays_pallas``, one launch of the bounce-step kernel per bounce
-  (``ops/bounce_step.py``).  Forward only.
-* ``use_pallas_grad`` with ``grad_regen``: the regeneration gradient
-  kernels (``ops/grad_regen.py``), streamed over spp chunks when the
-  packed winner indices fit ``_IDX_PLANE_BUDGET``.  Differentiable.
-* ``use_pallas_grad`` alone, or with ``camera_grad``: the per-bounce fused
-  gradient kernels (``ops/grad.py``) on explicit rays, sphere scenes only.
-  Camera rays come from the raygen kernel, or under ``camera_grad`` from
-  the differentiable ``generate_rays``, whose (origin, direction)
-  cotangents the fused backward returns.  Differentiable.
-* ``use_pallas_hits`` (hard silhouettes, sphere scenes): the eager bounce
-  below with the closest hit from the closest-hit-attributes kernel
-  (``ops/closest_hit.py``), detached, and the table's gradient reattached
-  to the winner's attributes (``ops/table_gather.py:attach_attr_columns``,
-  whose backward runs the bucket kernel).  Differentiable.
-* otherwise the plain wavefront -- every live ray advances one bounce per
-  step, materials resolved with masked selects, in the JAX jnp path's
-  formulation (matmul-expanded intersection).  Differentiable by autograd,
-  with JAX's gradient rules at ties.
-
-``grad_safe_config`` picks the gradient route for a device.
+Which route a call takes -- the persistent kernel, the bounce-step kernel,
+the regeneration or fused gradient kernels, the closest-hit kernels or the
+plain wavefront -- and what each route carries is decided in ``routes.py``
+(``routes.pick``, ``routes.CAPS``); the functions here run the route they
+are given.  The plain wavefront advances every live ray one bounce per
+step, materials resolved with masked selects, in the JAX jnp path's
+formulation (matmul-expanded intersection), differentiable by autograd
+with JAX's gradient rules at ties.
 
 All randomness is keyed by global (pixel, sample) ids, so which lane or
 chunk renders a sample never changes it.  There is no ``jit``: the JAX
@@ -39,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import tracing
+from . import routes, tracing
 from .camera import generate_rays
 from .ops import bounce_step as _bs
 from .ops import closest_hit as _ch
@@ -58,125 +38,17 @@ from .ops.intersect import (
 )
 from .ops.materials import scatter, scatter_attrs, sky_color
 from .ops.grad import trace_pixels_fused, trace_rays_fused
-from .ops.grad_regen import (
-    IDX_PACK,
-    IDX_PACK_MAX_SPHERES,
-    render_block_grad_regen,
-    render_block_grad_regen_stream,
-    scene_inputs,
-)
-from .ops.persistent import (
-    GPU_BANKS,
-    bank_geometry,
-    camera_constants,
-    render_block_persistent,
-)
+from .ops.grad_regen import render_block_grad_regen, render_block_grad_regen_stream, scene_inputs
+from .ops.persistent import camera_constants, render_block_persistent
 from .ops.plane import ray_plane_intersection
 from .ops.sampling import bounce_noise, camera_jitter, crossing_noise, ray_keys
 from .ops.table_gather import attach_attr_columns, pack_tables
-from .types import Camera, RenderConfig, RenderState, Scene, refuse_emission, resolve_device
+from .types import Camera, RenderConfig, RenderState, Scene, resolve_device
 
-
-# Rays differentiated per spp chunk on the plain (autograd) path: the JAX
-# package's value, which bounds the per-bounce residuals autograd keeps.
-_GRAD_RAY_BUDGET = 2_000_000
-# Ray-bounces (rays x max_depth) per spp chunk on the fused gradient route
-# (ops/grad.py).  Its backward keeps, per ray and bounce, the entry state
-# (10 planes) and the winner index, 44 B (soft silhouettes: and the blocker
-# index, 48 B), where the JAX kernels keep 84 B (104): the port reads the
-# winner's attributes back from the table by index.  500M ray-bounces hold
-# 22-24 GB of them, under a third of an H100's 80 GB, beside what autograd
-# keeps of generate_rays under camera gradients (~100 B per ray) and the
-# backward's carried and attribute cotangents (~90 B per ray).  At the
-# cover frame (1200x800, depth 10) that allows 52-spp chunks: the decoupled
-# camera fit differentiates its 50 spp in one chunk, with no remat.
-_GRAD_RAY_BOUNCE_BUDGET_FUSED = 500_000_000
-# Lane-iterations (spp x pixels x max_depth) per spp chunk on the regen
-# gradient path.  A chunk's backward holds its 25 residual planes and 9
-# cotangent planes, 136 B per lane-iteration: 200M x 136 B = 27.2 GB, a
-# third of an H100's 80 GB, beside the packed winner indices (below) and
-# the caller's tensors.  Soft silhouettes add 5 blocker planes and 4
-# blocker cotangent planes, 172 B: 200M x 172 B = 34.4 GB, under half of
-# it.  At the cover frame (1200x800, depth 10) it picks 20-spp chunks
-# (n_iter 207: 27.0 GB hard, 34.2 GB soft); the soft fit's decoupled
-# gradient differentiates 50 spp in 10-spp chunks (n_iter 108, 17.8 GB).
-# A larger chunk saves only launches: every kernel's work and traffic grow
-# with the chunk.
-_GRAD_ITER_BUDGET_REGEN = 200_000_000
-# Bytes of packed winner indices (4 B per 3 lane-iterations; soft: the
-# blocker indices too, 8 B) the streamed route may keep across all spp:
-# 24 GiB on an H100's 80 GB, beside one chunk's 27-34 GB of planes.  At the
-# cover frame that holds 3 x 24 GiB / (4 B x 960,000 x 10) = 2013 spp
-# (soft: 1006); beyond, the checkpointed stream re-records each chunk's
-# indices in the backward.
-_IDX_PLANE_BUDGET = 24 << 30
-
-
-def stream_capacity_spp(config: RenderConfig, scene) -> int:
-    """Largest spp whose packed winner indices fit ``_IDX_PLANE_BUDGET``
-    for this (config, scene) -- the gate ``render_pixel_block`` applies.
-    0 when the scene's table is too large for the 10-bit code."""
-    if scene.num_spheres > IDX_PACK_MAX_SPHERES:
-        return 0
-    per_spp = _idx_planes(config) * 4 * config.num_pixels * max(1, config.max_depth)
-    return int(IDX_PACK * _IDX_PLANE_BUDGET // per_spp)
-
-
-def _idx_planes(config: RenderConfig) -> int:
-    """Packed index planes the streamed route keeps: the winners, and under
-    soft silhouettes the blockers."""
-    return 2 if config.silhouette_softness > 0.0 else 1
-
-
-def grad_safe_config(config: RenderConfig, device=None) -> RenderConfig:
-    """A config for differentiating on ``device`` (CUDA unless named).
-
-    The persistent and bounce-step kernels are forward only, so
-    ``use_pallas`` is cleared.  On CUDA a ``use_pallas`` preset keeps its
-    speed intent through the regeneration gradient kernels
-    (``use_pallas_grad`` + ``grad_regen``; the JAX package also sets
-    ``use_pallas_hits``, which no route then reads); on the CPU it takes
-    the plain autograd path, as the JAX package does off the TPU.  A
-    ``use_pallas_hits`` config keeps its flag.  Without an ``spp_chunk``,
-    one is picked that keeps a chunk's differentiated work near the route's
-    budget: the regeneration
-    kernels', the fused kernels' (``use_pallas_grad`` without
-    ``grad_regen``, or with ``camera_grad``, which skips the regeneration
-    kernels), or the plain path's.
-    """
-    if config.use_pallas:
-        on_kernel_device = resolve_device(device).type == "cuda"
-        config = config.replace(
-            use_pallas=False,
-            use_pallas_grad=config.use_pallas_grad or on_kernel_device,
-            grad_regen=config.grad_regen or on_kernel_device,
-        )
-    if config.spp_chunk == 0:
-        ray_bounces = config.num_pixels * max(1, config.max_depth)
-        if _uses_regen(config):
-            max_chunk = _GRAD_ITER_BUDGET_REGEN // ray_bounces
-        elif config.use_pallas_grad:
-            max_chunk = _GRAD_RAY_BOUNCE_BUDGET_FUSED // ray_bounces
-        else:
-            max_chunk = _GRAD_RAY_BUDGET // config.num_pixels
-        max_chunk = max(1, max_chunk)
-        if config.spp > max_chunk:
-            config = config.replace(spp_chunk=max_chunk)
-    return config
-
-
-def _uses_regen(config: RenderConfig) -> bool:
-    """The regeneration kernels serve the gradient: they consume pixel ids
-    and detach the camera, so ``camera_grad`` excludes them."""
-    return config.use_pallas_grad and config.grad_regen and not config.camera_grad
-
-
-def _uses_raygen(scene, config: RenderConfig) -> bool:
-    """The fused route makes a sphere scene's camera rays with the raygen
-    kernel, the camera detached, unless ``camera_grad`` asks for the
-    differentiable ``generate_rays``."""
-    return (config.use_pallas_grad and not config.use_pallas and scene.plane is None
-            and not config.camera_grad)
+# Samples of the cost probe that orders pixels for the persistent kernel's
+# lanes (``balanced_pixel_perm``) and deals them to a mesh's tiles
+# (``parallel.render_accum_sharded``).
+PROBE_SPP = 2
 
 
 def _clip(x, lo, hi):
@@ -269,17 +141,10 @@ def trace_rays_pallas(origins, dirs, keys, scene: Scene, config: RenderConfig):
     of the bounce-step kernel (``ops/bounce_step.py``) on SoA state, the JAX
     package's ``trace_rays_pallas``.  Its arithmetic is the TPU bounce
     kernel's (direct |oc|^2, lerped state updates), not the eager bounce's;
-    soft silhouettes are not read (hard scan).  Raises when autograd would
-    need a gradient through it: a ray or a scene leaf requires one.  An
-    emissive scene raises: the bounce step adds no emitted light."""
-    refuse_emission(scene, "trace_rays_pallas (the bounce-step kernel)")
-    if torch.is_grad_enabled() and (
-        origins.requires_grad or dirs.requires_grad or _requires_grad(scene)
-    ):
-        raise RuntimeError(
-            "trace_rays_pallas (use_pallas) is forward only: clear use_pallas "
-            "(grad_safe_config) to differentiate, or run under torch.no_grad()"
-        )
+    soft silhouettes are not read (hard scan).  Raises (``routes.check``)
+    on an emissive scene, or where a ray or a scene leaf needs a gradient."""
+    routes.check(routes.BOUNCE_STEP, scene, config, differentiates=torch.is_grad_enabled() and (
+        origins.requires_grad or dirs.requires_grad or _requires_grad(scene)))
     call = bounce_step_call(scene, keys, config)
     state = _bs.initial_state(origins, dirs)
     pix = keys.pixel.to(torch.int32).contiguous()
@@ -299,25 +164,16 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     a stochastic plane-vs-sphere crossing coin on plane scenes, and the
     detached ratio ``_soft_ratio`` on the entry throughput.
 
-    The routes, in the JAX package's order: ``use_pallas`` goes to the
-    forward-only ``trace_rays_pallas``.  The fused and hits kernels are
-    sphere-only, so a plane scene clears ``use_pallas_grad`` and
-    ``use_pallas_hits``; the closest-hit kernel has no stochastic scan, so
-    soft silhouettes clear ``use_pallas_hits``.  Then ``use_pallas_grad``
-    goes through the fused gradient kernels
-    (``ops/grad.py:trace_rays_fused``), and ``use_pallas_hits`` takes the
-    bounce below with the closest hit from the closest-hit-attributes
-    kernel.  No route here adds emitted light: an emissive scene raises."""
-    if config.use_pallas:
+    The route is ``routes.pick``'s: ``trace_rays_pallas``,
+    ``trace_rays_fused``, or the bounce below (``plain``; ``hits``: its
+    closest hit from the closest-hit-attributes kernel)."""
+    route = routes.pick(scene, config, entry=routes.RAYS).name
+    if route == routes.BOUNCE_STEP:
         return trace_rays_pallas(origins, dirs, keys, scene, config)
-    refuse_emission(scene, "trace_rays (the fused, hits and eager routes)")
-    if scene.plane is not None and (config.use_pallas_grad or config.use_pallas_hits):
-        config = config.replace(use_pallas_grad=False, use_pallas_hits=False)
-    if config.silhouette_softness > 0.0 and config.use_pallas_hits:
-        config = config.replace(use_pallas_hits=False)
-    if config.use_pallas_grad:
+    if route == routes.FUSED:
         return trace_rays_fused(origins, dirs, keys, scene, config)
-    if config.use_pallas_hits:
+    hits = route == routes.HITS
+    if hits:
         # The table's float attributes, differentiable, and its values for
         # the kernel, padded into the kernel's table once for every bounce.
         attr9 = pack_tables(scene)
@@ -335,7 +191,7 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     for b in range(config.max_depth):
         unif = bounce_noise(keys, b)
         widx = pw = ph_t = cross_valid = blk = None
-        if config.use_pallas_hits:
+        if hits:
             # The winner's index and attributes from the kernel, detached;
             # attach_attr_columns buckets their cotangents into the table by
             # the -1-masked index (a miss or dead ray buckets nowhere).
@@ -427,12 +283,11 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
 
 
 def render_pixels(scene, camera, config, key, pixel_ids, sample_ids):
-    """Radiance [N, 3] for explicit (pixel, sample) pairs.  On the fused
-    gradient route a sphere scene's camera rays come from the raygen kernel
-    (the camera detached) unless ``camera_grad`` asks for the
-    differentiable ``generate_rays``.  No route here adds emitted light:
-    an emissive scene raises (``trace_rays``, ``trace_pixels_fused``)."""
-    raygen = _uses_raygen(scene, config)
+    """Radiance [N, 3] for explicit (pixel, sample) pairs.  On the
+    ``fused_raygen`` route the camera rays come from the raygen kernel (the
+    camera detached); every other route traces the differentiable
+    ``generate_rays`` through ``trace_rays``."""
+    raygen = routes.pick(scene, config, entry=routes.PIXELS).name == routes.FUSED_RAYGEN
     with tracing.span("spt.rays.camera"):
         keys = ray_keys(key, pixel_ids, sample_ids)
         if not raygen:
@@ -467,47 +322,37 @@ def _render_block_pallas(
     )
 
 
-def _balanced_perm(counts, n_banks: int = GPU_BANKS):
-    """Cost-balancing pixel permutation for the persistent kernel's lanes.
-
-    ``counts[q]``: measured bounce iterations of the pixel at position q
-    (from a probe pass).  The banked layout (the JAX kernel's) gives
-    position q to bank q // n_lanes, lane q % n_lanes; the CUDA kernel
-    fetches positions in order, so with its one bank the permutation hands
-    out the costliest pixels first.  Snake assignment over the cost
-    ranking: bank k takes ranks [k * n_lanes, (k + 1) * n_lanes), laid onto
-    lanes in alternating direction, so every lane gets one pixel from each
-    cost stratum.  The
-    sort is stable, as jnp.argsort is: integer counts tie constantly, and
-    the permutation must not depend on how ties fall.
-    """
-    p = counts.shape[0]
-    n_banks, n_lanes = bank_geometry(p, n_banks)
-    order = torch.argsort(-counts, stable=True)
-    q = torch.arange(p, device=counts.device)
-    k = torch.div(q, n_lanes, rounding_mode="floor")
-    lane = q % n_lanes
-    # Snake only over full banks (a partial final bank keeps identity order
-    # so rank(q) stays a bijection onto [0, p)).
-    use_snake = ((k % 2) == 1) & ((k + 1) * n_lanes <= p)
-    rank = k * n_lanes + torch.where(use_snake, n_lanes - 1 - lane, lane)
-    return order[rank]
+def probe_costs(scene, camera, config, key, pixel_ids, sample_offset=0, n_samples=PROBE_SPP):
+    """The cost probe of a pixel block: (radiance SUM [P, 3], bounce
+    iterations [P], the cost ``deal_pixels`` orders by) over ``n_samples``
+    samples from ``sample_offset`` through the persistent route."""
+    return _render_block_pallas(scene, camera, config, key, pixel_ids, sample_offset,
+                                n_samples, return_counts=True)
 
 
-def balanced_pixel_perm(scene, camera, config, key, probe_spp=2):
+def deal_pixels(counts, nt: int):
+    """Deal the pixels to ``nt`` tiles by cost: [nt, P / nt] pixel ids,
+    row t tile t's, costliest first.
+
+    ``counts[i]``: pixel i's cost (a probe's bounce iterations; >= 0).
+    Position q of the cost ranking (``argsort(-counts)``, stable: integer
+    counts tie constantly, and every rank must deal the same) goes to tile
+    ``q % nt`` in even rounds ``q // nt`` and to ``nt - 1 - q % nt`` in odd
+    ones (snake order), so the tiles' summed costs differ by at most one
+    pixel's.  ``P % nt`` must be 0; one tile takes them in cost order."""
+    order = torch.argsort(-counts, stable=True).reshape(-1, nt)
+    order[1::2] = order[1::2].flip(1)
+    return order.t()
+
+
+def balanced_pixel_perm(scene, camera, config, key, probe_spp=PROBE_SPP):
     """Cost-balanced pixel order for the gradient routes (``fit(balance=
-    True)``): a probe of ``probe_spp`` spp through the persistent kernel
-    (its plain version on the CPU) counts each pixel's bounce iterations,
-    and ``_balanced_perm`` orders the pixels by them.  The probe runs under
-    ``torch.no_grad()`` and its radiance is discarded; ``accumulate``
-    balances itself through ``balance_probe_spp``."""
+    True)``): the pixels costliest first by a ``probe_costs`` of
+    ``probe_spp`` spp, run under ``torch.no_grad()``."""
     pixel_ids = torch.arange(config.num_pixels, device=scene.device)
-    pcfg = config.replace(use_pallas=True, use_pallas_grad=False, use_pallas_hits=False)
     with torch.no_grad():
-        _, counts = _render_block_pallas(
-            scene, camera, pcfg, key, pixel_ids, 0, probe_spp, return_counts=True
-        )
-    return _balanced_perm(counts)
+        _, counts = probe_costs(scene, camera, config, key, pixel_ids, 0, probe_spp)
+    return deal_pixels(counts, 1)[0]
 
 
 def _requires_grad(scene, camera=None) -> bool:
@@ -523,47 +368,33 @@ def _requires_grad(scene, camera=None) -> bool:
 
 def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_samples):
     """Radiance SUM [len(pixel_ids), 3] over ``n_samples`` consecutive sample
-    ids for an explicit block of pixels.  Outside the persistent kernel,
-    samples are folded in ``spp_chunk``-sized steps to bound live memory;
-    under autograd each step is recomputed in the backward
-    (``torch.utils.checkpoint``), or the regen route streams its chunks.
-    The camera's leaves count as differentiated too, except on the routes
-    that detach the camera (the regeneration kernels, the fused route's
-    raygen).
+    ids for an explicit block of pixels, on ``routes.pick``'s route.
+    Outside the persistent kernel, samples are folded in ``spp_chunk``-sized
+    steps to bound live memory; under autograd each step is recomputed in
+    the backward (``torch.utils.checkpoint``), or the streamed regen route
+    takes its chunks itself.  The camera's leaves count as differentiated
+    too, except on the routes that detach the camera.
     The JAX package's ``_coherent_pixel_order`` (pixel tiles for the TPU
     kernels' block skipping) is not ported: it changes no value, and a
     warp's 32 row-adjacent rays are coherent already."""
-    if config.use_pallas:
-        # Samples loop inside the kernel: no spp chunking.
-        return _render_block_pallas(
-            scene, camera, config, key, pixel_ids, sample_offset, n_samples
-        )
-    use_regen = _uses_regen(config)
     p = pixel_ids.shape[0]
-    chunk = min(config.spp_chunk or n_samples, n_samples)
-    if n_samples % chunk:
-        # spp_chunk is an upper bound: use the largest divisor that fits.
-        chunk = next(c for c in range(chunk, 0, -1) if n_samples % c == 0)
+    grad = torch.is_grad_enabled()
+    route = routes.pick(scene, config, pixels=p, samples=n_samples,
+                        differentiates=grad and _requires_grad(scene))
+    if route.name == routes.PERSISTENT:
+        # Samples loop inside the kernel: no spp chunking.
+        return _render_block_pallas(scene, camera, config, key, pixel_ids, sample_offset, n_samples)
+    chunk = routes.spp_chunk(config, n_samples)
     n_steps = n_samples // chunk
     banks = config.grad_regen_banks or None
-
-    if use_regen and n_steps > 1 and config.grad_regen_stream:
-        if scene.num_spheres <= IDX_PACK_MAX_SPHERES:
-            # Streamed-idx: one idx-only forward over all samples, then per
-            # chunk a scan-free re-forward + backward.  Past the idx-plane
-            # budget, the checkpointed stream re-records each chunk's
-            # indices in the backward with the same kernel.
-            fits = (_idx_planes(config) * 4 * p * n_samples * config.max_depth
-                    <= IDX_PACK * _IDX_PLANE_BUDGET)
-            # A value-only pass keeps no words for a backward.
-            keep = fits and torch.is_grad_enabled() and _requires_grad(scene)
-            return render_block_grad_regen_stream(
-                scene, camera, config, key, pixel_ids, sample_offset,
-                n_samples, chunk, n_banks=banks, checkpoint_idx=not keep,
-            )
+    if route.name == routes.REGEN_STREAM:
+        return render_block_grad_regen_stream(
+            scene, camera, config, key, pixel_ids, sample_offset,
+            n_samples, chunk, n_banks=banks, checkpoint_idx=not route.keep_words,
+        )
 
     def step(off):
-        if use_regen:
+        if route.name == routes.REGEN:
             # One recording forward per chunk; its planes serve the backward.
             return render_block_grad_regen(
                 scene, camera, config, key, pixel_ids, off, chunk, n_banks=banks
@@ -573,10 +404,8 @@ def render_pixel_block(scene, camera, config, key, pixel_ids, sample_offset, n_s
         rad = render_pixels(scene, camera, config, key, pids, sids)
         return torch.sum(rad.reshape(chunk, p, 3), dim=0)
 
-    # The camera's leaves count unless the route detaches the camera.
-    camera_detached = use_regen or _uses_raygen(scene, config)
-    remat = n_steps > 1 and torch.is_grad_enabled() and _requires_grad(
-        scene, None if camera_detached else camera)
+    remat = n_steps > 1 and grad and _requires_grad(
+        scene, None if route.camera_detached else camera)
     acc = torch.zeros((p, 3), dtype=torch.float32, device=pixel_ids.device)
     for i in range(n_steps):
         off = sample_offset + i * chunk
@@ -613,54 +442,34 @@ def accumulate(
 ) -> RenderState:
     """Fold ``n_samples`` more spp into the state.  Sample ids continue from
     ``state.sample_count``, so a resumed render is bit-identical to an
-    uninterrupted one."""
-    probe = config.balance_probe_spp if config.use_pallas else 0
-    if probe and n_samples > probe:
-        return _accumulate_balanced(state, scene, camera, config, n_samples, probe)
-
-    chunk = min(config.spp_chunk or n_samples, n_samples)
-    if n_samples % chunk:
-        chunk = next(c for c in range(chunk, 0, -1) if n_samples % c == 0)
+    uninterrupted one.  On the persistent route, ``balance_probe_spp``
+    (fewer than ``n_samples``) makes the first samples a cost probe
+    (``probe_costs``) and renders the rest with the pixels in cost order
+    (``deal_pixels`` with one tile): the unbalanced two-chunk schedule's
+    values bit for bit, since lane placement changes no sample."""
+    persistent = routes.pick(scene, config, samples=n_samples).name == routes.PERSISTENT
+    probe = config.balance_probe_spp if persistent and n_samples > config.balance_probe_spp else 0
+    chunk = routes.spp_chunk(config, n_samples)
+    h, w = config.height, config.width
     accum = state.accum
     with tracing.span("spt.accumulate", spp=n_samples):
-        for i in range(n_samples // chunk):
-            off = state.sample_count + i * chunk
-            with tracing.span("spt.accumulate.chunk", spp=chunk):
-                batch = render_sample_batch(scene, camera, config, state.next_key, off, chunk)
-                accum = accum + batch.reshape(config.height, config.width, 3)
-    return RenderState(
-        accum=accum,
-        sample_count=state.sample_count + n_samples,
-        next_key=state.next_key,
-    )
-
-
-def _accumulate_balanced(state, scene, camera, config, n_samples, probe):
-    """Probe-then-balance accumulation (persistent kernel).
-
-    The probe renders ``probe`` spp in image order and measures per-pixel
-    bounce iterations; the remaining spp render with pixels assigned to
-    lanes in cost-balanced snake order (``_balanced_perm``).  Pixel values
-    are bit-identical to the unbalanced two-chunk schedule: lane placement
-    changes no sample.
-    """
-    h, w = config.height, config.width
-    with tracing.span("spt.accumulate", spp=n_samples):
-        with tracing.span("spt.accumulate.chunk", spp=probe):
-            pixel_ids = torch.arange(config.num_pixels, device=scene.device)
-            batch, counts = _render_block_pallas(
-                scene, camera, config, state.next_key, pixel_ids,
-                state.sample_count, probe, return_counts=True,
-            )
-            accum = state.accum + batch.reshape(h, w, 3)
-        with tracing.span("spt.accumulate.chunk", spp=n_samples - probe):
-            perm = _balanced_perm(counts)
-            rad = _render_block_pallas(
-                scene, camera, config, state.next_key, perm,
-                state.sample_count + probe, n_samples - probe,
-            )
-            inv = torch.argsort(perm)
-            accum = accum + rad[inv].reshape(h, w, 3)
+        if probe:
+            with tracing.span("spt.accumulate.chunk", spp=probe):
+                pixel_ids = torch.arange(config.num_pixels, device=scene.device)
+                batch, counts = probe_costs(scene, camera, config, state.next_key, pixel_ids,
+                                            state.sample_count, probe)
+                accum = accum + batch.reshape(h, w, 3)
+            with tracing.span("spt.accumulate.chunk", spp=n_samples - probe):
+                perm = deal_pixels(counts, 1)[0]
+                rad = _render_block_pallas(scene, camera, config, state.next_key, perm,
+                                           state.sample_count + probe, n_samples - probe)
+                accum = accum + rad[torch.argsort(perm)].reshape(h, w, 3)
+        else:
+            for i in range(n_samples // chunk):
+                off = state.sample_count + i * chunk
+                with tracing.span("spt.accumulate.chunk", spp=chunk):
+                    batch = render_sample_batch(scene, camera, config, state.next_key, off, chunk)
+                    accum = accum + batch.reshape(h, w, 3)
     return RenderState(
         accum=accum,
         sample_count=state.sample_count + n_samples,
@@ -670,15 +479,9 @@ def _accumulate_balanced(state, scene, camera, config, n_samples, probe):
 
 def render(scene: Scene, camera: Camera, config: RenderConfig, key) -> torch.Tensor:
     """One-shot render on the scene's device: [H, W, 3] gamma-corrected
-    float image in [0, 1].
-
-    With ``use_pallas`` the persistent kernel ignores
-    ``silhouette_softness`` and renders hard silhouettes, as the JAX
-    package's persistent kernel does.  A soft image (stochastic acceptance
-    at silhouettes, as a soft fit sees the scene) comes from the other
-    routes: ``use_pallas=False``, or ``grad_safe_config``'s regen route.
-    Emissive spheres (``Scene.emission``) light the image on the
-    ``use_pallas`` route alone; the others raise on such a scene."""
+    float image in [0, 1].  What its route carries is in ``routes.CAPS``:
+    the persistent route (``use_pallas``) renders soft silhouettes hard, as
+    the JAX package's persistent kernel does, and alone adds emission."""
     with tracing.span("spt.render", emitters=scene.emitters()):
         state = init_state(config, key, device=scene.device)
         state = accumulate(state, scene, camera, config, config.spp)

@@ -44,7 +44,7 @@ class Scene:
     albedo rgb.  ``emission`` is None or f32[S, 3], the radiance each
     sphere emits: a hit adds the path's throughput times it, before the
     hit's scatter (the plane emits nothing).  The JAX package has no such
-    leaf; only the forward render carries it (``refuse_emission``)."""
+    leaf; only the persistent route carries it (``routes.CAPS``)."""
 
     centers: torch.Tensor   # [S, 3] f32
     radii: torch.Tensor     # [S] f32
@@ -84,17 +84,6 @@ def nonzero_rows(table: torch.Tensor) -> int:
         seen = (table._version, int(torch.count_nonzero(table.ne(0).any(-1))))
         table._spt_nonzero_rows = seen
     return seen[1]
-
-
-def refuse_emission(scene: Scene, route: str) -> None:
-    """Raise ``NotImplementedError`` where ``scene`` emits light: ``route``
-    does not carry emission, and dropping it would render another image."""
-    if scene.emitters():
-        raise NotImplementedError(
-            f"{route} does not carry Scene.emission: only the forward render "
-            "(render / accumulate with use_pallas, the persistent kernel) adds "
-            "emitted light; this scene has emissive spheres"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,19 +135,13 @@ _NOT_PORTED = {
 class RenderConfig:
     """Static render configuration; the JAX package's fields and defaults.
 
-    ``use_pallas`` keeps its meaning: the forward render goes through the
-    persistent kernel, explicit rays through the bounce-step kernel (on a
-    CUDA tensor the CUDA kernel, on a CPU tensor its plain PyTorch version).
-    So do ``use_pallas_hits`` (the closest-hit-attributes kernel under the
-    differentiable eager bounce, ``ops/closest_hit.py``), ``use_pallas_grad``
-    (the per-bounce fused gradient kernels, ``ops/grad.py``), with
-    ``grad_regen`` the regeneration gradient kernels
-    (``ops/grad_regen.py``), ``grad_regen_banks`` (pixel
-    banks per lane; 0 = ``GPU_BANKS``) and ``camera_grad`` (gradient renders
-    make their rays with the differentiable ``camera.generate_rays`` and
-    skip the regeneration kernels, which detach the camera).  The JAX
-    package's ``pallas_interpret`` has no counterpart: the tensors' device
-    picks the kernel or its plain version.
+    The kernel flags (``use_pallas``, ``use_pallas_hits``,
+    ``use_pallas_grad``, ``grad_regen``, ``grad_regen_stream``,
+    ``camera_grad``) keep their meanings; ``routes.pick`` turns them into
+    the route a call takes (``routes.py``).  ``grad_regen_banks``: pixel
+    banks per lane of the regeneration kernels (0 = ``GPU_BANKS``).  The
+    JAX package's ``pallas_interpret`` has no counterpart: the tensors'
+    device picks the kernel or its plain version.
     """
 
     width: int = 1440

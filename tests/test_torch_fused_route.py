@@ -23,7 +23,7 @@ import torch
 from torch_threads import one_torch_thread  # noqa: F401
 
 import simplepathtracer_tpu_torch as tpt
-from simplepathtracer_tpu_torch import tracing
+from simplepathtracer_tpu_torch import routes, tracing
 from simplepathtracer_tpu_torch.ops import grad as fg, grad_regen
 from simplepathtracer_tpu_torch.ops.sampling import ray_keys
 
@@ -59,11 +59,11 @@ def test_camera_grad_skips_the_regen_kernels():
     cover = tpt.PRESETS["cover"].config
     cam_cfg = tpt.grad_safe_config(cover.replace(camera_grad=True), "cuda")
     ray_bounces = cover.num_pixels * cover.max_depth
-    assert cam_cfg.spp_chunk == port_render._GRAD_RAY_BOUNCE_BUDGET_FUSED // ray_bounces
+    assert cam_cfg.spp_chunk == routes._GRAD_RAY_BOUNCE_BUDGET_FUSED // ray_bounces
     assert tpt.grad_safe_config(cover, "cuda").spp_chunk == (
-        port_render._GRAD_ITER_BUDGET_REGEN // ray_bounces)
-    assert not port_render._uses_regen(cam_cfg) and port_render._uses_regen(
-        tpt.grad_safe_config(cover, "cuda"))
+        routes._GRAD_ITER_BUDGET_REGEN // ray_bounces)
+    assert routes.pick(None, cam_cfg).name == routes.FUSED
+    assert routes.pick(None, tpt.grad_safe_config(cover, "cuda")).name == routes.REGEN_STREAM
 
 
 def test_plane_scenes_take_the_eager_bounce():

@@ -36,7 +36,7 @@ from simplepathtracer_tpu.scenes import with_ground_plane
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene, params_to_numpy
 
-port_render = importlib.import_module("simplepathtracer_tpu_torch.render")
+routes = importlib.import_module("simplepathtracer_tpu_torch.routes")
 CAM = dict(origin=(0, 0, -1), lookat=(0, 0, 1), vfov_deg=60)
 
 
@@ -115,8 +115,8 @@ def regen_case(request, jax_regen_results):
 def test_regen_route_matches_jax_regen(regen_case, monkeypatch):
     name, scene, cam, cfg, seed, (l_j, g_j) = regen_case
     if name == "ckstream":
-        monkeypatch.setattr(port_render, "_IDX_PLANE_BUDGET", 1)
-        assert port_render.stream_capacity_spp(tpt.RenderConfig(**cfg), scene) < cfg["spp"]
+        monkeypatch.setattr(routes, "_IDX_PLANE_BUDGET", 1)
+        assert routes.stream_capacity_spp(tpt.RenderConfig(**cfg), scene) < cfg["spp"]
     l_t, g_t = _port_loss_grads(scene, cam, cfg, seed, regen=True)
     np.testing.assert_allclose(l_t, l_j, rtol=1e-6)
     if name == "plane":
@@ -147,7 +147,7 @@ def test_stream_matches_chunked(plane):
 def test_checkpointed_stream_is_bit_identical(monkeypatch):
     scene, cam, cfg, seed = _setup(spp=6, spp_chunk=2, rr_start_depth=2)
     l_s, g_s = _port_loss_grads(scene, cam, cfg, seed, regen=True)
-    monkeypatch.setattr(port_render, "_IDX_PLANE_BUDGET", 1)
+    monkeypatch.setattr(routes, "_IDX_PLANE_BUDGET", 1)
     l_f, g_f = _port_loss_grads(scene, cam, cfg, seed, regen=True)
     assert l_s == l_f
     for k in g_s:

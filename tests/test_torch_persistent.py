@@ -1,5 +1,5 @@
-"""The persistent kernel's plain version and the lane balancer against the
-JAX package's persistent kernel (interpret mode), sums and counts.
+"""The persistent kernel's plain version and the banked lane layout against
+the JAX package's persistent kernel (interpret mode), sums and counts.
 
 On the CPU ``render_block_persistent`` takes its plain version, written in
 the kernel's formulation (direct |oc|^2), so it is compared with the JAX
@@ -19,11 +19,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch import tracing
 from simplepathtracer_tpu_torch.ops import persistent
-from simplepathtracer_tpu_torch.render import (
-    _balanced_perm,
-    _persistent_args,
-    _render_block_pallas,
-)
+from simplepathtracer_tpu_torch.render import _persistent_args, _render_block_pallas
 
 try:  # the card's machine has no JAX; the cuda-marked tests need none
     import jax
@@ -32,7 +28,6 @@ try:  # the card's machine has no JAX; the cuda-marked tests need none
     import simplepathtracer_tpu as spt
     from simplepathtracer_tpu.ops.pallas_common import banked_lane_layout
     from simplepathtracer_tpu.ops.pallas_persistent import DEFAULT_BANKS
-    from simplepathtracer_tpu.render import _balanced_perm as j_balanced_perm
     from simplepathtracer_tpu.render import _render_block_pallas as j_block
     from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene
 except ImportError:
@@ -103,17 +98,6 @@ def test_ragged_single_bank_matches_jax_kernel():
 def test_bank_geometry_matches_jax_layout(p):
     nb, n_lanes, *_ = banked_lane_layout(jnp.arange(p), 7, DEFAULT_BANKS)
     assert persistent.bank_geometry(p, DEFAULT_BANKS) == (nb, n_lanes)
-
-
-def test_balanced_perm_matches_jax_with_ties():
-    rng = np.random.default_rng(3)
-    for p in (130, 5000, 1024 * 16 + 777):
-        counts = rng.integers(4, 12, p).astype(np.float32)   # ties everywhere
-        want = np.asarray(j_balanced_perm(jnp.asarray(counts)))
-        got = _balanced_perm(torch.from_numpy(counts), n_banks=DEFAULT_BANKS).numpy()
-        np.testing.assert_array_equal(got, want)
-        own = _balanced_perm(torch.from_numpy(counts)).numpy()
-        assert sorted(own.tolist()) == list(range(p))
 
 
 def test_padding_slots_reject_themselves():

@@ -30,7 +30,8 @@ one).  Bounds:
   not dealt) within ``atol=1e-5``;
 * ``deal_pixels``: each tile an equal share of a permutation of the
   pixels, costliest first, the tiles' costs within one pixel's, the same
-  deal from every rank's sum of the probed bands.
+  deal from every rank's sum of the probed bands; with one tile, the
+  persistent kernel's pixel order: a stable sort by cost.
 """
 
 import importlib
@@ -52,8 +53,7 @@ from simplepathtracer_tpu.types import make_camera as j_make_camera
 
 import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch import parallel
-from simplepathtracer_tpu_torch.parallel.sharding import deal_pixels
-from simplepathtracer_tpu_torch.render import render_sample_batch
+from simplepathtracer_tpu_torch.render import deal_pixels, render_sample_batch
 
 jrender = importlib.import_module("simplepathtracer_tpu.render")
 CFG = jobs.CFG
@@ -194,7 +194,7 @@ def test_sharded_pallas_render_deals_where_tiles_split(job, tiles, samples):
     assert job[f"dealt_pallas_{tiles}x{samples}"] == (1 if tiles > 1 else 0)
 
 
-@pytest.mark.parametrize("nt", [2, 4])
+@pytest.mark.parametrize("nt", [1, 2, 4])
 @pytest.mark.parametrize("tied", [True, False], ids=["tied", "distinct"])
 def test_deal_pixels(nt, tied):
     g = torch.Generator().manual_seed(nt)
@@ -210,6 +210,9 @@ def test_deal_pixels(nt, tied):
     assert bool((cost[:, 1:] <= cost[:, :-1]).all())
     sums = cost.sum(dim=1)
     assert (sums.max() - sums.min()).item() <= counts.max().item()
+    if nt == 1:
+        # One tile: the persistent kernel's pixel order, a stable sort by cost.
+        np.testing.assert_array_equal(ids[0].numpy(), np.argsort(-counts.numpy(), kind="stable"))
     # Each rank sums the tiles' probed bands (zeros elsewhere) in its own
     # order: the same counts bit for bit, so the same deal.
     band = p // nt

@@ -53,7 +53,7 @@ import simplepathtracer_tpu_torch as tpt
 from simplepathtracer_tpu_torch.convert import convert_camera, convert_scene, params_to_numpy
 from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
 
-port_render = importlib.import_module("simplepathtracer_tpu_torch.render")
+routes = importlib.import_module("simplepathtracer_tpu_torch.routes")
 SOFT = 0.05
 # name, plane scene, max_depth, rr_start_depth
 CASES = [("soft", False, 4, 0), ("soft-plane-rr", True, 4, 2)]
@@ -250,7 +250,7 @@ def test_soft_stream_plane_rr_combined(monkeypatch):
     for k in g_s:
         np.testing.assert_allclose(g_s[k], g_c[k], rtol=1e-5, atol=1e-7, err_msg=k)
     assert np.abs(g_s["plane"][3]) > 0.0 and np.abs(g_s["radii"]).max() > 0.0
-    monkeypatch.setattr(port_render, "_IDX_PLANE_BUDGET", 1)
+    monkeypatch.setattr(routes, "_IDX_PLANE_BUDGET", 1)
     l_f, g_f = _port_grads(scene, cfg, 7)
     assert l_f == l_s
     for k in g_s:
