@@ -344,6 +344,27 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+def persistent_split_ms(fn):
+    """Device milliseconds of one call of ``fn`` (a persistent render) in
+    ``persistent_kernel<...>`` and in ``persistent_kernel_combine``, from a
+    ``torch.profiler`` trace (None where the profiler sees no device
+    time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    got = {"kernel": 0.0, "combine": 0.0}
+    for e in prof.key_averages():
+        if "persistent_kernel_combine" in e.key:
+            got["combine"] += e.device_time_total / 1e3
+        elif "persistent_kernel<" in e.key:
+            got["kernel"] += e.device_time_total / 1e3
+    return got if got["kernel"] > 0 else None
+
+
 def ptxas_usage(log, entry):
     """Registers, spill stores and stack frame (bytes) that nvcc's
     ``-Xptxas -v`` printed for the kernel whose mangled name contains
@@ -1323,8 +1344,10 @@ def phase4e_emissive(tpt, dev, lib):
     the kernel is timed beside its FP32 scan bound and an estimate of its
     INT32 RNG bound (every segment taken as a hit: 2 threefry evaluations a
     path, 3 a segment, one a roulette draw at most a segment; the
-    benchmark's ``persistent_lit_roofline`` counts them exactly).  Returns
-    the kernels JSON's row."""
+    benchmark's ``persistent_lit_roofline`` counts them exactly).  At the
+    cell's 256 spp (several sample groups) 512 of those pixels must equal
+    the plain version bit for bit, and the kernel and its combine are timed
+    by the profiler.  Returns the kernels JSON's row."""
     from simplepathtracer_tpu_torch.ops import persistent
     from simplepathtracer_tpu_torch.render import _persistent_args
 
@@ -1377,6 +1400,21 @@ def phase4e_emissive(tpt, dev, lib):
     rng_ms = (2 * paths + 4 * iters) * THREEFRY_INT_OPS / PEAK_INT32 * 1e3
     bound_ms = max(scan_ms, rng_ms)
     usage = ptxas_usage(lib.log, "persistent_kernelILb1EE")
+    # The cell's 256 spp: several sample groups, their sums added by the
+    # combine; the full frame against the plain version on some pixels.
+    n_cell = 256
+    call256 = call[:5] + (n_cell,) + call[6:]
+    sums256 = persistent.render_block_persistent(pix, *call256, **kw)
+    rows256 = rows[:N_CHECK_PIXELS // 4]
+    ref256 = persistent.render_block_persistent_reference(rows256, *call256, **kw)
+    d256 = (sums256[rows256] - ref256).abs().max().item()
+    split = persistent_split_ms(lambda: persistent.render_block_persistent(pix, *call256, **kw))
+    print(f"phase4e {len(rows256)} random pixels at {n_cell} spp "
+          f"({persistent.sample_groups(n_cell)} sample groups): max|d| of sums={d256:.3e}; "
+          f"profiled persistent_kernel<true> / persistent_kernel_combine ms: {split}")
+    if d256 != 0.0:
+        raise RuntimeError("phase4e: the emissive build's group sums disagree with its plain version")
+    d = max(d, d256)
     print(f"kernel smallpt (emissive build): {ms:.3f} ms, iterations {iters:.0f} "
           f"({iters / paths:.3f} per path), {iters / ms / 1e6:.2f} G segments/s, bound "
           f"{bound_ms:.3f} ms (scan {scan_ms:.3f}, RNG at most {rng_ms:.3f}), "
@@ -1390,6 +1428,7 @@ def phase4e_emissive(tpt, dev, lib):
         "bound_ms": bound_ms, "bound_by": "operations (INT32)" if rng_ms >= scan_ms else
         "operations (FP32)", "ms_shape": f"{cfg.width}x{cfg.height}x{cfg.spp}spp",
         "iterations_per_path": iters / paths, "render_s": render_s, **usage,
+        "split_ms_256spp": split,
     }
 
 
@@ -3020,7 +3059,7 @@ def phase10_cli(tpt, dev, wrappers, render_s):
         "render", "--preset", "cover", "--snapshot-every", str(CLI_CHUNK_SPP),
         "--snapshot", a_npz, "-o", a_bmp, "--trace", trace_dir], ["persistent_render"])
     chunks = records_of(recs, "render")
-    traced = trace_kernels(os.path.join(trace_dir, "trace.json"), "persistent_kernel")
+    traced = trace_kernels(os.path.join(trace_dir, "trace.json"), "persistent_kernel<")
     paths = sum(r["paths"] for r in chunks)
     busy = sum(r["elapsed_s"] for r in chunks)
     done = records_of(recs, "done")[0]
@@ -3689,11 +3728,14 @@ def main(argv=None):
           f"({iters / paths:.3f} per path), {live} live spheres, bound {bound_ms:.3f} ms (FP32 ops), "
           f"{bound_ms / ms:.3f} of bound")
     usage = ptxas_usage(lib.log, "persistent_kernelILb0EE")
-    usage["grid_blocks"] = persistent.grid_blocks(cfg.num_pixels, scene.num_spheres)
+    groups = persistent.sample_groups(cfg.spp)
+    usage["grid_blocks"] = persistent.grid_blocks(cfg.num_pixels * groups, scene.num_spheres)
+    usage["split_ms"] = persistent_split_ms(lambda: kernel(*full_call))
     print(f"persistent kernel: {usage.get('registers')} registers, {usage.get('spill_bytes')} B "
           f"spilled, {usage.get('stack_bytes')} B stack frame (nvcc -Xptxas -v); resident grid "
-          f"{usage['grid_blocks']} blocks x 128 "
-          f"lanes ({usage['grid_blocks'] * 128} lanes fetch the frame's {cfg.num_pixels} pixels)")
+          f"{usage['grid_blocks']} blocks x 128 lanes ({usage['grid_blocks'] * 128} lanes fetch "
+          f"the frame's {cfg.num_pixels} pixels x {groups} sample groups); profiled "
+          f"persistent_kernel<false> / persistent_kernel_combine ms: {usage['split_ms']}")
     call, kw, shape = compare_args
     kw = dict(kw, return_counts=False)
     plain_ms = cuda_ms(lambda: plain(*call, **kw), reps=2)

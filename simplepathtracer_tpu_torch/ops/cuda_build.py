@@ -40,11 +40,13 @@ P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C entry points of the library and their argument types.
 _SIGNATURES = {
     # pixel_ids, n_pix, tab, n_spheres, consts, use_plane, k0, k1,
-    # sample_offset, n_samples, max_depth, width, inv_w, inv_h, t_min, t_max,
-    # rr_start_depth, emit, next_pos, out_rad, out_cnt, stream
+    # sample_offset, n_samples, group_len, n_groups, max_depth, width, inv_w,
+    # inv_h, t_min, t_max, rr_start_depth, emit, next_pos, part_rad,
+    # part_cnt, out_rad, out_cnt, stream
     "spt_persistent_render":
-        [P, I, P, I, P, I, U, U, U, I, I, I, F, F, F, F, I, P, P, P, P, P],
-    # n_pix, n_spheres, blocks (int out)
+        [P, I, P, I, P, I, U, U, U, I, I, I, I, I, F, F, F, F, I, P, P, P, P,
+         P, P, P],
+    # n_items, n_spheres, blocks (int out)
     "spt_persistent_grid": [I, I, P],
     # pixel_ids, n_pix, n_lanes, n_banks, tab, n_spheres, consts, use_plane,
     # k0, k1, sample_offset, n_samples, max_depth, width, inv_w, inv_h,

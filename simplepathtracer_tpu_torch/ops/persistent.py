@@ -14,6 +14,9 @@ On a CUDA tensor it launches the hand-written kernel in
 ``render_block_persistent_reference``, which computes the same function in
 the kernel's formulation (direct |oc|^2, camera rays from the f32[19]
 block, exp(log(u)/3) cube root), so that the two differ by rounding only.
+Both split a pixel's samples into ``sample_groups(n_samples)`` groups of
+``SAMPLE_GROUP``, sum each group in sample order and add the groups in
+order, so the kernel's work items are short and its sums are fixed.
 
 The kernel is built from the sources in ``csrc/`` at first use
 (``ops/cuda_build.py``: nvcc for sm_90a, a plain C interface, ctypes).
@@ -44,6 +47,21 @@ _MAX_SMEM = 232448
 TABLE_SLOT_BYTES = 40   # a [S_pad, 10] table slot: float4 + float4 + float2
 # (pixel, sample) rays x spheres per plain-version chunk.
 _PLAIN_CHUNK_ELEMS = 1 << 24
+# Samples of one work item of the persistent kernel (the last group of a
+# pixel may be shorter), from a sweep on an H100 (PERF.md, PR 21): 32 and
+# 64 were 1-7% slower on the render cells' frames, 8 and 12 within 1% of 16
+# there and 8 slower on smallpt's.  The partial sums take 12 B (16 with
+# counts) a pixel and group, about 0.75 B a path.
+SAMPLE_GROUP = 16
+
+
+def sample_groups(n_samples: int) -> int:
+    """The groups of ``SAMPLE_GROUP`` consecutive samples that a launch of
+    ``n_samples`` splits each pixel's samples into: 1 up to
+    ``SAMPLE_GROUP``, else ceil(n_samples / SAMPLE_GROUP).  It depends on
+    ``n_samples`` alone, so a pixel's sum does not depend on which launch,
+    block or rank renders it."""
+    return -(-int(n_samples) // SAMPLE_GROUP)
 
 
 def bank_geometry(p: int, n_banks: int) -> tuple[int, int]:
@@ -165,6 +183,9 @@ def render_block_persistent(
         raise ValueError(f"emission must be [S, 3] = [{s}, 3], got {tuple(emission.shape)}")
     if not 0 < max_depth <= 30 or n_samples < 1:
         raise ValueError("need 0 < max_depth <= 30 and n_samples >= 1")
+    groups = sample_groups(n_samples)
+    if p * groups >= 2**31:
+        raise ValueError(f"{p} pixels x {groups} sample groups: 2^31 work items or more")
 
     tab = sphere_table(scene_tables)
     s_pad = tab.shape[0]
@@ -182,7 +203,12 @@ def render_block_persistent(
 
     out = torch.empty((p, 3), dtype=f32, device=dev)
     cnt = torch.empty((p,), dtype=f32, device=dev) if return_counts else None
-    # The kernel's pixel counter: its lanes fetch positions from it.
+    # Each sample group's partial sums, which the combine adds in order.
+    part = part_cnt = None
+    if groups > 1:
+        part = torch.empty((groups, p, 3), dtype=f32, device=dev)
+        part_cnt = torch.empty((groups, p), dtype=f32, device=dev) if return_counts else None
+    # The kernel's item counter: its lanes fetch positions from it.
     next_pos = torch.zeros((1,), dtype=torch.int32, device=dev)
     lib = load_library()
     # The launch goes to the current device: make it the tensors' device.
@@ -190,28 +216,33 @@ def render_block_persistent(
         err = lib.lib.spt_persistent_render(
             pix.data_ptr(), p, tab.data_ptr(), s_pad,
             consts.data_ptr(), int(plane7 is not None), k0, k1,
-            int(sample_offset) & 0xFFFFFFFF, int(n_samples), int(max_depth),
-            int(width), _f32(1.0 / width), _f32(1.0 / height),
+            int(sample_offset) & 0xFFFFFFFF, int(n_samples), SAMPLE_GROUP, groups,
+            int(max_depth), int(width), _f32(1.0 / width), _f32(1.0 / height),
             float(t_min), float(t_max), int(rr_start_depth),
             emit.data_ptr() if emit is not None else None, next_pos.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            part_cnt.data_ptr() if part_cnt is not None else None,
             out.data_ptr(), cnt.data_ptr() if cnt is not None else None,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"persistent kernel launch failed: CUDA error {err}")
     tracing.count("launch.persistent")
+    tracing.count("persistent.items", p * groups)
+    if groups > 1:
+        tracing.count("launch.persistent.split")
     if emit is not None:
         tracing.count("launch.persistent.emit")
     return (out, cnt) if return_counts else out
 
 
-def grid_blocks(n_pix: int, n_spheres: int) -> int:
-    """Blocks of 128 lanes the kernel's resident grid has for ``n_pix``
-    pixels over ``n_spheres`` sphere slots (padded to a multiple of 4), on
-    the current CUDA device."""
+def grid_blocks(n_items: int, n_spheres: int) -> int:
+    """Blocks of 128 lanes the kernel's resident grid has for ``n_items``
+    work items (pixels x ``sample_groups``) over ``n_spheres`` sphere slots
+    (padded to a multiple of 4), on the current CUDA device."""
     s_pad = n_spheres + (-n_spheres) % 4
     blocks = ctypes.c_int(0)
-    err = load_library().lib.spt_persistent_grid(int(n_pix), s_pad, ctypes.addressof(blocks))
+    err = load_library().lib.spt_persistent_grid(int(n_items), s_pad, ctypes.addressof(blocks))
     if err != 0:
         raise RuntimeError(f"persistent kernel grid query failed: CUDA error {err}")
     return blocks.value
@@ -433,10 +464,13 @@ def render_block_persistent_reference(
     """Plain PyTorch version of the persistent kernel: the same sums and
     counts, as a wavefront over all (pixel, sample) pairs in spp chunks.
 
-    Each pixel's samples are summed in sample order, as in the kernel.  The
-    pixels are traced in ascending id order and returned in the caller's
-    order, so a permutation of ``pixel_ids`` permutes the result bit for bit
-    (the kernel's property that lane placement changes no value).
+    As in the kernel, each group of ``SAMPLE_GROUP`` samples
+    (``sample_groups``) is summed from 0 in sample order and the groups'
+    sums are added from 0 in group order; with one group (or one sample a
+    group) that is the plain sequential sum.  The pixels are traced in
+    ascending id order and returned in the caller's order, so a permutation
+    of ``pixel_ids`` permutes the result bit for bit (the kernel's property
+    that lane placement changes no value).
     """
     tracing.count("plain.render_block_persistent_reference")
     dev = pixel_ids.device
@@ -447,8 +481,10 @@ def render_block_persistent_reference(
     tables = tuple(scene_tables)
     s = tables[0].shape[0]
     chunk = max(1, min(n_samples, _PLAIN_CHUNK_ELEMS // max(1, p * s)))
-    rad_sum = torch.zeros((p, 3), dtype=torch.float32, device=dev)
-    cnt = torch.zeros((p,), dtype=torch.float32, device=dev)
+    zeros_rad = torch.zeros((p, 3), dtype=torch.float32, device=dev)
+    zeros_cnt = torch.zeros((p,), dtype=torch.float32, device=dev)
+    rad_sum, cnt = zeros_rad, zeros_cnt          # over the groups
+    grp_rad, grp_cnt = zeros_rad, zeros_cnt      # over the open group's samples
     base = int(sample_offset)
     for s0 in range(0, n_samples, chunk):
         c = min(chunk, n_samples - s0)
@@ -460,8 +496,12 @@ def render_block_persistent_reference(
         )
         rad, it = rad.reshape(c, p, 3), it.reshape(c, p)
         for j in range(c):
-            rad_sum = rad_sum + rad[j]
-            cnt = cnt + it[j]
+            grp_rad = grp_rad + rad[j]
+            grp_cnt = grp_cnt + it[j]
+            k = s0 + j + 1
+            if k % SAMPLE_GROUP == 0 or k == n_samples:
+                rad_sum, cnt = rad_sum + grp_rad, cnt + grp_cnt
+                grp_rad, grp_cnt = zeros_rad, zeros_cnt
     out = torch.empty_like(rad_sum)
     out[order] = rad_sum
     if return_counts:

@@ -268,21 +268,24 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["smallpt", "smallpt-ragged-perm", "cover-emitters", "plane-emitters"])
+@pytest.mark.parametrize("case", ["smallpt", "smallpt-ragged-perm", "cover-emitters",
+                                  "plane-emitters", "smallpt-130spp-perm",
+                                  "cover-emitters-70spp"])
 def test_emissive_build_is_bit_exact_on_card(case):
     """The kEmit build against the plain version, bit for bit, over a pixel
     count that is no multiple of the grid's lanes (a permuted subset in the
-    ragged case), twice in a row; each launch counts
+    perm cases), at one sample group and, in the cases that name their spp,
+    at several, twice in a row; each launch counts
     ``launch.persistent.emit``."""
     _need_card()
     if case.startswith("smallpt"):
         scene, cam, cfg = _smallpt("cuda")
-        cfg = cfg.replace(width=53, height=29, spp=7)
-    elif case == "cover-emitters":
+        cfg = cfg.replace(width=53, height=29, spp=130 if "130spp" in case else 7)
+    elif case.startswith("cover-emitters"):
         scene, cam = _cover("cuda")
         scene = _random_emitters(scene, 5)
-        cfg = tpt.RenderConfig(width=47, height=23, spp=5, max_depth=10, rr_start_depth=3,
-                               use_pallas=True)
+        cfg = tpt.RenderConfig(width=47, height=23, spp=70 if "70spp" in case else 5,
+                               max_depth=10, rr_start_depth=3, use_pallas=True)
     else:
         scene = _random_emitters(tpt.with_ground_plane(tpt.three_sphere_scene(device="cuda")), 6)
         cam = tpt.PRESETS["three_sphere"].camera_fn("cuda")

@@ -5,7 +5,8 @@ On the CPU ``render_block_persistent`` takes its plain version, written in
 the kernel's formulation (direct |oc|^2), so it is compared with the JAX
 Pallas kernel, which uses the same formulation.  The CUDA kernel itself is
 held against the plain version on the card by the ``cuda``-marked tests
-here (bit for bit, and run to run: its lanes fetch pixels from a counter)
+here (bit for bit, and run to run: its lanes fetch work items from a
+counter)
 and by chip_smoke.py.  They need no JAX:
 
     python -m pytest --noconftest tests/test_torch_persistent.py -m cuda
@@ -128,6 +129,72 @@ def test_balanced_accumulate_bit_identical():
     assert st.sample_count == 8
 
 
+@pytest.mark.parametrize("n", [1, 2, 8, 63, 64, 65, 100, 128, 129, 256, 500, 5000])
+def test_sample_groups_depend_on_the_sample_count_alone(n):
+    k = persistent.SAMPLE_GROUP
+    want = 1 if n <= k else (n + k - 1) // k
+    assert persistent.sample_groups(n) == want
+    assert (want - 1) * k < n <= want * k
+
+
+def _group_case(lit):
+    """Pixels of a small scene (lit: its three spheres emit) at just above
+    one sample group."""
+    scene = tpt.with_ground_plane(tpt.three_sphere_scene(device="cpu"))
+    if lit:
+        e = torch.zeros((scene.num_spheres, 3))
+        e[1:4] = torch.tensor([3.0, 2.0, 1.0])
+        scene = scene.replace(emission=e)
+    cam = tpt.make_camera(**_TRIO_CAM, device="cpu")
+    cfg = tpt.RenderConfig(width=48, height=24, max_depth=6, rr_start_depth=2, use_pallas=True)
+    n = persistent.SAMPLE_GROUP + 3
+    tables, sky6, cam19 = _persistent_args(scene, cam, cfg)
+    args = (tables, sky6, cam19, tpt.make_key(6), 9, n, cfg.max_depth, cfg.width, cfg.height)
+    kw = dict(t_min=cfg.t_min, t_max=cfg.t_max, rr_start_depth=cfg.rr_start_depth,
+              plane7=scene.plane, emission=scene.emission)
+    return args, kw, n
+
+
+@pytest.mark.parametrize("lit", [False, True], ids=["unlit", "emissive"])
+def test_plain_version_adds_sample_groups_in_order(lit):
+    """Just above one group: the plain version's sums and counts are each
+    group's per-sample radiances summed from 0 in sample order, then the
+    groups' sums added from 0 in group order, bit for bit."""
+    args, kw, n = _group_case(lit)
+    assert persistent.sample_groups(n) == 2
+    tables, sky6, cam19, key, offset, _, depth, w, h = args
+    pix = torch.tensor([5, 77, 300, 301, 640, 1100])
+    got, cnt = persistent.render_block_persistent_reference(pix, *args, **kw, return_counts=True)
+    # Per-sample radiance, traced as the plain version batches it (one
+    # chunk of every (pixel, sample) pair, pixels in ascending order).
+    k0, k1 = persistent.key_words(key)
+    sid = (offset + torch.arange(n)).repeat_interleave(pix.shape[0])
+    rad, it = persistent._trace_plain(
+        pix.repeat(n), sid, tables, sky6, cam19, kw["plane7"], k0, k1, depth, w, h,
+        kw["t_min"], kw["t_max"], kw["rr_start_depth"], kw["emission"])
+    rad, it = rad.reshape(n, -1, 3), it.reshape(n, -1)
+    want, want_cnt = torch.zeros_like(got), torch.zeros_like(cnt)
+    for g0 in range(0, n, persistent.SAMPLE_GROUP):
+        grp, grp_cnt = torch.zeros_like(got), torch.zeros_like(cnt)
+        for j in range(g0, min(g0 + persistent.SAMPLE_GROUP, n)):
+            grp, grp_cnt = grp + rad[j], grp_cnt + it[j]
+        want, want_cnt = want + grp, want_cnt + grp_cnt
+    assert torch.equal(got, want) and torch.equal(cnt, want_cnt)
+    assert (cnt >= n).all() and (got > 0).any()
+
+
+@pytest.mark.parametrize("lit", [False, True], ids=["unlit", "emissive"])
+def test_plain_version_permutes_with_the_pixels_across_groups(lit):
+    args, kw, n = _group_case(lit)
+    gen = torch.Generator().manual_seed(3)
+    pix = torch.randperm(48 * 24, generator=gen)[:10]
+    perm = torch.randperm(10, generator=gen)
+    a, ca = persistent.render_block_persistent_reference(pix, *args, **kw, return_counts=True)
+    b, cb = persistent.render_block_persistent_reference(pix[perm], *args, **kw,
+                                                         return_counts=True)
+    assert torch.equal(a[perm], b) and torch.equal(ca[perm], cb)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version on the card (runs where
@@ -152,15 +219,19 @@ def test_kernel_matches_plain_on_card():
 @pytest.mark.parametrize(
     "name,w,h,spp,rr,perm",
     [("plane", 47, 23, 7, 2, False), ("plane", 47, 23, 1, 0, False),
-     ("cover", 53, 29, 7, 0, False), ("cover", 53, 29, 1, 3, True)],
-    ids=["plane-7spp-rr", "plane-1spp", "cover-7spp", "cover-1spp-rr-perm"],
+     ("cover", 53, 29, 7, 0, False), ("cover", 53, 29, 1, 3, True),
+     ("plane", 47, 23, 70, 2, False), ("cover", 53, 29, 130, 0, True)],
+    ids=["plane-7spp-rr", "plane-1spp", "cover-7spp", "cover-1spp-rr-perm",
+         "plane-70spp-rr", "cover-130spp-perm"],
 )
 def test_kernel_is_bit_exact_on_card(name, w, h, spp, rr, perm):
-    """The kernel's lanes fetch pixels from a counter and regenerate in one
-    flat loop, so which lane sums a pixel changes from run to run but no
-    value does: over P not a multiple of the grid's lanes (a permuted subset
-    in the last case), sums and counts equal the plain version's bit for
-    bit, and two launches in a row give identical outputs."""
+    """The kernel's lanes fetch work items (a pixel and one group of its
+    samples) from a counter and regenerate in one flat loop, so which lane
+    sums an item changes from run to run but no value does: over P not a
+    multiple of the grid's lanes (a permuted subset in the perm cases), at
+    one sample group and at several (the partial sums added by the
+    combine), sums and counts equal the plain version's bit for bit, and
+    two launches in a row give identical outputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     if name == "plane":
@@ -185,3 +256,33 @@ def test_kernel_is_bit_exact_on_card(name, w, h, spp, rr, perm):
     assert torch.equal(a, b) and torch.equal(ca, cb)
     assert torch.equal(a, a2) and torch.equal(ca, ca2)
     assert (ca >= spp).all() and (a > 0).any()
+
+
+@pytest.mark.cuda
+def test_split_counters_read_each_launch_on_card():
+    """``launch.persistent.split`` counts the launches with more than one
+    sample group, ``persistent.items`` every launch's pixels x groups; a
+    permuted ``pixel_ids`` at several groups gives the permuted sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    scene = tpt.with_ground_plane(tpt.three_sphere_scene(device="cuda"))
+    cam = tpt.make_camera(**_TRIO_CAM, device="cuda")
+    cfg = tpt.RenderConfig(width=40, height=20, spp=8, max_depth=10, use_pallas=True)
+    tables, sky6, cam19 = _persistent_args(scene, cam, cfg)
+    pix = torch.arange(800, device="cuda")
+    n_split = 2 * persistent.SAMPLE_GROUP + 1
+    for spp, groups in ((8, 1), (persistent.SAMPLE_GROUP, 1), (n_split, 3)):
+        before = tracing.counts()
+        a, ca = persistent.render_block_persistent(pix, tables, sky6, cam19, tpt.make_key(2), 0,
+                                                   spp, 10, 40, 20, plane7=scene.plane,
+                                                   return_counts=True)
+        since = tracing.counts() - before
+        assert persistent.sample_groups(spp) == groups
+        assert since["launch.persistent"] == 1
+        assert since["launch.persistent.split"] == int(groups > 1)
+        assert since["persistent.items"] == 800 * groups
+    perm = torch.randperm(800, generator=torch.Generator().manual_seed(5)).to("cuda")
+    b, cb = persistent.render_block_persistent(pix[perm], tables, sky6, cam19, tpt.make_key(2), 0,
+                                               n_split, 10, 40, 20, plane7=scene.plane,
+                                               return_counts=True)
+    assert torch.equal(a[perm], b) and torch.equal(ca[perm], cb)
