@@ -31,6 +31,14 @@ through the soft kernels only, each soft kernel at that fit's chunk on
 2,048 random lanes against its plain version, the plane leaf of
 ``three_sphere_plane`` at its full size (the crossing coin live), and the
 half-buried radius AD/FD of tests/test_crossing.py through the kernels.
+Phase 7e drives gradients of an emitter-lit scene on their main path (the
+benchmark cell ``smallpt_fit.fit_lit``'s shape): ``fit`` of the
+``smallpt`` frame at 64 spp with its defaults and the emission leaf,
+through the emissive builds only (launches counted from zero over the
+timed steps; the light's emission must rise), and each emissive kernel
+(idx-only and full-residual forward, backward, the 12-column bucket) and
+the re-forward at that fit's 8-spp chunk on 2,048 random lanes against
+their plain versions, with their times and bounds.
 Phase 8 drives camera gradients through the per-bounce fused kernels
 (``csrc/grad.cu``): raygen, every forward and backward bounce against
 their plain versions at small shapes (bit for bit; sky sums and buckets
@@ -160,9 +168,9 @@ BUCKET_SUM_ROUNDINGS = 8
 # Operations per lane-iteration of the backward (bounce forward ~150, its
 # adjoint ~250 FP32 operations; threefry's integer work not counted).
 BWD_OPS_PER_ITER = 400
-# Residual planes of one lane-iteration (csrc/grad_regen.cu), 4 B each.
+# Residual planes of one lane-iteration (csrc/grad_regen.cu), 4 B each;
+# the cotangent planes come from ops/grad_regen._n_planes.
 N_RES_PLANES = 25
-N_CT_PLANES = 9
 # Regen forward against the persistent kernel (different hit rebuild, so
 # knife-edge winners may flip): |d| > 1e-4 on fewer than this share of
 # channels at this spp (tests/test_pallas_bounce.py:44-46).  A path whose
@@ -187,11 +195,16 @@ FLOPS_PER_SOFT_SPHERE_TEST = 32
 # the blocker's root, the crossing factor) and adjoint (~220).
 BWD_OPS_PER_ITER_SOFT = 750
 N_RES_PLANES_SOFT = 30
-N_CT_PLANES_SOFT = 13
 N_BLK_PLANES = 4
 # Steps of the default soft fit timed with SIL_FRESNEL on and off again
 # (phase 7).
 FRESNEL_STEPS = 2
+# Phase 7e, the lit fit (port_bench/traffic/fit_lit.json's shape): spp,
+# the target's spp, the mirror and glass balls' slots, the light's slot and
+# the start's emission scale.
+LIT_SPP, LIT_TARGET_SPP = 64, 16
+LIT_BALLS, LIT_LIGHT = [5, 6], 7
+LIT_EMISSION_START = 0.7
 
 _SRC = "simplepathtracer_tpu_torch/csrc/"
 _JAX = "simplepathtracer_tpu/ops/"
@@ -215,6 +228,15 @@ SOFT_PLANE_KERNELS = (
     ("regen_fwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:133"),
     ("regen_refwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:1095"),
     ("regen_bwd_soft_plane", _SRC + "grad_regen.cu", _JAX + "pallas_grad_regen.py:462"),
+)
+# Phase 7e, the emissive builds on the lit fit's path (no TPU counterpart:
+# the JAX package has no emission; the re-forward is the unlit build, its
+# planes do not depend on emission).
+LIT_KERNELS = (
+    ("regen_fwd_soft_emit", _SRC + "grad_regen.cu", None),
+    ("regen_refwd_soft_emit", _SRC + "grad_regen.cu", None),
+    ("regen_bwd_soft_emit", _SRC + "grad_regen.cu", None),
+    ("bucket_emit", _SRC + "bucket.cu", None),
 )
 # Phase 8, camera gradients: the per-bounce fused kernels (hard and soft
 # instantiations) and raygen.
@@ -304,14 +326,15 @@ SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?([A-Z0-9_.]+)(
 # Report-name suffix of each regen kernel variant (ops/grad_regen.variant)
 # and report name of each bucket column count.
 VARIANT_SUFFIX = {"hard": "", "soft": "_soft", "soft_plane": "_soft_plane"}
-BUCKET_NAMES = {9: "bucket", N_BLK_PLANES: "bucket_blocker"}
+BUCKET_NAMES = {9: "bucket", N_BLK_PLANES: "bucket_blocker", 12: "bucket_emit"}
 
 
-def kernel_names(variant):
-    """Report names of the gradient kernels of one regen variant."""
-    sfx = VARIANT_SUFFIX[variant]
+def kernel_names(variant, emit=False):
+    """Report names of the gradient kernels of one regen variant (``emit``:
+    of an emissive call, ``_emit`` appended and the 12-column bucket)."""
+    sfx = VARIANT_SUFFIX[variant] + ("_emit" if emit else "")
     return {"regen_fwd": "regen_fwd" + sfx, "regen_refwd": "regen_refwd" + sfx,
-            "regen_bwd": "regen_bwd" + sfx, "bucket": "bucket"}
+            "regen_bwd": "regen_bwd" + sfx, "bucket": "bucket_emit" if emit else "bucket"}
 
 
 def gamma_image(sums, spp):
@@ -574,8 +597,9 @@ def counts_since_reset():
 
 def launch_counts():
     """Launches since the counts were reset, by report name: each regen and
-    fused kernel by variant, the bucket by column count, the others by
-    name (the persistent kernel's apart, ``route_counts``)."""
+    fused kernel by variant (a regen launch of an emissive call under its
+    ``_emit`` name alone), the bucket by column count, the others by name
+    (the persistent kernel's apart, ``route_counts``)."""
     names = {"regen_forward": "regen_fwd", "regen_refwd": "regen_refwd",
              "regen_backward": "regen_bwd", "grad_forward": "grad_fwd",
              "grad_backward": "grad_bwd"}
@@ -587,12 +611,19 @@ def launch_counts():
         if parts[1] == "bucket":
             out[BUCKET_NAMES[int(parts[2])]] = n
         elif parts[1].startswith("regen"):
-            out[kernel_names(parts[2])[names[parts[1]]]] = n
+            # launch.<kernel>.<variant> counts every launch, .emit the
+            # emissive calls' among them.
+            emit = parts[3:] == ["emit"]
+            name = kernel_names(parts[2], emit)[names[parts[1]]]
+            out[name] = out.get(name, 0) + n
+            if emit:
+                plain_name = kernel_names(parts[2])[names[parts[1]]]
+                out[plain_name] = out.get(plain_name, 0) - n
         elif parts[1] in names:
             out[names[parts[1]] + VARIANT_SUFFIX[parts[2]]] = n
         else:
             out[parts[1]] = n
-    return out
+    return {k: n for k, n in out.items() if n}
 
 
 def plain_calls(wrappers):
@@ -1135,32 +1166,45 @@ def knife_edge(gr, regen_call, persistent, cfg, chunk, persistent_sums, persiste
     return fa["max"]
 
 
+def timed_plain(fn, *args):
+    """(fn(*args), its wall ms on the card): a plain version's time."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     """Each gradient kernel at a main path's chunk shape (the scene's tables,
     the chunk at sample offset 0; the instantiation ``call`` selects: hard,
-    soft, or soft with a plane).  With one bank, lane = pixel and a lane's
-    outputs depend on its pixel alone, so the kernels' outputs on the lanes
-    ``rows`` must equal the plain versions run on those pixels (same key and
-    sample offset): the forward in both modes, the re-forward and the
-    backward.  The buckets' tables over all the chunk's rows are held
-    against a float64 index_add_.  Also the CUDA-event ms of each kernel,
-    its bound from this run's data, index_add_'s time on each bucket's rows,
-    and the chunk's winner codes from the full-residual forward (plane hits,
-    crossing-loser plane wins, blockers).  Raises on a mismatch."""
+    soft, or soft with a plane, each with or without an emission table).
+    With one bank, lane = pixel and a lane's outputs depend on its pixel
+    alone, so the kernels' outputs on the lanes ``rows`` must equal the
+    plain versions run on those pixels (same key and sample offset): the
+    forward in both modes, the re-forward and the backward.  The buckets'
+    tables over all the chunk's rows are held against a float64
+    index_add_.  Also the CUDA-event ms of each kernel, its bound from this
+    run's data (an emissive forward's also by its RNG, as phase 4e bounds
+    it), the plain versions' wall ms on the lanes, index_add_'s time on
+    each bucket's rows, and the chunk's winner codes from the full-residual
+    forward (plane hits, crossing-loser plane wins, blockers).  Raises on a
+    mismatch."""
     from simplepathtracer_tpu_torch import tracing
 
     if call.n_banks != 1:
         raise RuntimeError("full_width_kernels needs one bank (lane = pixel)")
     soft = call.softness > 0.0
-    kn = kernel_names(gr.variant(call))
+    emit = call.emit is not None
+    kn = kernel_names(gr.variant(call), emit)
     n_res = N_RES_PLANES_SOFT if soft else N_RES_PLANES
-    n_ct = N_CT_PLANES_SOFT if soft else N_CT_PLANES
+    n_ct = gr._n_planes(call)[2]
     b, n, p = call.n_iter, call.n_lanes, cfg.num_pixels
     sub = call._replace(pixel_ids=rows.to(torch.int32), n_lanes=rows.numel())
     cols = rows.to(torch.int64)
-    errs = {}
-    tag = (f"kernel at {cfg.width}x{cfg.height}x{call.n_samples}spp{' soft' if soft else ''}, "
-           f"{rows.numel()} random lanes:")
+    errs, plain_ms = {}, {}
+    tag = (f"kernel at {cfg.width}x{cfg.height}x{call.n_samples}spp{' soft' if soft else ''}"
+           f"{' emissive' if emit else ''}, {rows.numel()} random lanes:")
     live = ((scene.radii.abs() > 1e-3) & (scene.centers[:, 1] > -1e6)).sum().item()
     ms, bound, res = {}, {}, {}
     # Timed launches per kernel: 10x more on a chunk of a few million
@@ -1170,7 +1214,8 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     # Full-residual mode: the planes on the random lanes, and the winner
     # codes of the whole chunk.
     rad_f, cnt_f, (resf_f, resi_f) = gr.regen_forward(call, 0, True)
-    rad_fp, cnt_fp, res_fp = gr.regen_fwd_reference(sub, 0, True)
+    (rad_fp, cnt_fp, res_fp), plain_ms[kn["regen_fwd"]] = timed_plain(
+        gr.regen_fwd_reference, sub, 0, True)
     ok = (torch.equal(rad_f[cols], rad_fp) and torch.equal(cnt_f[cols], cnt_fp)
           and equal_on_alive((resf_f[:, :, cols], resi_f[:, :, cols]), res_fp, res_fp[0][9] > 0))
     errs[kn["regen_fwd"]] = (rad_f[cols] - rad_fp).abs().max().item()
@@ -1218,11 +1263,18 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     ops = iters * live * flops
     nbytes = packed.numel() * 4 + p * (4 + 12)
     bound[kn["regen_fwd"]] = (ops / PEAK_FP32, nbytes / PEAK_BYTES)
+    if emit:
+        # On 8 spheres the threefry work outweighs the scan: at most 2
+        # evaluations a path and 4 a segment (phase 4e's count).
+        paths = n * call.n_samples
+        rng_s = (2 * paths + 4 * iters) * THREEFRY_INT_OPS / PEAK_INT32
+        bound[kn["regen_fwd"]] = (max(ops / PEAK_FP32, rng_s), nbytes / PEAK_BYTES)
     del rad
 
     ms[kn["regen_refwd"]] = cuda_ms(lambda: gr.regen_refwd(call, 0, packed), reps=2 * more)
     resf, resi = gr.regen_refwd(call, 0, packed)
-    resf_p, resi_p = gr.regen_refwd_reference(sub, 0, packed_p)
+    (resf_p, resi_p), plain_ms[kn["regen_refwd"]] = timed_plain(
+        gr.regen_refwd_reference, sub, 0, packed_p)
     alive = resf_p[9] > 0
     ok = equal_on_alive((resf[:, :, cols], resi[:, :, cols]), (resf_p, resi_p), alive)
     errs[kn["regen_refwd"]] = (resf[:, :, cols][:, alive] - resf_p[:, alive]).abs().max().item()
@@ -1259,7 +1311,7 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     gen = torch.Generator().manual_seed(3)
     ct = (torch.randn((p, 3), generator=gen) * 1e-6).to(call.pixel_ids.device)
     ms[kn["regen_bwd"]] = cuda_ms(lambda: gr.regen_backward(call, 0, resf, resi, ct), reps=2 * more)
-    if soft:
+    if soft and not emit:
         # The same launch with SIL_FRESNEL on, between two more with it off
         # (the switch is a runtime flag of the constants).
         call_f = fresnel_call(call)
@@ -1279,7 +1331,8 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
           f"warps' longest counts), store-only pass over the {n_ct} cotangent planes "
           f"{store_ms:.3f} ms")
     ct_planes, part = gr.regen_backward(call, 0, resf, resi, ct)
-    ct_p, part_p = gr.regen_bwd_reference(sub, 0, resf_p, resi_p, ct[cols])
+    (ct_p, part_p), plain_ms[kn["regen_bwd"]] = timed_plain(
+        gr.regen_bwd_reference, sub, 0, resf_p, resi_p, ct[cols])
     (e1, d1), (e2, d2) = normwise_err(ct_planes[:, :, cols], ct_p), normwise_err(part[:, cols], part_p)
     errs[kn["regen_bwd"]] = max(d1, d2)
     print(f"{tag} backward cotangent planes rel {e1:.3e} (max|d| {d1:.3e}), partials rel "
@@ -1294,9 +1347,10 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
     del resf, part, resf_p, resi_p
 
     s = call.n_spheres
-    buckets = [("bucket", ct_planes[:9], resi[3])]
+    n_win = 12 if emit else 9
+    buckets = [(kn["bucket"], ct_planes[:n_win], resi[3])]
     if soft:
-        buckets.append(("bucket_blocker", ct_planes[9:], resi[5]))
+        buckets.append(("bucket_blocker", ct_planes[n_win:], resi[5]))
     res["library_ms"], res["bucket_rows"], res["coherence"] = {}, {}, {}
     for bname, c, idx in buckets:
         k = c.shape[0]
@@ -1323,6 +1377,7 @@ def full_width_kernels(gr, bucket, call, scene, cfg, rows):
         del idx_keep, src, table, lib, err_k, err_l, tol
     del resi, ct_planes
     res["full_width_errs"] = errs
+    res["plain_ms"] = plain_ms
     res["ms"] = ms
     res["bound_ms"] = {k: max(v) * 1e3 for k, v in bound.items()}
     res["bound_by"] = {k: "operations" if v[0] >= v[1] else "bytes" for k, v in bound.items()}
@@ -1668,6 +1723,95 @@ def phase7_soft(tpt, dev, wrappers):
             and not any(plain_b.values())):
         raise RuntimeError("phase7: AD/FD through the kernels out of its bound")
     out["adfd"] = dict(ad=ad, fd=fd, ratio=ratio)
+    return out
+
+
+def phase7e_lit(tpt, dev, wrappers):
+    """Phase 7e: gradients of an emitter-lit scene on the main path, at the
+    shape of the benchmark cell ``smallpt_fit.fit_lit``: ``fit`` of the
+    ``smallpt`` preset's 1024x768 frame at LIT_SPP spp with its defaults
+    (softness 0.02, every leaf and the emission, the decoupled loss) from a
+    soft-to-soft target, the start's albedo x 0.6, emission x 0.7 and the
+    two balls +1 in x (free: their centers in x and z and their radii, the
+    light's emission, every albedo, fuzz, ior and the sky).  Its launches
+    are counted from zero over the timed steps and must be the emissive
+    builds' alone (per step 2n idx-only forwards, n re-forwards, n
+    backwards, n 12-column and n blocker buckets, no plain call); its
+    losses must be finite and the light's emission must rise.  Then each
+    emissive kernel at that fit's chunk on 2,048 random lanes against its
+    plain version (``full_width_kernels``).  Returns what the report
+    needs."""
+    from simplepathtracer_tpu_torch.ops import bucket, grad_regen as gr
+
+    out = {}
+    lap()
+    scene, cam, cfg = tpt.PRESETS["smallpt"].build(0, device=dev)
+    cfg = cfg.replace(spp=LIT_SPP)
+    key = tpt.make_key(0)
+    soft_cfg = tpt.grad_safe_config(cfg.replace(silhouette_softness=DEFAULT_SOFTNESS), dev)
+    with torch.no_grad():
+        target = tpt.render_linear(scene, cam, soft_cfg.replace(spp=LIT_TARGET_SPP),
+                                   tpt.fold_in(key, 1000))
+    centers = scene.centers.clone()
+    centers[LIT_BALLS, 0] += 1.0
+    start = scene.replace(albedo=scene.albedo * ALBEDO_START, centers=centers,
+                          emission=scene.emission * LIT_EMISSION_START)
+    mask = {"centers": torch.zeros_like(scene.centers), "radii": torch.zeros_like(scene.radii),
+            "emission": torch.zeros_like(scene.emission)}
+    for axis in (0, 2):
+        mask["centers"][LIT_BALLS, axis] = 1.0
+    mask["radii"][LIT_BALLS] = 1.0
+    mask["emission"][LIT_LIGHT] = 1.0
+    fit_kw = dict(lr=FIT_LR, param_mask=mask, device=dev)
+    tpt.fit(start, target, cam, cfg, key, steps=1, **fit_kw)
+    sync(dev)
+    reset_counts()
+    reset_peak(dev)
+    t0 = time.perf_counter()
+    fitted, losses = tpt.fit(start, target, cam, cfg, key, steps=FIT_STEPS, **fit_kw)
+    sync(dev)
+    out["step_s"] = (time.perf_counter() - t0) / FIT_STEPS
+    out["fit_peak_gb"] = peak_gb(dev)
+    out["launches"] = launch_counts()
+    out["plain_calls"] = plain_calls(wrappers)
+    out["losses"] = losses
+    e0 = start.emission[LIT_LIGHT, 0].item()
+    e1 = fitted.emission[LIT_LIGHT, 0].item()
+    g_chunk, n = decoupled_chunks(cfg, soft_cfg)
+    out.update(chunk=g_chunk, n_chunks=n, emission=(e0, e1))
+    print(f"phase7e smallpt fit {cfg.width}x{cfg.height}x{cfg.spp}spp depth {cfg.max_depth} "
+          f"(softness {DEFAULT_SOFTNESS}, every leaf and the emission, decoupled loss: "
+          f"{cfg.spp // 2} spp differentiated in {n} chunks of {g_chunk}), {FIT_STEPS} steps: "
+          f"losses {losses}, {out['step_s']:.4f} s/step, peak {out['fit_peak_gb']:.2f} GB, "
+          f"light's emission {e0:.4f} -> {e1:.4f} (truth "
+          f"{scene.emission[LIT_LIGHT, 0].item():.1f}), launches {out['launches']}, plain calls "
+          f"{out['plain_calls']}")
+    if not (all(map(math.isfinite, losses)) and e1 > e0):
+        raise RuntimeError("phase7e: the lit fit's losses are not finite or its light's "
+                           "emission did not rise")
+    want = {"regen_fwd_soft_emit": 2 * n, "regen_bwd_soft_emit": n, "bucket_emit": n,
+            "bucket_blocker": n}
+    if n > 1:
+        want["regen_refwd_soft_emit"] = n
+    if out["launches"] != {k: v * FIT_STEPS for k, v in want.items()} or any(
+            out["plain_calls"].values()):
+        raise RuntimeError(f"phase7e: the lit fit did not run through the emissive builds only "
+                           f"(launches {out['launches']}, per step wanted {want}, plain calls "
+                           f"{out['plain_calls']})")
+    out["per_step"] = want
+    lap("phase7e (a) lit fit")
+
+    # (b) Each emissive kernel at that fit's chunk shape.
+    gen = torch.Generator().manual_seed(5)
+    rows = torch.randperm(cfg.num_pixels, generator=gen)[:N_CHECK_PIXELS].to(dev)
+    inputs, cam19 = gr._trace_inputs(start, cam, cfg)
+    call = gr.regen_call(inputs[:11], inputs[11], inputs[12], cam19, key,
+                         torch.arange(cfg.num_pixels, device=dev), n_samples=g_chunk,
+                         max_depth=cfg.max_depth, width=cfg.width, height=cfg.height,
+                         t_min=cfg.t_min, t_max=cfg.t_max, rr_start_depth=cfg.rr_start_depth,
+                         softness=DEFAULT_SOFTNESS, emission=inputs[13])
+    out.update(full_width_kernels(gr, bucket, call, start, cfg, rows))
+    lap("phase7e (b) emissive kernels at full width")
     return out
 
 
@@ -3598,6 +3742,11 @@ def main(argv=None):
         print(f"fused backward {vname}: {ptxas_usage(lib.log, f'grad_bwd_kernelILi{v}EE')}")
     for v, vname in enumerate(("hard", "soft", "soft_plane")):
         print(f"regen backward {vname}: {ptxas_usage(lib.log, f'regen_bwd_kernelILi{v}EE')}")
+    for v, vname in enumerate(("hard", "soft", "soft_plane")):
+        for mname, entry in (("idx", f"regen_idx_lit_kernelILi{v}EE"),
+                             ("full", f"regen_full_lit_kernelILi{v}EE"),
+                             ("backward", f"regen_bwd_lit_kernelILi{v}EE")):
+            print(f"regen emissive {vname} {mname}: {ptxas_usage(lib.log, entry)}")
     print(f"closest_hit_attrs: {ptxas_usage(lib.log, 'closest_hit_attrs_kernel')}")
     print(f"bounce_step: {ptxas_usage(lib.log, 'bounce_step_kernel')}")
     for k in BUCKET_NAMES:
@@ -3805,6 +3954,18 @@ def main(argv=None):
     }))
 
     phase_done("phase7")
+
+    # ---- phase 7e: gradients of an emitter-lit scene on the main path -----
+    main7e = phase7e_lit(tpt, dev, wrappers)
+    print("phase7e fit: " + json.dumps({
+        "shape": f"smallpt 1024x768x{LIT_SPP}spp", "softness": DEFAULT_SOFTNESS,
+        "spp_chunk": main7e["chunk"], "chunks": main7e["n_chunks"], "steps": FIT_STEPS,
+        "s_per_step": main7e["step_s"], "peak_gb": main7e["fit_peak_gb"],
+        "losses": main7e["losses"], "light_emission": main7e["emission"],
+        "launches_per_step": main7e["per_step"],
+    }))
+
+    phase_done("phase7e")
 
     # ---- phase 8: camera gradients through the fused kernels -------------
     fused_errs, fused_plain_ms, fused_small_ms, fused_shapes = phase8_kernels(tpt, dev)
@@ -4024,6 +4185,34 @@ def main(argv=None):
             "launches_over_fits": [f["spp_chunk"] for f in plane_fit["fits"]],
             **regen_fwd_extra(name, plane_k, 2),
             **fresnel_extra(name, plane_k),
+        })
+    lit_ptxas = {"regen_fwd_soft_emit": "regen_idx_lit_kernelILi1EE",
+                 "regen_refwd_soft_emit": "regen_kernelILi2ELi1EE",
+                 "regen_bwd_soft_emit": "regen_bwd_lit_kernelILi1EE",
+                 "bucket_emit": "bucket_kernelILi12EE"}
+    for name, source, replaces in LIT_KERNELS:
+        extra = {"ptxas_full": ptxas_usage(lib.log, "regen_full_lit_kernelILi1EE"),
+                 "lane_share": main7e["lane_share"], "full_ms": main7e["full_ms"]} \
+            if name == "regen_fwd_soft_emit" else {}
+        if name == "bucket_emit":
+            extra = {"coherence": main7e["coherence"][name]}
+        report["kernels"].append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": main7e["launches"][name],
+            "max_abs_err": main7e["full_width_errs"][name],
+            "ms": main7e["ms"][name],
+            "plain_ms": main7e["plain_ms"].get(name),
+            "bound_ms": main7e["bound_ms"][name],
+            "bound_by": main7e["bound_by"][name],
+            "library_ms": main7e["library_ms"].get(name),
+            "ms_shape": f"smallpt 1024x768x{main7e['chunk']}spp soft {DEFAULT_SOFTNESS}",
+            "plain_ms_shape": f"{N_CHECK_PIXELS} lanes x {main7e['chunk']}spp",
+            "launches_over_fit_steps": FIT_STEPS,
+            **ptxas_usage(lib.log, lit_ptxas[name]),
+            **extra,
         })
     for name, source, replaces in FUSED_KERNELS:
         res = main8c if name.endswith("_soft") else main8b

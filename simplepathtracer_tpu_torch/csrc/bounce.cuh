@@ -557,15 +557,19 @@ __device__ void soft_adjoint(const Bounce& f, const Soft& s, const SoftK& k,
 
 // Cotangents of (o, d, tp, a9, sky6) -- soft: and of the blocker's 4
 // attributes and the plane offset (in sa) -- from those of (o', d', tp',
-// rad) for an alive lane: ops/bounce.py:bounce_tile_adjoint.
-template <int V>
+// rad) for an alive lane: ops/bounce.py:bounce_tile_adjoint.  An emissive
+// call passes em, the winner's emission (0 on the plane), whose term tp * em
+// the hit added to rad: its cotangent ct_rad * em joins the throughput's
+// before the soft ratio's score reads it.  (em is a parameter pack, empty
+// without emission, so that call is the function it was before.)
+template <int V, typename... Em>
 __device__ void bounce_adjoint(const Bounce& f, bool rr_on,
                                const float* ct_o, const float* ct_d,
                                const float* ct_tp, const float* ct_rad,
                                float* g_o, float* g_d, float* g_tp,
                                float* g_a9, float* g_sky, const Soft& s,
                                const SoftK& k, const float* pl, float t_min,
-                               SoftCt& sa) {
+                               SoftCt& sa, const Em*... em) {
   float g_nt[3] = {ct_tp[0], ct_tp[1], ct_tp[2]};
   if (rr_on && f.boost) {
     // nt' = nt / q, q = clip(max3(nt), 0.05, 1).
@@ -627,6 +631,11 @@ __device__ void bounce_adjoint(const Bounce& f, bool rr_on,
     g_d[c] = f.surv0 ? 0.0f : ct_d[c];
     g_sd[c] = f.surv0 ? ct_d[c] : 0.0f;
     g_p[c] = ct_o[c];
+  }
+  if constexpr (sizeof...(Em) == 1) {
+    const float* e = (em, ...);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) g_tp[c] = g_tp[c] + ct_rad[c] * e[c];
   }
   if constexpr (V != kHard) {
     // tp enters scaled by den / stop_grad(den) == 1: the ratio's cotangent.

@@ -1,7 +1,8 @@
 // Bucket accumulation for Hopper (sm_90a): d[s, k] = sum_r [idx_r == s] *
 // cols[k, r], over the K cotangent planes the backward kernels write
 // (csrc/grad_regen.cu, csrc/grad.cu): K = 9 winner-attribute columns
-// (bucketed by winner index), or, under soft silhouettes, K = 4 blocker
+// (bucketed by winner index; on an emissive scene K = 12, the winner's
+// emission rgb after them), or, under soft silhouettes, K = 4 blocker
 // columns cx cy cz r (bucketed by blocker index).
 //
 // Replaces the TPU kernel ops/pallas_bucket.py:_bucket_kernel of the JAX
@@ -172,9 +173,9 @@ cudaError_t launch_bucket(const void* cols, const void* idx, long long n_rows,
 }  // namespace
 }  // namespace spt
 
-// cols: [n_cols, n_rows] f32, n_cols 9 (winner attributes) or 4 (the
-// blocker's); out: [n_buckets, n_cols] f32, zeroed by the caller.  Returns
-// cudaGetLastError().
+// cols: [n_cols, n_rows] f32, n_cols 9 (winner attributes), 12 (and the
+// winner's emission) or 4 (the blocker's); out: [n_buckets, n_cols] f32,
+// zeroed by the caller.  Returns cudaGetLastError().
 extern "C" int spt_bucket(const void* cols, const void* idx, long long n_rows,
                           int n_cols, int n_buckets, void* out, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -185,6 +186,9 @@ extern "C" int spt_bucket(const void* cols, const void* idx, long long n_rows,
       break;
     case 4:
       err = spt::launch_bucket<4>(cols, idx, n_rows, n_buckets, out, st);
+      break;
+    case 12:
+      err = spt::launch_bucket<12>(cols, idx, n_rows, n_buckets, out, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -9,6 +9,10 @@
 //   regen_bwd_kernel<V>          _regen_bwd_kernel
 // V = kHard, kSoft (soft silhouettes) or kSoftPlane (soft with a ground
 // plane: the crossing coin), so the hard instantiations compile as before.
+// The emissive builds regen_idx_lit_kernel<V>, regen_full_lit_kernel<V>
+// and regen_bwd_lit_kernel<V> (no TPU counterpart: the JAX package has no
+// emission) run the same bodies with kEmit set, so every build without
+// emission compiles as before.
 // Together with ops/pallas_grad.py:bounce_tile (the physics all four share)
 // and its jax.vjp, which CUDA does not have: the adjoint is written by hand
 // in bounce.cuh (shared with grad.cu) and mirrors the plain PyTorch
@@ -65,6 +69,18 @@
 // blocker by index there instead of the TPU's one-hot matrix product.
 // Per-lane partials are written once and summed by the host, so every
 // result is deterministic.
+//
+// Emission (kEmit).  A live sphere hit adds tp * e (the entry throughput
+// times the winner's emission, read from a [S_pad] float4 table in global
+// memory by the winner index, as persistent_kernel<true> reads it) to the
+// lane's radiance sum, in iteration order; the plane emits nothing.  Under
+// soft silhouettes the entry throughput carries the detached ratio (1 in
+// value).  The backward adds ct_rad * e to the throughput cotangent it
+// carries back (the radiance suffix the emission terms after a bounce
+// make), so the soft ratio's score sees the light too, and writes the
+// emission's cotangent ct_rad * tp as 3 more planes after the winner's 9.
+// The re-forward writes the same planes with or without emission: it has
+// no emissive build.
 //
 // The backward (regen_bwd_kernel) also keeps one thread per lane.  About
 // three quarters of a chunk's (iteration, lane) entries are dead (the
@@ -180,6 +196,7 @@ struct RegenArgs {
   int* resi;
   int* packed;
   unsigned long long* counters;
+  const float4* emit;  // the emissive builds' table, else nullptr
 };
 
 // One lane's walk between iterations.
@@ -259,8 +276,9 @@ __device__ __forceinline__ BlockTables load_block(const RegenArgs& a,
 // Iteration w.it of lane ``lane`` (whose walk is not over): one bounce,
 // regenerating a camera ray first if no path is in flight, with its
 // records; then w.it + 1.  Returns the winner code and (soft) the blocker
-// index (else -1), whose planes, as alive's, the caller stores.
-template <int MODE, int V>
+// index (else -1), whose planes, as alive's, the caller stores.  kEmit: a
+// sphere hit adds its emission term to the lane's sum.
+template <int MODE, int V, bool kEmit>
 __device__ __forceinline__ int2 regen_step(const RegenArgs& a,
                                            const BlockTables& bt_,
                                            const Consts& k, int lane,
@@ -361,6 +379,13 @@ __device__ __forceinline__ int2 regen_step(const RegenArgs& a,
   }
   float wa[9];
   winner_attrs(tabs, k.pl, bi, wa, f.mat);
+  float em[3] = {0.0f, 0.0f, 0.0f};
+  if constexpr (kEmit) {
+    if (bi >= 0 && !is_plane_code(bi)) {
+      const float4 e = __ldg(a.emit + bi);
+      em[0] = e.x; em[1] = e.y; em[2] = e.z;
+    }
+  }
   float blk[4];
   if constexpr (kSoftV) blocker_attrs(tabs, qi, blk);
   if (MODE == kModeIdx) {
@@ -411,6 +436,10 @@ __device__ __forceinline__ int2 regen_step(const RegenArgs& a,
   if (!f.hit) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) w.acc[c] = w.acc[c] + f.rad[c];
+  } else if constexpr (kEmit) {
+    // Light the hit surface emits, through the path so far (0 on the plane).
+#pragma unroll
+    for (int c = 0; c < 3; ++c) w.acc[c] = w.acc[c] + f.tp[c] * em[c];
   }
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -443,11 +472,12 @@ __device__ __forceinline__ int2 regen_step(const RegenArgs& a,
 // counters[kCntNext], one atomicAdd per warp for the threads that need one,
 // inside the same loop, so no thread of a warp waits for another's lane to
 // end.  A lane's records are those of the fixed map; its words after the
-// walk's end are not written here: the wrapper zeroes them first.
-template <int V>
-__global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
-    regen_idx_kernel(SPT_REGEN_PARAMS) {
-  const RegenArgs a = {SPT_REGEN_FIELDS};
+// walk's end are not written here: the wrapper zeroes them first.  The
+// body of regen_idx_kernel<V> (kEmit false) and regen_idx_lit_kernel<V>.
+template <int V, bool kEmit>
+__device__ __forceinline__ void regen_idx_run(SPT_REGEN_PARAMS,
+                                              const float4* __restrict__ emit) {
+  const RegenArgs a = {SPT_REGEN_FIELDS, emit};
   extern __shared__ float4 smem[];
   // The constants in shared memory: registers are this kernel's limit.
   __shared__ Consts k;
@@ -494,10 +524,22 @@ __global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
     }
     if (__all_sync(kFullWarp, done)) break;
     ++trips;
-    if (has_lane) regen_step<kModeIdx, V>(a, bt, k, lane, w);
+    if (has_lane) regen_step<kModeIdx, V, kEmit>(a, bt, k, lane, w);
   }
   if (wl == 0) atomicAdd(a.counters + kCntThreadIters, 32ull * trips);
   if (blockIdx.x == 0 && threadIdx.x == 0) a.counters[kCntBlocks] = gridDim.x;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
+    regen_idx_kernel(SPT_REGEN_PARAMS) {
+  regen_idx_run<V, false>(SPT_REGEN_FIELDS, nullptr);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
+    regen_idx_lit_kernel(SPT_REGEN_PARAMS, const float4* __restrict__ emit) {
+  regen_idx_run<V, true>(SPT_REGEN_FIELDS, emit);
 }
 
 // The full-residual forward and the re-forward (MODE kModeFull or
@@ -514,11 +556,12 @@ __global__ void __launch_bounds__(kThreads, kRegenBlocksPerSm)
 // lanes of one row each, and nothing in the other planes.  (Lanes writing
 // their own dead iterations from their own counts would touch up to 32
 // rows per store, one word in each 32-byte sector: on the cover chunks
-// that cost the hard re-forward ~1.5 ms of its 6.)
-template <int MODE, int V>
-__global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSm<MODE>)
-    regen_kernel(SPT_REGEN_PARAMS) {
-  const RegenArgs a = {SPT_REGEN_FIELDS};
+// that cost the hard re-forward ~1.5 ms of its 6.)  The body of
+// regen_kernel<MODE, V> (kEmit false) and regen_full_lit_kernel<V>.
+template <int MODE, int V, bool kEmit>
+__device__ __forceinline__ void regen_plane_run(SPT_REGEN_PARAMS,
+                                                const float4* __restrict__ emit) {
+  const RegenArgs a = {SPT_REGEN_FIELDS, emit};
   extern __shared__ float4 smem[];
   const BlockTables bt = load_block<V>(a, smem);
   __syncthreads();
@@ -539,7 +582,7 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSm<MODE>)
     if (!__any_sync(kFullWarp, live)) break;
     int2 code = make_int2(-1, -1);
     if (live) {
-      code = regen_step<MODE, V>(a, bt, k, lane, w);
+      code = regen_step<MODE, V, kEmit>(a, bt, k, lane, w);
     } else if (in) {
       const size_t e = static_cast<size_t>(it) * L + lane;
 #pragma unroll
@@ -566,6 +609,18 @@ __global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSm<MODE>)
   }
 }
 
+template <int MODE, int V>
+__global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSm<MODE>)
+    regen_kernel(SPT_REGEN_PARAMS) {
+  regen_plane_run<MODE, V, false>(SPT_REGEN_FIELDS, nullptr);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, kPlaneBlocksPerSm<kModeFull>)
+    regen_full_lit_kernel(SPT_REGEN_PARAMS, const float4* __restrict__ emit) {
+  regen_plane_run<kModeFull, V, true>(SPT_REGEN_FIELDS, emit);
+}
+
 // The backward's staged inputs of one live iteration, per thread: every
 // f32 residual plane but alive (a lane is live below its count), in plane
 // order, then the int planes kb s b idx mat (soft: bidx).
@@ -582,6 +637,24 @@ struct BwdSlots {
   __host__ __device__ static constexpr int plane(int j) {
     return j < kFAlive ? j : j + 1;
   }
+};
+
+// What a launch of regen_bwd_kernel reads and writes (spt_regen_backward's
+// arguments; the kernels take them one by one).
+struct RegenBwdArgs {
+  const int* pixel_ids;
+  int n_pix, n_lanes, n_banks;
+  const float* consts;
+  int use_plane;
+  uint32_t k0, k1, sample_offset;
+  int n_iter;
+  float t_min, t_max;
+  int rr_start_depth;
+  const float* resf;
+  const int* resi;
+  const float* ct_rad;
+  float* ct_planes;
+  float* partials;
 };
 
 // Shared memory of a backward launch: two stages of every thread's slots.
@@ -605,15 +678,23 @@ constexpr size_t bwd_smem() {
 // only when the lane's bank changes.  Launch bounds: 4 blocks per SM hard
 // (128 registers, 40 B of spill), 3 soft (159, none) and soft + plane
 // (168, 124 B of spill; uncapped it took 203 and ran at 2 blocks, 1.4x as
-// long on an H100).
-template <int V>
-__global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3) regen_bwd_kernel(
-    const int* __restrict__ pixel_ids, int n_pix, int n_lanes, int n_banks,
-    const float* __restrict__ consts, int use_plane, uint32_t k0, uint32_t k1,
-    uint32_t sample_offset, int n_iter, float t_min, float t_max,
-    int rr_start_depth, const float* __restrict__ resf,
-    const int* __restrict__ resi, const float* __restrict__ ct_rad,
-    float* __restrict__ ct_planes, float* __restrict__ partials) {
+// long on an H100).  The body of regen_bwd_kernel<V> (kEmit false) and
+// regen_bwd_lit_kernel<V>, whose cotangent planes are the winner's 9, the
+// emission's 3 and (soft) the blocker's 4.
+#define SPT_BWD_PARAMS                                                        \
+  const int* __restrict__ pixel_ids, int n_pix, int n_lanes, int n_banks,     \
+      const float* __restrict__ consts, int use_plane, uint32_t k0,           \
+      uint32_t k1, uint32_t sample_offset, int n_iter, float t_min,           \
+      float t_max, int rr_start_depth, const float* __restrict__ resf,        \
+      const int* __restrict__ resi, const float* __restrict__ ct_rad,         \
+      float* __restrict__ ct_planes, float* __restrict__ partials
+#define SPT_BWD_FIELDS                                                        \
+  pixel_ids, n_pix, n_lanes, n_banks, consts, use_plane, k0, k1,              \
+      sample_offset, n_iter, t_min, t_max, rr_start_depth, resf, resi,        \
+      ct_rad, ct_planes, partials
+template <int V, bool kEmit>
+__device__ __forceinline__ void regen_bwd_run(SPT_BWD_PARAMS,
+                                              const float4* __restrict__ emit) {
   constexpr bool kSoftV = V != kHard;
   using Slots = BwdSlots<V>;
   extern __shared__ float stage[];  // [2][Slots::kAll][kThreads]
@@ -628,7 +709,10 @@ __global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3) regen_bwd_kernel
   };
   const bool rr_on = rr_start_depth != 0;
   const bool plane_on = V == kSoftPlane || (V == kHard && use_plane);
-  constexpr int kCt = kSoftV ? 13 : 9;
+  // Cotangent planes: the winner's 9, (kEmit) the emission's 3, (soft) the
+  // blocker's 4 from kBlkCt.
+  constexpr int kBlkCt = kEmit ? 12 : 9;
+  constexpr int kCt = kSoftV ? kBlkCt + 4 : kBlkCt;
 
   // The lane's count: the first dead iteration of its alive column.
   int count = 0;
@@ -717,6 +801,14 @@ __global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3) regen_bwd_kernel
       const uint32_t c1b = (sample_offset + static_cast<uint32_t>(s)) << 8;
       bounce_uniforms(k0, k1, pix, c1b, static_cast<uint32_t>(b), f.u);
       bounce_forward<V>(f, k.sky, t_min, t_max, rr_on, k.soft.sil_c);
+      // The winner's emission (0 on a miss and on the plane).
+      float em[3] = {0.0f, 0.0f, 0.0f};
+      if constexpr (kEmit) {
+        if (f.hit && !f.pm) {
+          const float4 e = __ldg(emit + idx);
+          em[0] = e.x; em[1] = e.y; em[2] = e.z;
+        }
+      }
       Soft sf;
       SoftCt sa;
       if constexpr (kSoftV) {
@@ -729,13 +821,23 @@ __global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3) regen_bwd_kernel
                         t_max);
       }
       float g_o[3], g_d[3], g_tp[3], g_a9[9], g_sky[6];
-      bounce_adjoint<V>(f, rr_on, co, cd, ctp, ctr, g_o, g_d, g_tp, g_a9,
-                        g_sky, sf, k.soft, k.pl, t_min, sa);
+      if constexpr (kEmit) {
+        bounce_adjoint<V>(f, rr_on, co, cd, ctp, ctr, g_o, g_d, g_tp, g_a9,
+                          g_sky, sf, k.soft, k.pl, t_min, sa, em);
+      } else {
+        bounce_adjoint<V>(f, rr_on, co, cd, ctp, ctr, g_o, g_d, g_tp, g_a9,
+                          g_sky, sf, k.soft, k.pl, t_min, sa);
+      }
 #pragma unroll
       for (int j = 0; j < 9; ++j) g_ct[j] = f.hit ? g_a9[j] : 0.0f;
+      if constexpr (kEmit) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          g_ct[9 + c] = f.hit && !f.pm ? ctr[c] * f.tp[c] : 0.0f;
+      }
       if constexpr (kSoftV) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) g_ct[9 + j] = sf.bval ? sa.blk4[j] : 0.0f;
+        for (int j = 0; j < 4; ++j) g_ct[kBlkCt + j] = sf.bval ? sa.blk4[j] : 0.0f;
       }
 #pragma unroll
       for (int c = 0; c < 6; ++c) sky_part[c] = sky_part[c] + g_sky[c];
@@ -769,6 +871,18 @@ __global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3) regen_bwd_kernel
   for (int j = 0; j < 4; ++j) partials[(6 + j) * L + lane] = pl_part[j];
 }
 
+template <int V>
+__global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3)
+    regen_bwd_kernel(SPT_BWD_PARAMS) {
+  regen_bwd_run<V, false>(SPT_BWD_FIELDS, nullptr);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, V == kHard ? 4 : 3)
+    regen_bwd_lit_kernel(SPT_BWD_PARAMS, const float4* __restrict__ emit) {
+  regen_bwd_run<V, true>(SPT_BWD_FIELDS, emit);
+}
+
 // Shared memory of a forward launch: the sphere tables (soft: and the soft
 // scan's table).
 template <int V>
@@ -777,35 +891,48 @@ size_t regen_smem(int n_spheres) {
          (kSmemPerSphere + (V != kHard ? sizeof(float4) : 0));
 }
 
-// Launch a forward kernel with a's fields as its parameters.
-template <typename Kernel>
+// Launch a forward kernel with a's fields as its parameters (the emissive
+// builds: and the emission table).
+template <typename Kernel, typename... Extra>
 void launch_fields(Kernel kernel, int blocks, size_t smem, cudaStream_t stream,
-                   const RegenArgs& a) {
+                   const RegenArgs& a, Extra... extra) {
   kernel<<<blocks, kThreads, smem, stream>>>(
       a.pixel_ids, a.n_pix, a.n_lanes, a.n_banks, a.tab, a.n_spheres,
       a.consts, a.use_plane, a.k0, a.k1, a.sample_offset, a.n_samples,
       a.max_depth, a.width, a.inv_w, a.inv_h, a.t_min, a.t_max,
       a.rr_start_depth, a.n_iter, a.soft_tab, a.idx_in, a.out_rad, a.out_cnt,
-      a.resf, a.resi, a.packed, a.counters);
+      a.resf, a.resi, a.packed, a.counters, extra...);
+}
+
+// Launch ``kernel`` (mode MODE) on a's lanes: the idx-only forward on its
+// resident grid, the others one thread per lane.
+template <int MODE, typename Kernel, typename... Extra>
+cudaError_t launch_mode(Kernel kernel, size_t smem, const RegenArgs& a,
+                        cudaStream_t stream, Extra... extra) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int blocks = (a.n_lanes + kThreads - 1) / kThreads;
+  if constexpr (MODE == kModeIdx) {
+    err = grid_for(kernel, kThreads, a.n_lanes, smem, blocks);
+    if (err != cudaSuccess) return err;
+  }
+  launch_fields(kernel, blocks, smem, stream, a, extra...);
+  return cudaGetLastError();
 }
 
 template <int MODE, int V>
 cudaError_t launch_regen(const RegenArgs& a, cudaStream_t stream) {
   const size_t smem = regen_smem<V>(a.n_spheres);
-  if constexpr (MODE == kModeIdx) {
-    int blocks = 0;
-    cudaError_t err = allow_smem(regen_idx_kernel<V>, smem);
-    if (err == cudaSuccess)
-      err = grid_for(regen_idx_kernel<V>, kThreads, a.n_lanes, smem, blocks);
-    if (err != cudaSuccess) return err;
-    launch_fields(regen_idx_kernel<V>, blocks, smem, stream, a);
-  } else {
-    const cudaError_t err = allow_smem(regen_kernel<MODE, V>, smem);
-    if (err != cudaSuccess) return err;
-    launch_fields(regen_kernel<MODE, V>, (a.n_lanes + kThreads - 1) / kThreads,
-                  smem, stream, a);
+  if (a.emit != nullptr) {
+    if constexpr (MODE == kModeIdx)
+      return launch_mode<MODE>(regen_idx_lit_kernel<V>, smem, a, stream, a.emit);
+    if constexpr (MODE == kModeFull)
+      return launch_mode<MODE>(regen_full_lit_kernel<V>, smem, a, stream, a.emit);
   }
-  return cudaGetLastError();
+  if constexpr (MODE == kModeIdx)
+    return launch_mode<MODE>(regen_idx_kernel<V>, smem, a, stream);
+  else
+    return launch_mode<MODE>(regen_kernel<MODE, V>, smem, a, stream);
 }
 
 template <int MODE>
@@ -817,6 +944,20 @@ cudaError_t launch_regen_variant(int variant, const RegenArgs& a,
     case kSoftPlane: return launch_regen<MODE, kSoftPlane>(a, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int V>
+void launch_bwd(int blocks, cudaStream_t st, const float4* emit,
+                const RegenBwdArgs& b) {
+#define SPT_BWD_ARGS                                                          \
+  b.pixel_ids, b.n_pix, b.n_lanes, b.n_banks, b.consts, b.use_plane, b.k0,    \
+      b.k1, b.sample_offset, b.n_iter, b.t_min, b.t_max, b.rr_start_depth,    \
+      b.resf, b.resi, b.ct_rad, b.ct_planes, b.partials
+  if (emit != nullptr)
+    regen_bwd_lit_kernel<V><<<blocks, kThreads, bwd_smem<V>(), st>>>(SPT_BWD_ARGS, emit);
+  else
+    regen_bwd_kernel<V><<<blocks, kThreads, bwd_smem<V>(), st>>>(SPT_BWD_ARGS);
+#undef SPT_BWD_ARGS
 }
 
 // The kernel variant: hard, soft, or soft with a ground plane.
@@ -831,7 +972,9 @@ int variant_of(float softness, int use_plane) {
 // Recording forward (mode 0: the residual planes, 1: packed indices) or
 // re-forward from packed indices (mode 2), on the caller's stream.
 // softness > 0 selects the soft-silhouette variant (soft_tab: the scan's
-// [n_spheres, 4] table).  Mode 1 fetches lanes: counters is u64[3],
+// [n_spheres, 4] table).  emit: nullptr, or (modes 0 and 1) the
+// [n_spheres] float4 emission table (rgb, 0), 16-byte aligned, which
+// selects the emissive build.  Mode 1 fetches lanes: counters is u64[3],
 // zeroed by the caller (the next lane; then the kernel adds its
 // thread-iterations and writes its grid's blocks), and it writes no word
 // after a lane's end (the caller zeroes the words first).
@@ -842,9 +985,11 @@ extern "C" int spt_regen_forward(
     unsigned int k0, unsigned int k1, unsigned int sample_offset,
     int n_samples, int max_depth, int width, float inv_w, float inv_h,
     float t_min, float t_max, int rr_start_depth, int n_iter, int mode,
-    float softness, const void* soft_tab, const void* idx_in, void* out_rad,
-    void* out_cnt, void* resf, void* resi, void* packed, void* counters,
-    void* stream) {
+    float softness, const void* soft_tab, const void* emit, const void* idx_in,
+    void* out_rad, void* out_cnt, void* resf, void* resi, void* packed,
+    void* counters, void* stream) {
+  if (emit != nullptr && mode == spt::kModeRefwd)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int variant = spt::variant_of(softness, use_plane);
   const spt::RegenArgs a = {
@@ -856,7 +1001,8 @@ extern "C" int spt_regen_forward(
       static_cast<const int*>(idx_in), static_cast<float*>(out_rad),
       static_cast<float*>(out_cnt), static_cast<float*>(resf),
       static_cast<int*>(resi), static_cast<int*>(packed),
-      static_cast<unsigned long long*>(counters)};
+      static_cast<unsigned long long*>(counters),
+      static_cast<const float4*>(emit)};
   cudaError_t err;
   switch (mode) {
     case spt::kModeFull: err = spt::launch_regen_variant<spt::kModeFull>(variant, a, st); break;
@@ -867,35 +1013,30 @@ extern "C" int spt_regen_forward(
   return static_cast<int>(err);
 }
 
-// Backward over one chunk's residual planes, on the caller's stream.
+// Backward over one chunk's residual planes, on the caller's stream.  emit:
+// nullptr, or the [n_spheres] float4 emission table, which selects the
+// emissive build (12 winner cotangent planes, the emission's after the
+// attributes').
 extern "C" int spt_regen_backward(
     const void* pixel_ids, int n_pix, int n_lanes, int n_banks,
     const void* consts, int use_plane, unsigned int k0, unsigned int k1,
     unsigned int sample_offset, int n_iter, float t_min, float t_max,
-    int rr_start_depth, float softness, const void* resf, const void* resi,
-    const void* ct_rad, void* ct_planes, void* partials, void* stream) {
+    int rr_start_depth, float softness, const void* emit, const void* resf,
+    const void* resi, const void* ct_rad, void* ct_planes, void* partials,
+    void* stream) {
   const int blocks = (n_lanes + spt::kThreads - 1) / spt::kThreads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SPT_ARGS                                                             \
-  static_cast<const int*>(pixel_ids), n_pix, n_lanes, n_banks,               \
-      static_cast<const float*>(consts), use_plane, k0, k1, sample_offset,   \
-      n_iter, t_min, t_max, rr_start_depth, static_cast<const float*>(resf), \
-      static_cast<const int*>(resi), static_cast<const float*>(ct_rad),      \
-      static_cast<float*>(ct_planes), static_cast<float*>(partials)
+  const spt::RegenBwdArgs b = {
+      static_cast<const int*>(pixel_ids), n_pix, n_lanes, n_banks,
+      static_cast<const float*>(consts), use_plane, k0, k1, sample_offset,
+      n_iter, t_min, t_max, rr_start_depth, static_cast<const float*>(resf),
+      static_cast<const int*>(resi), static_cast<const float*>(ct_rad),
+      static_cast<float*>(ct_planes), static_cast<float*>(partials)};
+  const auto* e = static_cast<const float4*>(emit);
   switch (spt::variant_of(softness, use_plane)) {
-    case spt::kHard:
-      spt::regen_bwd_kernel<spt::kHard>
-          <<<blocks, spt::kThreads, spt::bwd_smem<spt::kHard>(), st>>>(SPT_ARGS);
-      break;
-    case spt::kSoft:
-      spt::regen_bwd_kernel<spt::kSoft>
-          <<<blocks, spt::kThreads, spt::bwd_smem<spt::kSoft>(), st>>>(SPT_ARGS);
-      break;
-    default:
-      spt::regen_bwd_kernel<spt::kSoftPlane>
-          <<<blocks, spt::kThreads, spt::bwd_smem<spt::kSoftPlane>(), st>>>(SPT_ARGS);
-      break;
+    case spt::kHard: spt::launch_bwd<spt::kHard>(blocks, st, e, b); break;
+    case spt::kSoft: spt::launch_bwd<spt::kSoft>(blocks, st, e, b); break;
+    default: spt::launch_bwd<spt::kSoftPlane>(blocks, st, e, b); break;
   }
-#undef SPT_ARGS
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,9 @@ route the fused gradient kernels (``fit_config``).  Discrete structure
 (the hit selection, the material switch, Schlick coins) is locally
 constant, as in the JAX package.  With ``softness`` > 0 and a geometry leaf fitted (the
 default), ``fit`` turns on two-sided soft silhouettes and differentiates
-``pixel_loss_decoupled``.  ``fit_camera`` fits camera leaves (origin,
+``pixel_loss_decoupled``.  A scene whose spheres emit light (``Scene.emission``)
+fits on the regeneration kernels (CUDA) and the plain route (CPU), its
+``emission`` a leaf like the others.  ``fit_camera`` fits camera leaves (origin,
 lookat, vfov) the same way through ``camera_pixel_loss``: on CUDA the fused
 gradient kernels, whose backward returns the rays' cotangents, under the
 differentiable ray generation.
@@ -38,9 +40,11 @@ from .routes import fit_config, grad_safe_config
 from .types import Camera, RenderConfig, Scene, resolve_device
 
 # Leaves that receive gradients; ``plane`` is absent on sphere-only scenes,
-# and only its offset + albedo (entries 3:7) receive gradients.
+# and only its offset + albedo (entries 3:7) receive gradients; ``emission``
+# is absent on scenes without emitters (d radiance / d emission is the
+# throughput arriving at the hit).
 DIFF_LEAVES = (
-    "centers", "radii", "albedo", "fuzz", "ior", "sky_lo", "sky_hi", "plane",
+    "centers", "radii", "albedo", "fuzz", "ior", "sky_lo", "sky_hi", "plane", "emission",
 )
 _GEOMETRY_LEAVES = ("centers", "radii", "plane")
 
@@ -337,8 +341,11 @@ def fit(
     steps.  A leaf whose gradient is near zero (fuzz, ior) can take Adam
     steps of opposite sign in two runs and part them further.
 
-    Returns (scene, losses).  ``device`` as in ``pixel_loss``.  No gradient
-    route carries emission: an emissive scene raises.
+    Returns (scene, losses).  ``device`` as in ``pixel_loss``.  An
+    emissive scene fits on the regeneration routes (CUDA, a ``use_pallas``
+    preset's) and the plain route (CPU); a config that names another route
+    raises (``routes.CAPS``).  Each step's span carries ``emitters``, the
+    start scene's emitting spheres (read once a fit).
     """
     dev = resolve_device(device)
     if softness and any(k in leaves for k in _GEOMETRY_LEAVES):
@@ -354,11 +361,12 @@ def fit(
     losses, start = [], 0
     if snapshot_path and os.path.exists(snapshot_path):
         start, losses = _load_fit_state(snapshot_path, params, opt)
+    emitters = scene_init.emitters()
     for i in range(start, steps):
         if balance and rebalance_every and i > start and (i - start) % rebalance_every == 0:
             current = merge_params({k: v.detach() for k, v in params.items()}, static_scene)
             pixel_perm = balanced_pixel_perm(current, camera, config, fold_in(key, 100_000 + i))
-        with tracing.span("spt.fit.step", step=i):
+        with tracing.span("spt.fit.step", step=i, emitters=emitters):
             opt.zero_grad(set_to_none=True)
             if accum_step is not None:
                 # The accumulated estimator takes its groups' pullbacks itself.
@@ -413,8 +421,9 @@ def fit_sharded(
     state is replicated; two writers of one path could collide on the
     temporary file); every rank resumes from the same path.  Returns
     (scene, losses).  ``device`` as in ``pixel_loss``; the scene and
-    target lie there on every rank.  An emissive scene raises, as in
-    ``fit``.
+    target lie there on every rank.  An emissive scene raises
+    ``NotImplementedError``: no test holds the sharded gradient of emission
+    yet.
     """
     import torch.distributed as dist
 
@@ -422,6 +431,9 @@ def fit_sharded(
 
     dev = resolve_device(device)
     _check_device(dev, scene_init.centers, target)
+    if scene_init.emitters():
+        raise NotImplementedError("fit_sharded does not carry Scene.emission: fit the "
+                                  "emissive scene on one device (fit)")
     config = grad_safe_config(config, dev)
     routes.pick(scene_init, config)  # raises where no route carries the scene
     params, opt = init(scene_init, lr, leaves)
@@ -516,7 +528,8 @@ def fit_camera(
     sky-lit Lambertian scenes the silhouettes carry most of the pose
     signal; render the target soft-to-soft.  Step i renders with the key
     ``fold_in(key, i)``.  Returns (camera, losses).  ``device`` as in
-    ``pixel_loss``.  An emissive scene raises, as in ``fit``."""
+    ``pixel_loss``.  An emissive scene raises: camera gradients take the
+    fused kernels on CUDA, which add no emission (``routes.CAPS``)."""
     dev = resolve_device(device)
     params, camera0 = split_camera(camera_init, leaves)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}

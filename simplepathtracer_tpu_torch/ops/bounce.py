@@ -23,7 +23,10 @@ Gradient rules (JAX's):
   constants;
 * on a plane lane (``plane_mask``) the winner's (cx, cy, cz) slots carry the
   plane's unit normal and the r slot its offset k; the offset's cotangent is
-  the r slot's, the normal slots' cotangents are dropped by the caller.
+  the r slot's, the normal slots' cotangents are dropped by the caller;
+* ``emission`` (the winner's emitted radiance per lane, or None): a live
+  sphere hit adds the entry throughput times it to the bounce's radiance,
+  and its cotangent is the radiance cotangent times that throughput.
 
 Every argument is a flat [N] float32 tensor (or a tuple of them), except
 the masks (bool) and ``mat`` (int).  ``sky6`` entries may be 0-d tensors.
@@ -65,7 +68,7 @@ def _dot(a, b):
 
 def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
              rr_on, plane_mask, softness=0.0, blocker=None, plane4=None,
-             cross_loser=None, fresnel=False):
+             cross_loser=None, fresnel=False, emission=None):
     """The forward with every intermediate the adjoint reads."""
     f = SimpleNamespace()
     ox, oy, oz = o3
@@ -206,6 +209,12 @@ def _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, t_min, t_max,
     rad = tuple(tp3[c] * f.sk[c] * miss_f for c in range(3))
 
     f.live = alive & hit
+    if emission is not None:
+        # Emitted light at a live sphere hit (the plane emits nothing),
+        # through the entry throughput (soft: with the detached ratio).
+        f.lit = f.live if plane_mask is None else f.live & ~plane_mask
+        rad = tuple(r + torch.where(f.lit, tp3[c] * emission[c], _c(r, 0.0))
+                    for c, r in enumerate(rad))
     f.surv0 = f.live & scattered
     nt = tuple(torch.where(f.surv0, tp3[c] * f.at[c], tp3[c]) for c in range(3))
     f.nt = nt
@@ -343,10 +352,12 @@ def _soft_forward(f, hit, alive, softness, blocker, plane4, cross_loser,
 def bounce_tile(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, *,
                 t_min: float, t_max: float, rr_on: bool, plane_mask=None,
                 softness: float = 0.0, blocker=None, plane4=None,
-                cross_loser=None, fresnel: bool = False):
+                cross_loser=None, fresnel: bool = False, emission=None):
     """One differentiable bounce.  Returns (o'3, d'3, tp'3, rad3, surv_f):
     next origin, direction and throughput, this bounce's radiance (sky on a
-    live miss) and 1.0 where the path goes on.
+    live miss; with ``emission``, the winner's emitted radiance per lane,
+    the entry throughput times it on a live sphere hit) and 1.0 where the
+    path goes on.
 
     ``softness`` > 0: two-sided soft silhouettes.  The winner's hit t takes
     the capped-sqrt root clamped to t_min, and the entry throughput is
@@ -363,7 +374,7 @@ def bounce_tile(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr, *,
     1 in value, whose gradient is the realized coin outcome's score."""
     return _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
                     t_min, t_max, rr_on, plane_mask, softness, blocker,
-                    plane4, cross_loser, fresnel)[1]
+                    plane4, cross_loser, fresnel, emission)[1]
 
 
 def _wmax(a, b):
@@ -521,7 +532,8 @@ def _soft_adjoint(f, g_srat, t_min):
 class BounceCotangents(NamedTuple):
     """Cotangents of one bounce's inputs (tuples of [N] tensors; the sky's
     per lane).  ``blk4`` (the blocker's cx, cy, cz, r) and ``pk`` (the
-    plane offset, per lane) are zero without soft silhouettes."""
+    plane offset, per lane) are zero without soft silhouettes; ``e3`` (the
+    winner's emission) is empty without ``emission``."""
 
     o: tuple
     d: tuple
@@ -530,21 +542,25 @@ class BounceCotangents(NamedTuple):
     sky: tuple
     blk4: tuple
     pk: torch.Tensor
+    e3: tuple = ()
 
 
 def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
                         ct_o3, ct_d3, ct_tp3, ct_rad3, *, t_min: float,
                         t_max: float, rr_on: bool, plane_mask=None,
                         softness: float = 0.0, blocker=None, plane4=None,
-                        cross_loser=None, fresnel: bool = False) -> BounceCotangents:
+                        cross_loser=None, fresnel: bool = False,
+                        emission=None) -> BounceCotangents:
     """Hand-written reverse pass of ``bounce_tile``: the cotangents of
     (o3, d3, tp3, a9, sky6) and, under soft silhouettes, of the blocker's
-    attributes and the plane offset, from those of (o'3, d'3, tp'3, rad3).
-    Sky cotangents come back per lane ([N] each; the caller sums them).
-    Dead lanes (``alive`` False) pass the carried cotangents through."""
+    attributes and the plane offset, and with ``emission`` of the winner's
+    emission, from those of (o'3, d'3, tp'3, rad3).  Sky cotangents come
+    back per lane ([N] each; the caller sums them), and so do the
+    emission's.  Dead lanes (``alive`` False) pass the carried cotangents
+    through."""
     f, _ = _forward(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
                     t_min, t_max, rr_on, plane_mask, softness, blocker,
-                    plane4, cross_loser, fresnel)
+                    plane4, cross_loser, fresnel, emission)
     zero = torch.zeros_like(f.r)
 
     # Russian roulette: nt2 = boost ? nt / q : nt, q = clip(max3(nt)).
@@ -565,7 +581,12 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
     g_tp, g_at, g_sk = [], [], []
     for c in range(3):
         gt = torch.where(f.surv0, g_nt[c] * f.at[c], g_nt[c])
-        g_tp.append(gt + _sel(f.miss, ct_rad3[c] * f.sk[c]))
+        if emission is None:
+            g_tp.append(gt + _sel(f.miss, ct_rad3[c] * f.sk[c]))
+        else:
+            # The emission term's suffix: a lit hit adds ct_rad * e.
+            g_e = torch.where(f.lit, ct_rad3[c] * emission[c], zero)
+            g_tp.append(gt + torch.where(f.miss, ct_rad3[c] * f.sk[c], g_e))
         g_at.append(_sel(f.surv0, g_nt[c] * f.tp[c]))
         g_sk.append(_sel(f.miss, ct_rad3[c] * f.tp[c]))
     g_sky = [None] * 6
@@ -732,7 +753,10 @@ def bounce_tile_adjoint(o3, d3, tp3, a9, mat, hit, alive, u, sky6, do_rr,
     g_tp = [torch.where(al, g_tp[c], ct_tp3[c]) for c in range(3)]
     g_a9 = [_sel(al, x) for x in (*g_c, g_r, *g_alb, g_fz, g_io)]
     g_sky = [_sel(al, x) for x in g_sky]
+    g_e3 = ()
+    if emission is not None:
+        g_e3 = tuple(_sel(f.lit, ct_rad3[c] * f.tp[c]) for c in range(3))
     return BounceCotangents(
         tuple(g_o), tuple(g_d), tuple(g_tp), tuple(g_a9), tuple(g_sky),
-        tuple(_sel(al, x) for x in g_blk4), _sel(al, g_pk),
+        tuple(_sel(al, x) for x in g_blk4), _sel(al, g_pk), g_e3,
     )

@@ -9,8 +9,9 @@ Counterpart of the JAX package's ``ops/pallas_bucket.py``
 Rows with ``idx < 0`` or ``idx >= n_buckets`` contribute nothing: dead and
 miss iterations (``idx == -1``) and ground-plane winners (the plane codes,
 whose cotangents the backward kernel sums on its own).  The column count K
-is a parameter: 9 winner-attribute columns, or the soft blocker's 4
-(cx, cy, cz, r; the JAX package pads those to 9).
+is a parameter: 9 winner-attribute columns, 12 on an emissive scene (the
+winner's emission rgb appended), or the soft blocker's 4 (cx, cy, cz, r;
+the JAX package pads those to 9).
 
 On a CUDA tensor ``bucket_cols`` launches the hand-written kernel in
 ``csrc/bucket.cu`` (each warp sums its 32 rows by key in registers, one
@@ -32,8 +33,9 @@ from .. import tracing
 from .cuda_build import load_library
 
 # Column counts the kernel is built for: the 9 winner-attribute cotangents
-# (cx cy cz r albedo rgb fuzz ior) and the soft blocker's 4 (cx cy cz r).
-COLS = (9, 4)
+# (cx cy cz r albedo rgb fuzz ior), those and the winner's emission rgb
+# (12), and the soft blocker's 4 (cx cy cz r).
+COLS = (9, 4, 12)
 
 
 def bucket_cols(cols, idx, n_buckets: int):

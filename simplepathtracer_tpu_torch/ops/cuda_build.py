@@ -50,16 +50,16 @@ _SIGNATURES = {
     "spt_persistent_grid": [I, I, P],
     # pixel_ids, n_pix, n_lanes, n_banks, tab, n_spheres, consts, use_plane,
     # k0, k1, sample_offset, n_samples, max_depth, width, inv_w, inv_h,
-    # t_min, t_max, rr_start_depth, n_iter, mode, softness, soft_tab,
+    # t_min, t_max, rr_start_depth, n_iter, mode, softness, soft_tab, emit,
     # idx_in, out_rad, out_cnt, resf, resi, packed, counters, stream
     "spt_regen_forward":
         [P, I, I, I, P, I, P, I, U, U, U, I, I, I, F, F, F, F, I, I, I, F, P,
-         P, P, P, P, P, P, P, P],
+         P, P, P, P, P, P, P, P, P],
     # pixel_ids, n_pix, n_lanes, n_banks, consts, use_plane, k0, k1,
-    # sample_offset, n_iter, t_min, t_max, rr_start_depth, softness, resf,
-    # resi, ct_rad, ct_planes, partials, stream
+    # sample_offset, n_iter, t_min, t_max, rr_start_depth, softness, emit,
+    # resf, resi, ct_rad, ct_planes, partials, stream
     "spt_regen_backward":
-        [P, I, I, I, P, I, U, U, U, I, F, F, I, F, P, P, P, P, P, P],
+        [P, I, I, I, P, I, U, U, U, I, F, F, I, F, P, P, P, P, P, P, P],
     # cols, idx, n_rows, n_cols, n_buckets, out, stream
     "spt_bucket": [P, P, ctypes.c_longlong, I, I, P, P],
     # n, tab, n_spheres, consts, variant, soft_tab, k0, k1, bounce, t_min,

@@ -23,11 +23,21 @@ versions, each wrapper taking its plain version for a CPU tensor only:
   the same state evolution with the sphere scan replaced by the recorded
   index; it emits the planes the ``emit_full`` forward would have.
 * ``regen_backward`` / ``regen_bwd_reference`` -- the reverse walk: the
-  9 winner-attribute cotangents per iteration (soft: and the blocker's 4)
-  and per-lane sky (6) and plane (4) partial sums, through
+  9 winner-attribute cotangents per iteration (emissive: and the winner's
+  3 emission cotangents; soft: and the blocker's 4) and per-lane sky (6)
+  and plane (4) partial sums, through
   ``ops/bounce.py:bounce_tile_adjoint``.
 * ``bucket.bucket_cols`` -- the attribute cotangents summed per sphere (the
   blocker's by blocker index).
+
+Emission (``RegenCall.emit``, the scene's ``emission`` as an [S_pad, 4]
+table): each live sphere hit adds the entry throughput times the winner's
+emission to the lane's radiance sum, in iteration order, and the backward
+adds the radiance cotangent times it to the carried throughput cotangent
+and writes the emission's cotangent (the radiance cotangent times the
+entry throughput).  The kernels' emissive builds read the table from
+global memory by the winner index; the re-forward's planes do not depend
+on emission, so it has no such build.
 
 Three ``torch.autograd.Function``s use them, as the JAX package's custom
 VJPs do: ``_RegenTrace`` (one recording forward per spp chunk, planes kept
@@ -67,6 +77,7 @@ from .persistent import (
     camera_ray_plain,
     check_smem,
     closest_hit_plain,
+    emit_table,
 )
 from . import intersect
 from .sampling import _to_unit_float, key_words, threefry2x32
@@ -134,10 +145,13 @@ def is_plane(idx):
 
 
 def _n_planes(call):
-    """(float, int, cotangent) plane counts of one chunk's residuals."""
+    """(float, int, cotangent) plane counts of one chunk's residuals: the
+    cotangents are the winner's 9, then (emissive) its emission's 3, then
+    (soft) the blocker's 4."""
+    nc = 9 + (3 if call.emit is not None else 0)
     if call.softness > 0.0:
-        return len(_F_SOFT), len(_I_SOFT), 13
-    return len(_F_PLANES), len(_I_PLANES), 9
+        return len(_F_SOFT), len(_I_SOFT), nc + 4
+    return len(_F_PLANES), len(_I_PLANES), nc
 
 
 class RegenCall(NamedTuple):
@@ -149,7 +163,8 @@ class RegenCall(NamedTuple):
     [S_pad, 4] table ``soft_tab`` (the JAX package's ``soft_scan_tables``:
     silhouette scale, 1 / r^2, validity scale, -30 x validity scale),
     computed once here so the kernel and its plain version read the same
-    thresholds."""
+    thresholds.  ``emit``: None, or the [S_pad, 4] emission table (rgb, 0;
+    padding slots 0) that the emissive builds read."""
 
     pixel_ids: torch.Tensor
     tab: torch.Tensor
@@ -170,6 +185,7 @@ class RegenCall(NamedTuple):
     n_lanes: int
     n_iter: int
     softness: float
+    emit: torch.Tensor | None = None
 
 
 def scene_block(tables, sky6, softness=0.0):
@@ -218,11 +234,13 @@ def fresnel_on(call) -> bool:
 
 def regen_call(tables, sky6, plane7, cam19, key, pixel_ids, *, n_samples,
                max_depth, width, height, t_min=1e-3, t_max=3.0e7,
-               rr_start_depth=0, n_banks=GPU_BANKS, softness=0.0) -> RegenCall:
+               rr_start_depth=0, n_banks=GPU_BANKS, softness=0.0,
+               emission=None) -> RegenCall:
     """A ``RegenCall`` from the 11 sphere tables (cx, cy, cz, radius,
     radius^2, albedo rgb, material, fuzz, ior), sky f32[6], plane f32[7] or
-    None, camera f32[19] and key (values only: nothing here is
-    differentiated)."""
+    None, camera f32[19], key and emission f32[S, 3] or None (values only:
+    nothing here is differentiated).  A table, even an all-zero one, takes
+    the emissive builds: they return its cotangent."""
     f32 = torch.float32
     softness = float(softness)
     tab, sky, soft4, soft_tab = scene_block(tables, sky6, softness)
@@ -242,6 +260,7 @@ def regen_call(tables, sky6, plane7, cam19, key, pixel_ids, *, n_samples,
         t_min=float(t_min), t_max=float(t_max),
         rr_start_depth=int(rr_start_depth), n_banks=nb, n_lanes=n_lanes,
         n_iter=-(-budget // CHUNK) * CHUNK, softness=softness,
+        emit=emit_table(emission, tab.shape[0]),
     )
 
 
@@ -258,6 +277,15 @@ def variant(call: RegenCall) -> str:
     return "soft_plane" if call.use_plane else "soft"
 
 
+def _counter(kernel: str, call: RegenCall) -> None:
+    """Count one launch of ``kernel``: ``launch.<kernel>.<variant>``, and
+    ``...<variant>.emit`` for an emissive call."""
+    name = f"launch.{kernel}.{variant(call)}"
+    tracing.count(name)
+    if call.emit is not None:
+        tracing.count(name + ".emit")
+
+
 def _device(call: RegenCall) -> torch.device:
     dev = call.pixel_ids.device
     if dev.type not in ("cpu", "cuda"):
@@ -267,7 +295,7 @@ def _device(call: RegenCall) -> torch.device:
 
 def _check_cuda(call: RegenCall, *tensors):
     dev = call.pixel_ids.device
-    extra = () if call.soft_tab is None else (call.soft_tab,)
+    extra = tuple(t for t in (call.soft_tab, call.emit) if t is not None)
     for t in (call.tab, call.consts, *extra, *tensors):
         if t.device != dev:
             raise ValueError(f"all inputs must lie on {dev}, got {t.device}")
@@ -281,6 +309,9 @@ def _check_cuda(call: RegenCall, *tensors):
         call.soft_tab is not None and call.soft_tab.shape != (s_pad, 4)
     ):
         raise ValueError("soft_tab must be [S_pad, 4] exactly when softness > 0")
+    if call.emit is not None and (call.emit.shape != (s_pad, 4)
+                                  or call.emit.dtype != torch.float32):
+        raise ValueError("emit must be f32 [S_pad, 4]")
     if s_pad > IDX_PACK_MAX_SPHERES:
         raise ValueError(
             f"{s_pad} sphere slots exceed the {IDX_PACK_MAX_SPHERES} the "
@@ -308,7 +339,8 @@ def _launch_forward(call, sample_offset, mode, idx_in, rad, cnt, resf, resi,
             int(sample_offset) & _M32, call.n_samples, call.max_depth,
             call.width, _f32(1.0 / call.width), _f32(1.0 / call.height),
             call.t_min, call.t_max, call.rr_start_depth, call.n_iter,
-            _MODES[mode], call.softness, _ptr(call.soft_tab), _ptr(idx_in),
+            _MODES[mode], call.softness, _ptr(call.soft_tab),
+            _ptr(call.emit if mode != "refwd" else None), _ptr(idx_in),
             _ptr(rad), _ptr(cnt), _ptr(resf), _ptr(resi), _ptr(packed),
             _ptr(queue), torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -359,13 +391,15 @@ def regen_forward(call: RegenCall, sample_offset, emit_full: bool):
                     rad, cnt, resf, resi, packed, queue)
     if queue is not None:
         tracing.add(("lanes_fetched", "thread_iters", "blocks"), queue)
-    tracing.count(f"launch.regen_forward.{variant(call)}")
+    _counter("regen_forward", call)
     return rad, cnt, ((resf, resi) if emit_full else packed)
 
 
 def regen_refwd(call: RegenCall, sample_offset, packed):
     """Scan-free re-forward from the packed winner words of one chunk:
-    ``(resf, resi)`` as ``regen_forward(emit_full=True)`` gives them."""
+    ``(resf, resi)`` as ``regen_forward(emit_full=True)`` gives them.  Its
+    planes do not depend on emission: an emissive call launches the same
+    build (and counts ``.emit`` too)."""
     dev = _device(call)
     if dev.type == "cpu":
         return regen_refwd_reference(call, sample_offset, packed)
@@ -378,15 +412,16 @@ def regen_refwd(call: RegenCall, sample_offset, packed):
     resi = torch.empty((ni, b, n), dtype=torch.int32, device=dev)
     _launch_forward(call, sample_offset, "refwd", packed, None, None, resf,
                     resi, None)
-    tracing.count(f"launch.regen_refwd.{variant(call)}")
+    _counter("regen_refwd", call)
     return resf, resi
 
 
 def regen_backward(call: RegenCall, sample_offset, resf, resi, ct_rad):
     """Reverse walk over one chunk's residual planes with the radiance
     cotangent ``ct_rad`` [P, 3].  Returns (attribute cotangents
-    [9, n_iter, n_lanes] f32, zero where idx < 0 -- soft: 13, the
-    blocker's cx cy cz r appended, zero where bidx < 0; per-lane partials
+    [9, n_iter, n_lanes] f32, zero where idx < 0 -- emissive: 12, the
+    emission's rgb appended, zero off live sphere hits; soft: the blocker's
+    cx cy cz r appended, zero where bidx < 0; per-lane partials
     [10, n_lanes] f32: sky lo/hi rgb, then plane offset and albedo rgb).
 
     The planes must be as a recording forward or re-forward writes them:
@@ -414,13 +449,13 @@ def regen_backward(call: RegenCall, sample_offset, resf, resi, ct_rad):
             call.pixel_ids.data_ptr(), call.pixel_ids.shape[0], n,
             call.n_banks, call.consts.data_ptr(), int(call.use_plane),
             call.k0, call.k1, int(sample_offset) & _M32, b, call.t_min,
-            call.t_max, call.rr_start_depth, call.softness, resf.data_ptr(),
-            resi.data_ptr(), ct_rad.data_ptr(), ct_planes.data_ptr(),
+            call.t_max, call.rr_start_depth, call.softness, _ptr(call.emit),
+            resf.data_ptr(), resi.data_ptr(), ct_rad.data_ptr(), ct_planes.data_ptr(),
             partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"regen backward kernel launch failed: CUDA error {err}")
-    tracing.count(f"launch.regen_backward.{variant(call)}")
+    _counter("regen_backward", call)
     return ct_planes, partials
 
 
@@ -467,6 +502,18 @@ def _winner(call: RegenCall, idx):
         attr = torch.where(pm[None, :], plane9[:, None], attr)
         mat = torch.where(pm, 0, mat)
     return tuple(attr.unbind(0)), mat.to(torch.int64)
+
+
+def _emission(call: RegenCall, idx):
+    """The winner's emission (r, g, b) for codes ``idx`` [N] of an emissive
+    call (zeros off the sphere slots), else None."""
+    if call.emit is None:
+        return None
+    s_pad = call.emit.shape[0]
+    sphere = (idx >= 0) & (idx < s_pad)
+    rows = call.emit[idx.clamp(0, s_pad - 1), :3]
+    vals = torch.where(sphere[:, None], rows, torch.zeros_like(rows))
+    return tuple(vals[:, c] for c in range(3))
 
 
 def _blocker(call: RegenCall, bidx):
@@ -687,7 +734,8 @@ def _replay(call: RegenCall, sample_offset, mode: str, packed_in=None):
                 kw.update(plane4=plane4, cross_loser=idx == PLANE_CROSS_IDX)
         o, d, tp, rad3, surv_f = bounce_tile(
             o, d, tp, a9, mat, hit, alive, u, sky6, b >= call.rr_start_depth,
-            t_min=call.t_min, t_max=call.t_max, rr_on=rr_on, plane_mask=pm, **kw,
+            t_min=call.t_min, t_max=call.t_max, rr_on=rr_on, plane_mask=pm,
+            emission=_emission(call, idx), **kw,
         )
         if soft:
             # The chain's previous sphere winner (-1 after a plane or a miss).
@@ -713,7 +761,8 @@ def _replay(call: RegenCall, sample_offset, mode: str, packed_in=None):
 
 
 def regen_fwd_reference(call: RegenCall, sample_offset, emit_full: bool):
-    """Plain version of ``regen_forward`` (same outputs)."""
+    """Plain version of ``regen_forward`` (same outputs; an emissive call
+    adds each live sphere hit's emission term to the sums)."""
     tracing.count("plain.regen_fwd_reference")
     return _replay(call, sample_offset, "full" if emit_full else "idx")
 
@@ -726,7 +775,8 @@ def regen_refwd_reference(call: RegenCall, sample_offset, packed):
 
 def regen_bwd_reference(call: RegenCall, sample_offset, resf, resi, ct_rad):
     """Plain version of ``regen_backward``: the reverse walk over all lanes
-    at once through ``bounce_tile_adjoint``."""
+    at once through ``bounce_tile_adjoint`` (emissive: with the winner's
+    emission)."""
     tracing.count("plain.regen_bwd_reference")
     dev = call.pixel_ids.device
     f32, i64 = torch.float32, torch.int64
@@ -743,7 +793,8 @@ def regen_bwd_reference(call: RegenCall, sample_offset, resf, resi, ct_rad):
     zero = torch.zeros(n, dtype=f32, device=dev)
     co = cd = ctp = (zero,) * 3
     sky_part, pl_part = (zero,) * 6, (zero,) * 4
-    ct_planes = torch.zeros((_n_planes(call)[2], b_total, n), dtype=f32, device=dev)
+    n_ct = _n_planes(call)[2]
+    ct_planes = torch.zeros((n_ct, b_total, n), dtype=f32, device=dev)
     plane4 = tuple(call.consts[6 + j] for j in range(4)) if call.use_plane else None
     fresnel = fresnel_on(call)
     soff = int(sample_offset)
@@ -774,13 +825,16 @@ def regen_bwd_reference(call: RegenCall, sample_offset, resf, resi, ct_rad):
             tuple(resf[11 + j, it] for j in range(9)),
             mat, hit, alive, u, sky6, b >= call.rr_start_depth,
             co, cd, ctp, ctr,
-            t_min=call.t_min, t_max=call.t_max, rr_on=rr_on, plane_mask=pm, **kw,
+            t_min=call.t_min, t_max=call.t_max, rr_on=rr_on, plane_mask=pm,
+            emission=_emission(call, idx), **kw,
         )
         for j in range(9):
             ct_planes[j, it] = torch.where(hit, g.a9[j], zero)
+        for j in range(len(g.e3)):
+            ct_planes[9 + j, it] = g.e3[j]
         if soft:
             for j in range(4):
-                ct_planes[9 + j, it] = torch.where(bval, g.blk4[j], zero)
+                ct_planes[n_ct - 4 + j, it] = torch.where(bval, g.blk4[j], zero)
         sky_part = tuple(a + x for a, x in zip(sky_part, g.sky))
         if pm is not None:
             if soft:
@@ -819,13 +873,13 @@ class _Spec:
     n_banks: int
     softness: float
 
-    def call(self, tables, sky6, plane7) -> RegenCall:
+    def call(self, tables, sky6, plane7, emission=None) -> RegenCall:
         return regen_call(
             tables, sky6, plane7, self.cam19, self.key, self.pixel_ids,
             n_samples=self.chunk, max_depth=self.max_depth, width=self.width,
             height=self.height, t_min=self.t_min, t_max=self.t_max,
             rr_start_depth=self.rr_start_depth, n_banks=self.n_banks,
-            softness=self.softness,
+            softness=self.softness, emission=emission,
         )
 
     def offsets(self):
@@ -835,24 +889,29 @@ class _Spec:
 
 def _bwd_from_residuals(call, sample_offset, resf, resi, g_rad):
     """Backward kernel + bucket over one chunk's planes: (d_tab [S, 9],
-    d_sky6 [6], d_plane4 [4] = offset + albedo rgb).  Under soft
-    silhouettes the blocker's 4 cotangent planes are bucketed by blocker
-    index into the (cx, cy, cz, r) columns."""
+    d_sky6 [6], d_plane4 [4] = offset + albedo rgb, d_emit [S, 3] or None).
+    An emissive call buckets its winner rows' 12 columns (attributes and
+    emission) in one pass.  Under soft silhouettes the blocker's 4
+    cotangent planes are bucketed by blocker index into the (cx, cy, cz, r)
+    columns."""
     ct_planes, partials = regen_backward(call, sample_offset, resf, resi, g_rad)
-    d_tab = _bucket.bucket_cols(ct_planes[:9], resi[3], call.n_spheres)
+    n_win = 12 if call.emit is not None else 9
+    d_win = _bucket.bucket_cols(ct_planes[:n_win], resi[3], call.n_spheres)
+    d_tab, d_emit = d_win[:, :9], (d_win[:, 9:] if call.emit is not None else None)
     if call.softness > 0.0:
-        d_blk = _bucket.bucket_cols(ct_planes[9:], resi[_I_BLK], call.n_spheres)
+        d_blk = _bucket.bucket_cols(ct_planes[n_win:], resi[_I_BLK], call.n_spheres)
         d_tab = torch.cat([d_tab[:, :4] + d_blk, d_tab[:, 4:]], dim=1)
-    return d_tab, partials[:6].sum(dim=1), partials[6:].sum(dim=1)
+    return d_tab, partials[:6].sum(dim=1), partials[6:].sum(dim=1), d_emit
 
 
-def _input_grads(d_tab, d_sky6, d_plane4, has_plane):
-    """Cotangents of (spec, 11 tables, sky6, plane7): None for the scan-only
-    r^2 and the integer material, zero for the plane's unit normal."""
+def _input_grads(d_tab, d_sky6, d_plane4, has_plane, d_emit=None):
+    """Cotangents of (spec, 11 tables, sky6, plane7, emission): None for the
+    scan-only r^2 and the integer material, zero for the plane's unit
+    normal, None for an absent emission table."""
     tab = (d_tab[:, 0], d_tab[:, 1], d_tab[:, 2], d_tab[:, 3], None,
            d_tab[:, 4], d_tab[:, 5], d_tab[:, 6], None, d_tab[:, 7], d_tab[:, 8])
     plane = torch.cat([d_plane4.new_zeros(3), d_plane4]) if has_plane else None
-    return (None, *tab, d_sky6, plane)
+    return (None, *tab, d_sky6, plane, d_emit)
 
 
 def _radiance_ct(g_rad, p, dev):
@@ -861,18 +920,22 @@ def _radiance_ct(g_rad, p, dev):
     return g_rad.to(torch.float32).contiguous()
 
 
+def _split(inputs):
+    """(11 tables, sky6, plane7, emission) of a trace's inputs."""
+    return inputs[:11], inputs[11], inputs[12], inputs[13]
+
+
 class _RegenTrace(torch.autograd.Function):
     """One recording forward (25 planes), kept for its backward."""
 
     @staticmethod
     def forward(ctx, spec, *inputs):
-        tables, sky6, plane7 = inputs[:11], inputs[11], inputs[12]
-        call = spec.call(tables, sky6, plane7)
+        call = spec.call(*_split(inputs))
         with tracing.span("spt.regen.forward") as sp:
             rad, cnt, (resf, resi) = regen_forward(call, spec.sample_offset, True)
             sp.add("live_iters", cnt)
         ctx.save_for_backward(resf, resi)
-        ctx.call, ctx.spec, ctx.has_plane = call, spec, plane7 is not None
+        ctx.call, ctx.spec, ctx.has_plane = call, spec, inputs[12] is not None
         ctx.mark_non_differentiable(cnt)
         return rad, cnt
 
@@ -882,8 +945,9 @@ class _RegenTrace(torch.autograd.Function):
         call = ctx.call
         g = _radiance_ct(g_rad, call.pixel_ids.shape[0], resf.device)
         with tracing.span("spt.regen.backward"):
-            d = _bwd_from_residuals(call, ctx.spec.sample_offset, resf, resi, g)
-        return _input_grads(*d, ctx.has_plane)
+            d_tab, d_sky, d_pl, d_em = _bwd_from_residuals(call, ctx.spec.sample_offset,
+                                                           resf, resi, g)
+        return _input_grads(d_tab, d_sky, d_pl, ctx.has_plane, d_em)
 
 
 def _stream_forward(call, spec, keep_idx):
@@ -914,15 +978,20 @@ def _stream_backward(ctx, g_rad, packs):
     d_tab = torch.zeros((call.n_spheres, 9), dtype=torch.float32, device=dev)
     d_sky = torch.zeros(6, dtype=torch.float32, device=dev)
     d_pl = torch.zeros(4, dtype=torch.float32, device=dev)
+    d_em = None
+    if call.emit is not None:
+        d_em = torch.zeros((call.n_spheres, 3), dtype=torch.float32, device=dev)
     for c, off in enumerate(ctx.spec.offsets()):
         with tracing.span("spt.regen.replay"):
             packed = packs[c] if packs else regen_forward(call, off, False)[2]
             resf, resi = regen_refwd(call, off, packed)
             del packed
-            dt, ds, dp = _bwd_from_residuals(call, off, resf, resi, g)
+            dt, ds, dp, de = _bwd_from_residuals(call, off, resf, resi, g)
             del resf, resi
             d_tab, d_sky, d_pl = d_tab + dt, d_sky + ds, d_pl + dp
-    return _input_grads(d_tab, d_sky, d_pl, ctx.has_plane)
+            if de is not None:
+                d_em = d_em + de
+    return _input_grads(d_tab, d_sky, d_pl, ctx.has_plane, d_em)
 
 
 class _RegenTraceStream(torch.autograd.Function):
@@ -931,11 +1000,10 @@ class _RegenTraceStream(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, *inputs):
-        tables, sky6, plane7 = inputs[:11], inputs[11], inputs[12]
-        call = spec.call(tables, sky6, plane7)
+        call = spec.call(*_split(inputs))
         rad, cnt, packs = _stream_forward(call, spec, keep_idx=True)
         ctx.save_for_backward(*packs)
-        ctx.call, ctx.spec, ctx.has_plane = call, spec, plane7 is not None
+        ctx.call, ctx.spec, ctx.has_plane = call, spec, inputs[12] is not None
         ctx.mark_non_differentiable(cnt)
         return rad, cnt
 
@@ -951,10 +1019,9 @@ class _RegenTraceCkstream(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, spec, *inputs):
-        tables, sky6, plane7 = inputs[:11], inputs[11], inputs[12]
-        call = spec.call(tables, sky6, plane7)
+        call = spec.call(*_split(inputs))
         rad, cnt, _ = _stream_forward(call, spec, keep_idx=False)
-        ctx.call, ctx.spec, ctx.has_plane = call, spec, plane7 is not None
+        ctx.call, ctx.spec, ctx.has_plane = call, spec, inputs[12] is not None
         ctx.mark_non_differentiable(cnt)
         return rad, cnt
 
@@ -965,8 +1032,9 @@ class _RegenTraceCkstream(torch.autograd.Function):
 
 def scene_inputs(scene):
     """The scene's differentiable inputs of the gradient kernels: (11
-    tables, sky6, plane7 or None).  r^2 is scan-only and the plane's unit
-    normal is not a parameter: both detached, as in the JAX package."""
+    tables, sky6, plane7 or None, emission or None).  r^2 is scan-only and
+    the plane's unit normal is not a parameter: both detached, as in the
+    JAX package."""
     c, a = scene.centers, scene.albedo
     tables = (
         c[:, 0], c[:, 1], c[:, 2], scene.radii,
@@ -977,7 +1045,7 @@ def scene_inputs(scene):
     plane7 = None
     if scene.plane is not None:
         plane7 = torch.cat([scene.plane[:3].detach(), scene.plane[3:]])
-    return (*tables, sky6, plane7)
+    return (*tables, sky6, plane7, scene.emission)
 
 
 def _trace_inputs(scene, camera, config):

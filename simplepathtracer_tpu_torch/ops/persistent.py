@@ -95,6 +95,18 @@ def sphere_table(tables) -> torch.Tensor:
         ).to(torch.float32).contiguous()
 
 
+def emit_table(emission, s_pad: int):
+    """The [s_pad, 4] emission table the emissive builds read (rgb, 0;
+    padding slots dark) from ``emission`` [S, 3], values only; None for
+    None."""
+    if emission is None:
+        return None
+    with torch.no_grad():
+        emit = torch.zeros((s_pad, 4), dtype=torch.float32, device=emission.device)
+        emit[:emission.shape[0], :3] = emission.detach()
+    return emit
+
+
 def pad_scene_tables(tables, multiple: int = 4):
     """Pad the 11 sphere tables to a multiple of ``multiple`` slots (the
     kernel's scan unroll).  Padding slots carry a NaN radius: the scan
@@ -195,11 +207,7 @@ def render_block_persistent(
     consts = torch.cat([sky6.to(f32), plane.to(f32), cam19.to(f32)]).contiguous()
     pix = pixel_ids.to(torch.int32).contiguous()
     k0, k1 = key_words(key2)
-    # The emissive build reads (rgb, 0) float4 rows, padding slots dark.
-    emit = None
-    if emission is not None:
-        emit = torch.zeros((s_pad, 4), dtype=f32, device=dev)
-        emit[:s, :3] = emission
+    emit = emit_table(emission, s_pad)
 
     out = torch.empty((p, 3), dtype=f32, device=dev)
     cnt = torch.empty((p,), dtype=f32, device=dev) if return_counts else None

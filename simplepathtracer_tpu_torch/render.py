@@ -162,7 +162,9 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
     two-sided soft-silhouette estimator: a stochastic-transparency scan
     (acceptance and validity coins, the strongest rejected front blocker),
     a stochastic plane-vs-sphere crossing coin on plane scenes, and the
-    detached ratio ``_soft_ratio`` on the entry throughput.
+    detached ratio ``_soft_ratio`` on the entry throughput.  A scene with
+    ``emission`` adds, at each live sphere hit, the throughput (after that
+    ratio) times the winner's emission.
 
     The route is ``routes.pick``'s: ``trace_rays_pallas``,
     ``trace_rays_fused``, or the bounce below (``plain``; ``hits``: its
@@ -264,6 +266,10 @@ def trace_rays(origins, dirs, keys, scene: Scene, config: RenderConfig):
         miss = alive & ~hit.hit
         rad = rad + tp * sky_color(d, scene.sky_lo, scene.sky_hi) * miss[:, None]
         live = alive & hit.hit
+        if scene.emission is not None:
+            # Emitted light at a live sphere hit (the plane emits nothing).
+            lit = live if pw is None else live & ~pw
+            rad = rad + tp * scene.emission[hit.index] * lit[:, None]
         surviving = live & scattered
         tp = torch.where(surviving[:, None], tp * att, tp)
         o = torch.where(live[:, None], hit.point, o)
@@ -359,7 +365,7 @@ def _requires_grad(scene, camera=None) -> bool:
     """Whether a scene leaf (or, given a camera, a camera leaf) needs a
     gradient."""
     leaves = [scene.centers, scene.radii, scene.albedo, scene.fuzz, scene.ior,
-              scene.sky_lo, scene.sky_hi, scene.plane]
+              scene.sky_lo, scene.sky_hi, scene.plane, scene.emission]
     if camera is not None:
         leaves += [camera.origin, camera.lookat, camera.vup, camera.vfov_deg,
                    camera.aperture, camera.focus_dist]
@@ -481,7 +487,8 @@ def render(scene: Scene, camera: Camera, config: RenderConfig, key) -> torch.Ten
     """One-shot render on the scene's device: [H, W, 3] gamma-corrected
     float image in [0, 1].  What its route carries is in ``routes.CAPS``:
     the persistent route (``use_pallas``) renders soft silhouettes hard, as
-    the JAX package's persistent kernel does, and alone adds emission."""
+    the JAX package's persistent kernel does; it, the regeneration routes and
+    the plain route add emission."""
     with tracing.span("spt.render", emitters=scene.emitters()):
         state = init_state(config, key, device=scene.device)
         state = accumulate(state, scene, camera, config, config.spp)

@@ -3,7 +3,8 @@
 A route is one path from an entry point down to the kernels; ``CAPS`` says
 what each carries.  ``pick`` chooses a call's route from the config's
 kernel flags, in the JAX package's order, then falls back or raises where
-the scene or config needs what the route lacks; a route's own entry point
+the scene or config needs what the route lacks (an emissive scene never
+falls back: a route without emission raises); a route's own entry point
 raises (``check``).  The route does not depend on the device (a wrapper
 takes its plain version on a CPU tensor): the device enters where a config
 is made ready to differentiate (``grad_safe_config``, ``fit_config``).
@@ -44,11 +45,14 @@ _GRAD_RAY_BUDGET = 2_000_000
 _GRAD_RAY_BOUNCE_BUDGET_FUSED = 500_000_000
 # Lane-iterations (spp x pixels x max_depth) per spp chunk on the regen
 # routes.  A chunk's backward holds 25 residual and 9 cotangent planes, 136 B
-# a lane-iteration (soft: 172 B): 27.2 GB (34.4 GB), a third (under half) of
-# an H100's 80 GB, beside the packed winner indices and the caller's
-# tensors.  At the cover frame: 20-spp chunks (n_iter 207: 27.0 GB hard,
-# 34.2 GB soft); the soft fit's 50 decoupled spp take 10-spp chunks (17.8
-# GB).  A larger chunk saves only launches: work and traffic grow with it.
+# a lane-iteration (soft: 30 and 13, 172 B; an emissive scene adds the
+# emission's 3 cotangent planes: 148 B, soft 184 B): 27.2-36.8 GB, a third
+# to under half of an H100's 80 GB, beside the packed winner indices and the
+# caller's tensors.  At the cover frame: 20-spp chunks (n_iter 207: 27.0 GB
+# hard, 34.2 GB soft); the soft fit's 50 decoupled spp take 10-spp chunks
+# (17.8 GB).  At smallpt's 1024x768 frame, depth 30: 8-spp chunks (n_iter
+# 243, 191.1 M lane-iterations: 35.2 GB soft and emissive).  A larger chunk
+# saves only launches: work and traffic grow with it.
 _GRAD_ITER_BUDGET_REGEN = 200_000_000
 # Bytes of packed winner indices (4 B per 3 lane-iterations; soft: the
 # blocker indices too, 8 B) the streamed route may keep across all spp:
@@ -84,10 +88,10 @@ CAPS = {
     BOUNCE_STEP: Caps(plane=True, soft="hard", emission=False),
     # The regeneration kernels over spp chunks: an index-only forward over
     # every sample, then per chunk a scan-free re-forward and the backward.
-    REGEN_STREAM: Caps(plane=True, soft=True, emission=False, **_REGEN,
+    REGEN_STREAM: Caps(plane=True, soft=True, emission=True, **_REGEN,
                        slots=IDX_PACK_MAX_SPHERES, fallback=REGEN),
     # The same kernels, one recording forward a chunk.
-    REGEN: Caps(plane=True, soft=True, emission=False, **_REGEN),
+    REGEN: Caps(plane=True, soft=True, emission=True, **_REGEN),
     # The per-bounce fused kernels on raygen's camera rays.
     FUSED_RAYGEN: Caps(plane=False, soft=True, emission=False, **_FUSED, fallback=FUSED),
     # The fused kernels on explicit rays.
@@ -96,7 +100,7 @@ CAPS = {
     HITS: Caps(plane=False, soft=False, emission=False, budget=_GRAD_RAY_BUDGET,
                fallback=PLAIN),
     # The eager wavefront (render.trace_rays), autograd.
-    PLAIN: Caps(plane=True, soft=True, emission=False, budget=_GRAD_RAY_BUDGET),
+    PLAIN: Caps(plane=True, soft=True, emission=True, budget=_GRAD_RAY_BUDGET),
 }
 
 class Route(NamedTuple):
@@ -140,9 +144,19 @@ def _lacks(name: str, scene, config: RenderConfig):
     """(exception class, what) of the first thing the call needs that route
     ``name`` does not carry, or None."""
     caps = CAPS[name]
-    if not caps.emission and scene.emitters():
-        return NotImplementedError, ("Scene.emission: only the persistent route adds emitted "
-                                     "light, and dropping it would render another image")
+    # (emitters() reads the table's count back from the device once a
+    # version of it: asked only where the answer can refuse the call.)
+    if scene.emission is not None and (not caps.emission or (config.camera_grad and caps.budget)) \
+            and (scene.emission.requires_grad or scene.emitters()):
+        if not caps.emission:
+            return NotImplementedError, ("Scene.emission: only the persistent, regeneration and "
+                                         "plain routes add emitted light (and only the last two "
+                                         "differentiate it); dropping it would render another "
+                                         "image")
+        # camera_grad: the route must not depend on the device, and on CUDA
+        # camera gradients take the fused kernels, which add no emission.
+        return NotImplementedError, ("Scene.emission under camera_grad: the camera-gradient "
+                                     "kernels (fused) add no emitted light")
     if not caps.plane and scene.plane is not None:
         return ValueError, "a ground plane: it is sphere-only"
     if not caps.soft and config.silhouette_softness > 0.0:
@@ -192,7 +206,7 @@ def pick(scene, config: RenderConfig, *, entry: str = BLOCK, pixels: int | None 
     name = _asked(config, entry, samples)
     if scene is not None:
         while (lack := _lacks(name, scene, config)) is not None:
-            if CAPS[name].fallback is None:
+            if CAPS[name].fallback is None or lack[0] is NotImplementedError:
                 raise _refusal(name, lack)
             name = CAPS[name].fallback
     caps = CAPS[name]

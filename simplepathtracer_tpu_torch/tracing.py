@@ -39,8 +39,9 @@ A new period of tracing clears the last period's records; at most
 ``MAX_RECORDS`` are kept, each span beyond counts ``tracing.dropped``.
 
 ``count(name, n)`` keeps process-wide integer counters, always on:
-``launch.<kernel>[.<variant>]`` for each launch of a CUDA kernel,
-``plain.<function>`` for each call of a plain version, and
+``launch.<kernel>[.<variant>]`` for each launch of a CUDA kernel (and
+``launch.<kernel>[.<variant>].emit`` beside it for the launches of an
+emissive scene), ``plain.<function>`` for each call of a plain version, and
 ``shard.reduce_bytes``.  ``counts()`` returns a copy.  The state is the
 process's, by design: it spans every caller, as the profiler does.
 """

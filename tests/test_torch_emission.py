@@ -1,5 +1,5 @@
-"""Emissive spheres (``Scene.emission``) on the forward render, and their
-refusal everywhere else.
+"""Emissive spheres (``Scene.emission``) on the forward render, on the
+routes that carry them, and their refusal everywhere else.
 
 On the CPU ``render_block_persistent`` takes its plain version, which adds
 the emission term in the kernel's formulation; it is held bit for bit
@@ -8,9 +8,11 @@ against the benchmark's frozen reference of lit scenes
 port) on smallpt's Cornell box and on cover scenes with random emitters.  A
 scene without emission, or with an all-zero table, renders the sums it
 rendered before emission existed (``forward.py``, the frozen reference of
-unlit scenes).  Every route that adds no emitted light raises on an
-emissive scene.  The ``cuda`` tests hold the kernel's emissive build
-against the plain version on the card:
+unlit scenes).  The regeneration and plain routes (and ``fit`` on the
+CPU's plain route) give the reference's sums, paths and loss; every route
+that adds no emitted light raises on an emissive scene (gradients of
+emission: ``test_torch_emission_grad.py``).  The ``cuda`` tests hold the
+kernel's emissive build against the plain version on the card:
 
     python -m pytest --noconftest tests/test_torch_emission.py -m cuda
 """
@@ -29,7 +31,7 @@ from simplepathtracer_tpu_torch import checkpoint, convert, tracing
 from simplepathtracer_tpu_torch.camera import view_frame
 from simplepathtracer_tpu_torch.ops import grad as fused
 from simplepathtracer_tpu_torch.ops import grad_regen, persistent
-from simplepathtracer_tpu_torch.ops.sampling import ray_keys
+from simplepathtracer_tpu_torch.ops.sampling import fold_in, ray_keys
 from simplepathtracer_tpu_torch.inverse import fit_sharded
 from simplepathtracer_tpu_torch.render import _persistent_args, render_pixel_block, trace_rays_pallas
 
@@ -37,7 +39,7 @@ BENCH = Path(__file__).resolve().parent.parent / "port_bench"
 if str(BENCH) not in sys.path:
     sys.path.insert(0, str(BENCH))
 
-from pb_reference import forward, forward_lit  # noqa: E402
+from pb_reference import camera as ref_camera, forward, forward_lit, grad_lit  # noqa: E402
 
 
 def _smallpt(device="cpu"):
@@ -138,7 +140,8 @@ def _target(cfg):
 
 
 def _routes():
-    """(name, call(scene, cam, cfg)) for each route that adds no emission."""
+    """(name, call(scene, cam, cfg)) for each route but the persistent one;
+    those in ``CARRIES`` add emission, the others refuse it."""
     def keys(cfg):
         pix = torch.arange(cfg.num_pixels)
         return ray_keys(tpt.make_key(1), pix, torch.zeros_like(pix))
@@ -191,10 +194,95 @@ def _routes():
     ]
 
 
+def _cam19(cam, cfg):
+    return ref_camera.camera_constants(
+        {k: getattr(cam, k) for k in ("origin", "lookat", "vup", "vfov_deg", "aperture",
+                                       "focus_dist")}, cfg.width, cfg.height)
+
+
+def _paths(scene, cam, cfg):
+    """(pixel ids, sample ids, key, the reference's radiance per path) of
+    every pixel's samples 0 and 1."""
+    pix = torch.arange(cfg.num_pixels).repeat(2)
+    sid = torch.arange(2).repeat_interleave(cfg.num_pixels)
+    key = tpt.make_key(1)
+    want, _, _ = forward_lit.trace(_ref_tables(scene), _cam19(cam, cfg),
+                                   tuple(int(k) for k in key), pix, sid, _rcfg(cfg))
+    return pix, sid, key, want
+
+
+def _agrees_trace_rays(scene, cam, cfg):
+    pix, sid, key, want = _paths(scene, cam, cfg)
+    ray = ref_camera.camera_ray(_cam19(cam, cfg), tuple(int(k) for k in key), pix, sid,
+                                cfg.width, cfg.height)
+    got = tpt.trace_rays(torch.stack(ray[:3], -1), torch.stack(ray[3:], -1),
+                         ray_keys(key, pix, sid), scene, cfg.replace(use_pallas=False))
+    return got, want
+
+
+def _agrees_render_pixels(scene, cam, cfg):
+    pix, sid, key, want = _paths(scene, cam, cfg)
+    return tpt.render_pixels(scene, cam, cfg.replace(use_pallas=False), key, pix, sid), want
+
+
+def _agrees_block(regen_call):
+    def check(scene, cam, cfg):
+        pix = torch.arange(cfg.num_pixels)
+        key = tpt.make_key(1)
+        want, _ = forward_lit.pixel_sums(_ref_tables(scene), _cam19(cam, cfg),
+                                         tuple(int(k) for k in key), pix, 0, 2, _rcfg(cfg))
+        flags = dict(use_pallas=False, use_pallas_grad=True, grad_regen=True)
+        if regen_call:
+            got = grad_regen.render_block_grad_regen(scene, cam, cfg.replace(**flags), key, pix,
+                                                     0, 2)
+        else:
+            got = render_pixel_block(scene, cam, cfg.replace(**flags), key, pix, 0, 2)
+        return got, want
+    return check
+
+
+def _agrees_fit(scene, cam, cfg):
+    """One step of ``fit`` (soft 0.02, the decoupled loss, every leaf) on the
+    CPU's plain route: its loss is the lit reference's, and the emission
+    leaf moves."""
+    key = tpt.make_key(2)
+    fitted, losses = tpt.fit(scene, _target(cfg), cam, cfg, key, steps=1, device="cpu")
+    leaves = {k: getattr(scene, k) for k in grad_lit.SCENE_LEAVES}
+    static = {"scene": dict(_ref_tables(scene)),
+              "camera": {k: getattr(cam, k) for k in ("origin", "lookat", "vup", "vfov_deg",
+                                                       "aperture", "focus_dist")}}
+    want, grads, _ = grad_lit.loss_and_grad(
+        leaves, static, _target(cfg), tuple(int(k) for k in fold_in(key, 0)),
+        _rcfg(cfg), 0.02, decoupled=True)
+    assert not torch.equal(fitted.emission, scene.emission) and grads["emission"].norm() > 0
+    return torch.tensor([losses[0]]), torch.tensor([want])
+
+
+# The routes that add emission, and what each is held to: the paths' or
+# the sums' radiance of ``forward_lit`` (the regeneration and plain routes
+# share its formulation at this size: bit for bit, held to 1e-6 for the
+# sums' order), or the loss of ``grad_lit``.
+CARRIES = {
+    "trace_rays eager": _agrees_trace_rays,
+    "render_pixels eager": _agrees_render_pixels,
+    "regen route": _agrees_block(False),
+    "render_block_grad_regen": _agrees_block(True),
+    "fit": _agrees_fit,
+}
+
+
 @pytest.mark.parametrize("name,call", _routes(), ids=[n for n, _ in _routes()])
 def test_routes_without_emission_refuse_an_emissive_scene(name, call):
+    """Each route that adds no emitted light raises on an emissive scene;
+    each that adds it (``CARRIES``: the regeneration and plain routes, and
+    ``fit`` on the CPU's plain route) agrees with the lit reference."""
     scene, cam, cfg = _smallpt()
     cfg = cfg.replace(width=8, height=4, spp=2, max_depth=3)
+    if name in CARRIES:
+        got, want = CARRIES[name](scene, cam, cfg)
+        assert want.abs().sum() > 0
+        assert torch.allclose(got, want, rtol=1e-6, atol=0.0), name
+        return
     with pytest.raises(NotImplementedError, match="emission"):
         call(scene, cam, cfg)
 

@@ -198,8 +198,8 @@ def test_bucket_matches_jax_kernel():
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_bucket_key_patterns_match_jax_kernel(pattern, n_buckets):
     """The plain version the kernel is held to on the card, against the
-    TPU kernel (interpret mode) on the card tests' key patterns, with 9 and
-    4 columns.  Both are held to the float64 sum of the rows that name a
+    TPU kernel (interpret mode) on the card tests' key patterns, with each
+    column count the kernel is built for (9, 4 and the emissive 12).  Both are held to the float64 sum of the rows that name a
     slot under chip_smoke.py's bound for the kernel (rtol 1e-5, atol 1e-7 of
     max |cotangent|, 8 float32 roundings of the entry's absolute row sum):
     each sums in its own order, the TPU kernel after a bf16x3 split.  The

@@ -5,8 +5,10 @@ each combination of the config's kernel flags and the scene's features
 Each case runs one entry point on the CPU at 16x8 px, 2 spp in chunks of 1,
 depth 3, and reads which route ran from the plain versions' call counters
 (``tracing.counts()``): forward, and for the gradient entries the backward
-too.  An emissive scene raises on every route but the persistent one.  The
-same call then goes to ``routes.pick`` as a pure function, and so does the
+too.  An emissive scene raises where the flags name a route that adds no
+emission (every route but the persistent, regeneration and plain ones),
+with no fallback.  The same call then goes to ``routes.pick`` as a pure
+function, and so does the
 cover preset's config on CUDA (a config decision: no card needed), where
 ``grad_safe_config`` / ``fit_config`` give the route and spp chunk the
 cover cells differentiate with.
@@ -65,6 +67,22 @@ def _want(entry, cfg, plane, soft):
     if cfg.use_pallas_hits and not cfg.use_pallas_grad and not (plane or soft):
         return "hits"
     return "plain"
+
+
+# The routes that add emission (the streamed regeneration route's own name
+# is "regen_stream"; ``_asked`` names both "regen").
+LIT = ("persistent", "regen", "plain")
+
+
+def _asked(entry, cfg):
+    """The route the flags name for ``entry``, before any fallback."""
+    if cfg.use_pallas:
+        return "bounce_step" if entry == "render_pixels" else "persistent"
+    if cfg.use_pallas_grad:
+        if entry != "render_pixels" and cfg.grad_regen and not cfg.camera_grad:
+            return "regen"
+        return "fused"
+    return "hits" if cfg.use_pallas_hits else "plain"
 
 
 def _scene(plane, emit):
@@ -145,7 +163,7 @@ def test_route_table(entry, flags, plane, soft, emit):
             gcover = fcover
         cover = gcover
     want_cover = _want(entry, cover, plane, soft)
-    if emit and want_cover != "persistent":
+    if emit and _asked(entry, cover) not in LIT:
         with pytest.raises(NotImplementedError, match="emission"):
             _pick(entry, scene, cover)
     else:
@@ -155,7 +173,7 @@ def test_route_table(entry, flags, plane, soft, emit):
         cfg = fit_config(cfg, "cuda")
     run_cfg = cfg if entry in ("render", "render_pixels") else tpt.grad_safe_config(cfg, "cpu")
     want = _want(entry, run_cfg, plane, soft)
-    if emit and want != "persistent":
+    if emit and _asked(entry, run_cfg) not in LIT:
         with pytest.raises(NotImplementedError, match="emission"):
             _pick(entry, scene, run_cfg)
         with pytest.raises(NotImplementedError, match="emission"):

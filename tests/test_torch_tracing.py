@@ -114,7 +114,8 @@ def test_soft_regen_fit_step_span_tree():
         ("spt.regen.replay", "spt.fit.backward"), ("spt.regen.replay", "spt.fit.backward"),
         ("spt.fit.update", "spt.fit.step"), ("spt.fit.sync", "spt.fit.step"),
     ]
-    assert requests == {recs[0]["id"]} and recs[0]["counts"] == {"step": 0}
+    # The step's span names the start scene's emitters (none here).
+    assert requests == {recs[0]["id"]} and recs[0]["counts"] == {"step": 0, "emitters": 0}
     # The plain versions count live lane iterations but have no thread slots.
     for r in recs[2:4]:
         assert r["counts"]["live_iters"] > 0 and "thread_iters" not in r["counts"]
